@@ -4,16 +4,25 @@
 Drives the port's main path once at the flagship's full width: GDRN-R34 from
 configs/gdrn/synth/a6_cPnP_synth.py (256x256 crops, 256 head filters, 64
 regions, 10 classes) with seeded random weights serves 4 requests of 64
-crops under bf16 autocast, then CustomEvaluator scores the served poses,
-ADD-S of the 4 symmetric objects going through the hand-written CUDA
-nearest-neighbour kernel (gdrnet_tpu_torch/csrc/nn_min_dist.cu).
+crops under bf16 autocast. CustomEvaluator scores the served poses, ADD-S of
+the 4 symmetric objects going through the hand-written CUDA nearest-neighbour
+kernel (gdrnet_tpu_torch/csrc/nn_min_dist.cu). Then the flagship's BOP
+scoring runs as engine/tester.py:315-332 runs it: the served poses go to a
+BOP19 CSV and back, and eval/bop_score.score_results scores them with the
+config's VAL.ERROR_TYPES (ad,rete,re,te,proj,vsd,mssd,mspd) against a
+BOP-layout test split of the dataset's ten meshes (tools/gen_scale_dataset.py
+mesh_zoo) that this script writes; VSD's depth renders go through the
+hand-written CUDA z-buffer kernel (gdrnet_tpu_torch/csrc/rasterize_xyz.cu).
 
-Phases, one line each: device, kernel build, kernel against its plain
-PyTorch version and cKDTree, f32 forward on the GPU against the CPU, bf16
-serving, scoring (kernel against the plain version), throughput. Any
-failure raises; the exit code is then non-zero and the result line is not
-printed. The last line is {"ok": true, "device": {...}}; the line before it
-holds the kernels' launches, errors and times.
+Phases, one line each (or one per case): device, kernel builds (both nvcc
+runs at once), nn_min_dist against its plain PyTorch version and cKDTree,
+rasterize_xyz against its plain version, f32 forward on the GPU against the
+CPU, bf16 serving, CustomEvaluator scoring (kernel against the plain
+version), the BOP split, BOP scoring on the card and against the plain
+versions on the CPU, throughput. Any failure raises; the exit code is then
+non-zero and the result line is not printed. The last line is
+{"ok": true, "device": {...}}; the line before it holds the kernels'
+launches, errors and times.
 
 Run from the repository root:  python3 chip_smoke.py
 It needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and scipy.
@@ -21,27 +30,37 @@ It needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and scipy.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from gdrnet_tpu_torch import csrc, merged_config
+from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts
+from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.data.synthetic import (
     poses_near,
     synthetic_object_models,
     synthetic_roi_batch,
+    write_bop_test_split,
 )
 from gdrnet_tpu_torch.engine.steps import make_predict_step
+from gdrnet_tpu_torch.eval import bop_score
+from gdrnet_tpu_torch.eval.bop_writer import load_bop_results, save_bop_results
 from gdrnet_tpu_torch.eval.custom_evaluator import RECALL_KEYS, CustomEvaluator
 from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
 from gdrnet_tpu_torch.ops import kernels
 
-FLAGSHIP = str(Path(__file__).resolve().parent / "configs/gdrn/synth/a6_cPnP_synth.py")
+REPO = Path(__file__).resolve().parent
+DEV = "cuda"  # device of the rasterize_xyz and BOP phases
+FLAGSHIP = str(REPO / "configs/gdrn/synth/a6_cPnP_synth.py")
 # the synth dataset's objects (tools/gen_scale_dataset.py), in class order
 OBJECTS = ["cube", "brick", "plate", "tower", "pyramid", "lblock", "wedge", "octa",
            "bar", "hexprism"]
@@ -53,6 +72,14 @@ KDTREE_RTOL = 1e-4             # vs cKDTree: f64 search on the f32 points
 FWD_ROT_ATOL, FWD_TRANS_RTOL, FWD_TRANS_ATOL = 1e-3, 1e-3, 1e-4
 ORTHO_ATOL = 1e-4              # |R R^T - I| and |det R - 1| of the f32 decode
 BENCH_BATCH = 1024             # bench.py's serving batch
+# rasterize_xyz against its plain version on the card: both read one face
+# table and round every operation alike, so hit masks must be equal and
+# depth / xyz within this many metres (bitwise equality is expected)
+RASTER_ATOL = 1e-6
+# per-pair VSD errors, card (kernel) against CPU (plain versions): one pixel
+# of a union of at least 1,000
+VSD_ATOL = 1e-3
+PER_IMAGE, IMAGES_PER_SCENE = 8, 8  # the BOP split: 8 instances an image, 4 scenes of 8 images
 
 
 def log(phase: str, **fields) -> None:
@@ -78,15 +105,24 @@ def to_device(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def phase_kernel() -> dict:
-    t0 = time.perf_counter()
-    lib_path = csrc.build("nn_min_dist")
-    build_s = time.perf_counter() - t0
-    ptxas = [ln.split("ptxas info    :")[-1].strip()
-             for ln in Path(f"{lib_path}.log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    log("build", kernel="nn_min_dist", seconds=f"{build_s:.2f}", ptxas=" | ".join(ptxas))
+def phase_build(names=("nn_min_dist", "rasterize_xyz")) -> None:
+    """Build every kernel from the checkout's sources, one nvcc each, all
+    started together."""
+    def one(name):
+        t0 = time.perf_counter()
+        path = csrc.build(name)
+        return name, path, time.perf_counter() - t0
 
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(one, names))
+    for name, lib_path, build_s in built:
+        ptxas = [ln.split("ptxas info    :")[-1].strip()
+                 for ln in Path(f"{lib_path}.log").read_text().splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log("build", kernel=name, seconds=f"{build_s:.2f}", ptxas=" | ".join(ptxas))
+
+
+def phase_kernel() -> dict:
     from scipy import spatial
 
     g = torch.Generator().manual_seed(0)
@@ -151,6 +187,249 @@ def phase_forward_f32(cfg32, state_dict: dict, batch: dict) -> None:
         trans_rtol=FWD_TRANS_RTOL, trans_atol=FWD_TRANS_ATOL, check="ok")
 
 
+def mesh_tools():
+    """tools/gen_scale_dataset.py (stdlib + numpy at import): mesh_zoo and
+    _subdivide, loaded from its path."""
+    spec = importlib.util.spec_from_file_location("gen_scale_dataset",
+                                                  REPO / "tools/gen_scale_dataset.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def raster_args(verts, faces, K, R, t, origins) -> list:
+    return [torch.as_tensor(np.array(verts, np.float32), device=DEV),
+            torch.as_tensor(np.asarray(faces, np.int32), device=DEV),
+            *(torch.as_tensor(np.array(x, np.float32), device=DEV) for x in (K, R, t)),
+            torch.as_tensor(np.asarray(origins, np.float32), device=DEV).contiguous()]
+
+
+def raster_case(case: str, args: list, h: int, w: int) -> tuple[float, int]:
+    """rasterize_xyz against rasterize_xyz_ref on the card at one shape;
+    returns (max abs difference, hit pixels)."""
+    d1, x1 = kernels.rasterize_xyz(*args, h, w)
+    d2, x2 = kernels.rasterize_xyz(*args, h, w)
+    dr, xr = kernels.rasterize_xyz_ref(*args, h, w)
+    torch.cuda.synchronize()
+    if not (torch.equal(d1, d2) and torch.equal(x1, x2)):
+        raise AssertionError(f"rasterize_xyz differs between runs ({case})")
+    unequal = int(((d1 > 0) != (dr > 0)).sum())
+    dd = float((d1 - dr).abs().max())
+    dx = float((x1 - xr).abs().max())
+    bitwise = torch.equal(d1, dr) and torch.equal(x1, xr)
+    hits = int((d1 > 0).sum())
+    log("rasterize_xyz", case=case, shape=f"{args[2].shape[0]}x{h}x{w}",
+        faces=args[1].shape[0], hit_px=hits, unequal_hit_px=unequal,
+        max_depth_diff=f"{dd:.3e}", max_xyz_diff=f"{dx:.3e}", bitwise_equal=bitwise)
+    if unequal or dd > RASTER_ATOL or dx > RASTER_ATOL:
+        raise AssertionError(f"rasterize_xyz vs plain ({case}): {unequal} unequal hit "
+                             f"pixels, depth {dd}, xyz {dx} (atol {RASTER_ATOL})")
+    return max(dd, dx), hits
+
+
+def centred_origins(K, t, tile: int) -> np.ndarray:
+    """Window origins that centre a tile x tile window on each projected
+    object centre (integer pixels, not clamped to the frame)."""
+    c = np.einsum("ij,bj->bi", K, t)
+    return np.stack([np.floor(c[:, 0] / c[:, 2]) - tile // 2,
+                     np.floor(c[:, 1] / c[:, 2]) - tile // 2], axis=1).astype(np.float32)
+
+
+def phase_raster(gsd) -> dict:
+    zoo = gsd.mesh_zoo()
+    poses = synthetic_roi_batch(batch_size=16, input_res=32, out_res=8, num_classes=10, seed=50)
+    K, R, t = poses["roi_cams"][0], poses["gt_ego_rot"], poses["gt_trans"]
+    Ks = np.broadcast_to(K, (16, 3, 3))
+    sub2 = {name: gsd._subdivide(*gsd._subdivide(v, f)) for name, v, f, _ in zoo
+            if name in ("cube", "tower")}
+    worst, cases = 0.0, []
+    for name, v, f, _ in zoo:  # each zoo mesh, 16 poses, 128^2 windows
+        cases.append((f"zoo/{name}", raster_args(v, f, Ks, R, t, centred_origins(K, t, 128)),
+                      128, 128))
+    tower_v, tower_f = zoo[3][1], zoo[3][2]
+    cases.append(("zoo256/tower", raster_args(tower_v, tower_f, Ks, R, t,
+                                              centred_origins(K, t, 256)), 256, 256))
+    for name, (v, f) in sub2.items():
+        cases.append((f"subdiv2/{name}", raster_args(v, f, Ks, R, t,
+                                                    centred_origins(K, t, 256)), 256, 256))
+    cases.append(("full_frame/hexprism", raster_args(zoo[9][1], zoo[9][2], K[None], R[:1],
+                                                     t[:1], np.zeros((1, 2))), 480, 640))
+    tri = np.array([[-0.05, -0.04, 0.0], [0.06, -0.03, 0.01], [0.0, 0.05, -0.01]], np.float32)
+    cases.append(("one_face", raster_args(tri, [[0, 1, 2]], Ks[:4], R[:4], t[:4],
+                                          centred_origins(K, t[:4], 64)), 64, 64))
+    cv, cf = sub2["cube"]
+    cases.append(("ragged_faces_777", raster_args(cv, cf[:777], Ks[:3], R[:3], t[:3],
+                                                  centred_origins(K, t[:3], 96)), 90, 100))
+    # objects at the frame's corners, their windows hanging over its edges
+    corners = np.array([[10.0, 470.0, 1.0], [630.0, 5.0, 1.0]], np.float32)
+    t_edge = (0.6 * corners @ np.linalg.inv(K).T).astype(np.float32)
+    cases.append(("off_frame", raster_args(tower_v, tower_f, Ks[:2], R[:2], t_edge,
+                                           centred_origins(K, t_edge, 128)), 128, 128))
+    behind = t[:2] * np.array([1.0, 1.0, -1.0], np.float32)
+    cases.append(("behind_camera", raster_args(tower_v, tower_f, Ks[:2], R[:2], behind,
+                                               centred_origins(K, t[:2], 128)), 128, 128))
+    for case, args, h, w in cases:
+        err, hits = raster_case(case, args, h, w)
+        worst = max(worst, err)
+        if (case == "behind_camera") != (hits == 0):
+            raise AssertionError(f"rasterize_xyz {case}: {hits} hit pixels")
+    log("rasterize_xyz", check="ok", cases=len(cases), atol=RASTER_ATOL,
+        worst_abs_err=f"{worst:.3e}")
+
+    # time in turns, plain, kernel, kernel, plain: the main path's shape (a
+    # 16-pose batch of 128^2 windows over a zoo mesh), then a heavy one
+    times = {}
+    for label, args, hw, n_plain in (
+            ("16x128x128/tower_448", cases[3][1], 128, 10),
+            ("16x256x256/tower_subdiv2_7168", cases[12][1], 256, 3)):
+        plain = [cuda_times(lambda: kernels.rasterize_xyz_ref(*args, hw, hw), n_plain, 1)]
+        kern = [cuda_times(lambda: kernels.rasterize_xyz(*args, hw, hw), 20) for _ in range(2)]
+        plain.append(cuda_times(lambda: kernels.rasterize_xyz_ref(*args, hw, hw), n_plain, 1))
+        kern, plain = np.concatenate(kern), np.concatenate(plain)
+        # the wrapper's PyTorch prologue alone (the face table both versions read)
+        table = cuda_times(lambda: kernels.raster_face_tables(args[0], args[0], *args[1:5]), 20)
+        times[label] = (float(np.median(kern)), float(np.median(plain)))
+        pairs = args[2].shape[0] * hw * hw * args[1].shape[0]
+        log("rasterize_xyz_time", shape=label, order="plain,kernel,kernel,plain",
+            kernel_median_ms=f"{np.median(kern):.4f}", kernel_max_ms=f"{kern.max():.4f}",
+            kernel_n=len(kern), plain_median_ms=f"{np.median(plain):.4f}",
+            plain_max_ms=f"{plain.max():.4f}", plain_n=len(plain),
+            face_table_median_ms=f"{np.median(table):.4f}",
+            pixel_face_pairs_per_s=f"{pairs / np.median(kern) * 1e3:.3e}")
+    ms, plain_ms = times["16x128x128/tower_448"]
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def bop_rows(keys, classes, R, t) -> list[dict]:
+    """BOP19 result rows for poses R [N,3,3], t [N,3] (metres) of instance n
+    in image keys[n] = (scene_id, im_id), object class classes[n]."""
+    return [{"scene_id": int(k[0]), "im_id": int(k[1]), "obj_id": int(c) + 1, "score": 1.0,
+             "R": R[i], "t": t[i] * 1000.0, "time": -1.0}
+            for i, (k, c) in enumerate(zip(keys, classes))]
+
+
+def score(cfg, results, records, models, device, error_types=None) -> dict:
+    """bop_score.score_results as engine/tester.py:320-332 calls it (with
+    cfg.VAL.ERROR_TYPES unless error_types names others)."""
+    return bop_score.score_results(
+        results, records, models, error_types=error_types or cfg.VAL.ERROR_TYPES,
+        n_top=cfg.VAL.N_TOP,
+        sym_objs=[o for o in cfg.DATASETS.SYM_OBJS if o in models.objs],
+        image_width=models.meta.width, precision=cfg.VAL.get("EVAL_PRECISION", False),
+        device=device)
+
+
+def phase_bop_split(cfg, gsd, requests, root: str) -> dict:
+    """The requests' own GT poses and classes as a BOP-layout test split."""
+    classes = np.concatenate([r["roi_classes"] for r in requests])
+    R_gt = np.concatenate([r["gt_ego_rot"] for r in requests])
+    t_gt = np.concatenate([r["gt_trans"] for r in requests])
+    zoo = gsd.mesh_zoo()
+    t0 = time.perf_counter()
+    meta, keys = write_bop_test_split(root, zoo, classes, R_gt, t_gt, requests[0]["roi_cams"][0],
+                                      gsd.W_DEF, gsd.H_DEF, PER_IMAGE, IMAGES_PER_SCENE,
+                                      device=DEV)
+    write_s = time.perf_counter() - t0
+    records = load_bop_scene_dicts(meta, "test")
+    models = ObjectModels(meta, num_pm_points=cfg.MODEL.CDPN.PNP_NET.NUM_PM_POINTS,
+                          num_fps=cfg.MODEL.CDPN.ROT_HEAD.NUM_REGIONS)
+    log("bop_split", scenes=len(requests), images=len(classes) // PER_IMAGE,
+        instances=len(classes), gt_records_visible=len(records),
+        faces=",".join(str(len(z[2])) for z in zoo), write_s=f"{write_s:.2f}",
+        load_s=f"{time.perf_counter() - t0 - write_s:.2f}")
+    if not all("depth_path" in r for r in records) or len(records) < len(classes) // 2:
+        raise AssertionError("bop_split: records without depth, or most instances hidden")
+    return {"keys": keys, "classes": classes, "R_gt": R_gt, "t_gt": t_gt,
+            "records": records, "models": models}
+
+
+def compare_with_plain(cfg, results, split, label: str) -> None:
+    """Scene 1's scoring on the card against the plain versions on the CPU:
+    per-pair VSD errors within VSD_ATOL, every recall equal except where a
+    pair's VSD error lies within VSD_ATOL of a threshold."""
+    models = split["models"]
+    records = [r for r in split["records"] if r["scene_id"] == 1]
+    results = [r for r in results if r["scene_id"] == 1]
+    t0 = time.perf_counter()
+    plain = score(cfg, results, records, models, "cpu")
+    plain_s = time.perf_counter() - t0
+    card = score(cfg, results, records, models, DEV)
+    pairs = bop_score.match_estimates_to_gt(results, records, cfg.VAL.N_TOP)
+    delta = bop_score.VSD_DELTAS_MM.get(models.meta.name.split("_")[0],
+                                        bop_score.VSD_DELTA_MM_DEFAULT)
+    errs = [bop_score._vsd_errors_by_obj(pairs, models, delta, bop_score.BOP19_VSD_TAUS,
+                                         device=device) for device in (DEV, "cpu")]
+    worst, near, flips = 0.0, 0, 0
+    ths = bop_score.BOP19_VSD_THRESHOLDS
+    for name in errs[0]:
+        e_card, e_plain = np.stack(errs[0][name]), np.stack(errs[1][name])
+        worst = max(worst, float(np.abs(e_card - e_plain).max()))
+        near += int(np.any(np.abs(e_card[..., None] - ths) <= VSD_ATOL, axis=(1, 2)).sum())
+        flips += int(((e_card[..., None] < ths) != (e_plain[..., None] < ths)).sum())
+    if worst > VSD_ATOL:
+        raise AssertionError(f"bop_plain {label}: VSD errors card vs CPU differ by {worst}")
+    differ = [(t, o) for t in card for o in card[t] if card[t][o] != plain[t][o]]
+    if any(t != "vsd" for t, _ in differ) or (differ and not flips):
+        raise AssertionError(f"bop_plain {label}: recalls differ at {differ} "
+                             f"({flips} VSD threshold flips)")
+    log("bop_plain", csv=label, scene=1, gt=len(records), estimates=len(results),
+        vsd_pairs=sum(len(v) for v in errs[0].values()), vsd_max_abs_diff=f"{worst:.3e}",
+        vsd_atol=VSD_ATOL, pairs_near_threshold=near, threshold_flips=flips,
+        recalls="equal" if not differ else f"vsd differs at {len(differ)} (flips)",
+        plain_cpu_s=f"{plain_s:.2f}")
+
+
+def phase_bop_score(cfg, split, R, t, root: str) -> int:
+    """Score the served poses, then GT perturbed by poses_near, through
+    BOP19 CSVs; returns the z-buffer kernel's launches in the served run."""
+    types = bop_score.validate_error_types(cfg.VAL.ERROR_TYPES)
+    served_launches = 0
+    R_near, t_near = poses_near(split["R_gt"], split["t_gt"], seed=2)
+    for label, (R_e, t_e) in (("served", (R, t)), ("gt_near", (R_near, t_near))):
+        path = str(Path(root) / f"{label}.csv")
+        kernels.nn_min_dist.launches = 0
+        kernels.rasterize_xyz.launches = 0
+        save_bop_results(path, bop_rows(split["keys"], split["classes"], R_e, t_e))
+        results = load_bop_results(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = score(cfg, results, split["records"], split["models"], DEV)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = kernels.nn_min_dist.launches, kernels.rasterize_xyz.launches
+        if label == "served":
+            served_launches = launches[1]
+        if min(launches) < 1:
+            raise AssertionError(f"bop_score {label}: launches nn_min_dist {launches[0]}, "
+                                 f"rasterize_xyz {launches[1]}; both must be > 0")
+        ar = bop_score.bop19_average_recall(scores)
+        if not all(np.isfinite(scores[k]["avg"]) for k in types) or not 0.0 <= ar <= 1.0:
+            raise AssertionError(f"bop_score {label}: bad recalls {scores}")
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            score(cfg, results, split["records"], split["models"], DEV)
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0) * 1e3)
+        log("bop_score", csv=label, error_types=cfg.VAL.ERROR_TYPES, n_top=cfg.VAL.N_TOP,
+            estimates=len(results), gt=len(split["records"]), first_ms=f"{first_ms:.1f}",
+            warm_ms_median=f"{np.median(warm):.1f}", warm_n=len(warm),
+            launches_nn_min_dist=launches[0], launches_rasterize_xyz=launches[1],
+            **{f"ar_{k}": f"{scores[k]['avg']:.4f}" for k in types}, ar_bop19=f"{ar:.4f}")
+        by_type = {}
+        for etype in types:  # each error type alone, warm
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                score(cfg, results, split["records"], split["models"], DEV, etype)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            by_type[etype] = f"{np.median(ms):.1f}"
+        log("bop_score_by_type", csv=label, warm_ms_median=json.dumps(by_type).replace(" ", ""))
+        compare_with_plain(cfg, results, split, label)
+    return served_launches
+
+
 def check_rotations(R: np.ndarray, where: str) -> None:
     if not np.all(np.isfinite(R)):
         raise AssertionError(f"{where}: non-finite rotations")
@@ -174,8 +453,11 @@ def main() -> int:
     log("device", name=repr(name), count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    # 2-3. kernel build, correctness and time
+    # 2-3. kernel builds, correctness and time
+    phase_build()
     nn_stats = phase_kernel()
+    gsd = mesh_tools()
+    raster_stats = phase_raster(gsd)
 
     # 4a. flagship forward in f32 on the GPU against the CPU
     cfg = merged_config(FLAGSHIP)
@@ -201,6 +483,7 @@ def main() -> int:
 
     # 4b-5. the main path: serve 4 requests of 64 crops, then score them
     kernels.nn_min_dist.launches = 0
+    kernels.rasterize_xyz.launches = 0
     served = []
     for req in requests:
         out = predict(to_device(req, "cuda"))
@@ -264,7 +547,12 @@ def main() -> int:
         warm_evaluate_ms_median=f"{np.median(warm_ms):.1f}", warm_n=len(warm_ms),
         avg_ad_10=results["Avg"]["ad_10"], avg_mean_ad=f"{results['Avg']['mean_ad']:.6f}")
 
-    # 6. throughput, bf16 serving
+    # 6. the flagship's BOP scoring of the served poses (engine/tester.py:315-332)
+    with tempfile.TemporaryDirectory() as root:
+        split = phase_bop_split(cfg, gsd, requests, root)
+        raster_launches = phase_bop_score(cfg, split, R, t, root)
+
+    # 7. throughput, bf16 serving
     for bs in (roi_bs, BENCH_BATCH):
         torch.cuda.reset_peak_memory_stats()
         batch = to_device(synthetic_roi_batch(batch_size=bs, input_res=res[0], out_res=res[1],
@@ -275,11 +563,15 @@ def main() -> int:
             peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
         del batch
 
-    print(json.dumps({"kernels": [{
-        "name": "nn_min_dist", "route": "cuda",
-        "source": "gdrnet_tpu_torch/csrc/nn_min_dist.cu",
-        "replaces": "gdrnet_tpu/ops/pallas_kernels.py:28",
-        "launches": launches, **nn_stats}]}), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "nn_min_dist", "route": "cuda",
+         "source": "gdrnet_tpu_torch/csrc/nn_min_dist.cu",
+         "replaces": "gdrnet_tpu/ops/pallas_kernels.py:28",
+         "launches": launches, **nn_stats},
+        {"name": "rasterize_xyz", "route": "cuda",
+         "source": "gdrnet_tpu_torch/csrc/rasterize_xyz.cu",
+         "replaces": "gdrnet_tpu/ops/pallas_kernels.py:140",
+         "launches": raster_launches, **raster_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -1,13 +1,20 @@
-"""Synthetic fixed-shape ROI batches (numpy), channels-last.
+"""Synthetic fixed-shape ROI batches (numpy), channels-last, and the port's
+scoring fixtures.
 
-A copy of gdrnet_tpu/data/synthetic.py:synthetic_roi_batch, which cannot be
-imported without JAX (gdrnet_tpu.data's package import pulls it in). The
-two must stay equal; tests/test_torch_slice.py holds them to it.
+synthetic_roi_batch is a copy of gdrnet_tpu/data/synthetic.py:
+synthetic_roi_batch, which cannot be imported without JAX (gdrnet_tpu.data's
+package import pulls it in). The two must stay equal;
+tests/test_torch_slice.py holds them to it.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import os.path as osp
+
 import numpy as np
+import torch
 
 
 def _random_rotations(rng: np.random.RandomState, n: int) -> np.ndarray:
@@ -160,3 +167,137 @@ def poses_near(R: np.ndarray, t: np.ndarray, seed: int = 0, max_deg: float = 15.
     R_gt = (np.asarray(R, np.float64) @ dR).astype(np.float32)
     t_gt = (np.asarray(t, np.float64) + rng.randn(B, 3) * t_sigma).astype(np.float32)
     return R_gt, t_gt
+
+
+# ---------------------------------------------------------------------------
+# BOP-layout test split (port only): the scoring fixture of chip_smoke.py
+# ---------------------------------------------------------------------------
+
+
+def _mesh_diameter_mm(v: np.ndarray) -> float:
+    """Largest vertex-to-vertex distance, mm (tools/gen_scale_dataset.py:210)."""
+    return float(max(np.linalg.norm(v[i] - v, axis=-1).max() for i in range(len(v))) * 1000.0)
+
+
+def write_bop_test_split(root: str, meshes: list, obj_idx: np.ndarray, R: np.ndarray,
+                         t: np.ndarray, K: np.ndarray, width: int = 640, height: int = 480,
+                         per_image: int = 8, images_per_scene: int = 8, device="cpu"):
+    """Write a BOP-layout dataset with one test split holding the given
+    instances, as tools/gen_scale_dataset.py lays its datasets out:
+    models/obj_XXXXXX.ply (mm) + models_info.json (diameter, extents,
+    symmetries_discrete), meta.json, and test/<scene>/ with scene_gt.json,
+    scene_gt_info.json, scene_camera.json, rgb/*.png and 16-bit depth/*.png
+    (mm, depth_scale 1).
+
+    meshes: [(name, verts [V,3] m, faces [F,3], sym_rots list)] as
+    tools/gen_scale_dataset.py:mesh_zoo returns them. Instance n (object
+    meshes[obj_idx[n]] at R[n], t[n] in metres, intrinsics K) goes to scene
+    n // (per_image * images_per_scene) + 1, image (n // per_image) %
+    images_per_scene. Each image's depth is the z-merge of its instances'
+    depth renders (ops.rasterizer, so the z-buffer kernel on a CUDA
+    `device`); the visible masks of scene_gt_info follow from it.
+
+    Returns (DatasetMeta of `root`, [N, 2] int (scene_id, im_id) of each
+    instance)."""
+    from gdrnet_tpu_torch.data.io import save_depth, write_png
+    from gdrnet_tpu_torch.data.ply import save_ply
+    from gdrnet_tpu_torch.data.ref_meta import meta_from_json
+    from gdrnet_tpu_torch.eval.vsd import render_depths_many
+
+    obj_idx = np.asarray(obj_idx)
+    R = np.asarray(R, np.float32)
+    t = np.asarray(t, np.float32)
+    K = np.asarray(K, np.float32)
+    N = len(obj_idx)
+    mdir = osp.join(root, "models")
+    os.makedirs(mdir, exist_ok=True)
+    models_info = {}
+    for oid, (name, v, f, syms) in enumerate(meshes, start=1):
+        save_ply(osp.join(mdir, f"obj_{oid:06d}.ply"), v * 1000.0, f)
+        mins, maxs = v.min(0) * 1000.0, v.max(0) * 1000.0
+        info = {"diameter": _mesh_diameter_mm(v),
+                "min_x": float(mins[0]), "min_y": float(mins[1]), "min_z": float(mins[2]),
+                "size_x": float(maxs[0] - mins[0]), "size_y": float(maxs[1] - mins[1]),
+                "size_z": float(maxs[2] - mins[2])}
+        if syms:
+            mats = []
+            for Rg in syms:
+                m = np.eye(4)
+                m[:3, :3] = Rg
+                mats.append(m.reshape(-1).tolist())
+            info["symmetries_discrete"] = mats
+        models_info[str(oid)] = info
+    with open(osp.join(mdir, "models_info.json"), "w") as fp:
+        json.dump(models_info, fp)
+    meta = {"name": osp.basename(root.rstrip("/")),
+            "objects": [m[0] for m in meshes],
+            "id2obj": {i + 1: m[0] for i, m in enumerate(meshes)},
+            "diameters": {m[0]: models_info[str(i + 1)]["diameter"] / 1000.0
+                          for i, m in enumerate(meshes)},
+            "cam_K": K.astype(float).reshape(-1).tolist(), "width": width, "height": height,
+            "sym_objects": [m[0] for m in meshes if m[3]]}
+    with open(osp.join(root, "meta.json"), "w") as fp:
+        json.dump(meta, fp, indent=1)
+
+    # every instance's own full-frame depth, rendered object by object
+    depths = torch.zeros(N, height, width, dtype=torch.float32, device=device)
+    for o in np.unique(obj_idx):
+        sel = np.nonzero(obj_idx == o)[0]
+        _, v, f, _ = meshes[o]
+        depths[sel] = render_depths_many(v, f, np.broadcast_to(K, (len(sel), 3, 3)), R[sel],
+                                         t[sel], height, width, device=device)
+
+    colors = (40 + 200 * np.random.RandomState(7).rand(len(meshes), 3)).astype(np.uint8)
+    per_scene = per_image * images_per_scene
+    keys = np.stack([np.arange(N) // per_scene + 1, (np.arange(N) // per_image)
+                     % images_per_scene], axis=1)
+    for s in range(0, N, per_scene):
+        scene_dir = osp.join(root, "test", f"{s // per_scene + 1:06d}")
+        for sub in ("rgb", "depth"):
+            os.makedirs(osp.join(scene_dir, sub), exist_ok=True)
+        scene_gt, scene_gt_info, scene_camera = {}, {}, {}
+        for s0 in range(s, min(s + per_scene, N), per_image):
+            idx = np.arange(s0, min(s0 + per_image, N))
+            im_id = int(keys[s0, 1])
+            d = depths[idx]
+            zmin, inst = torch.where(d > 0, d, torch.inf).min(dim=0)  # first instance on ties
+            hit = torch.isfinite(zmin)
+            inst_map = torch.where(hit, inst, -1)
+            visib = inst_map[None] == torch.arange(len(idx), device=inst_map.device)[:, None, None]
+            amodal = d > 0
+            rows_a, cols_a = amodal.any(2).cpu().numpy(), amodal.any(1).cpu().numpy()
+            rows_v, cols_v = visib.any(2).cpu().numpy(), visib.any(1).cpu().numpy()
+            n_all = amodal.sum(dim=(1, 2)).cpu().numpy()
+            n_vis = visib.sum(dim=(1, 2)).cpu().numpy()
+
+            def bbox(rows, cols):
+                ys, xs = np.nonzero(rows)[0], np.nonzero(cols)[0]
+                if len(ys) == 0:
+                    return [0, 0, 0, 0]
+                return [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+                        int(ys.max() - ys.min() + 1)]
+
+            gts, infos = [], []
+            for k, n in enumerate(idx):
+                gts.append({"cam_R_m2c": R[n].reshape(-1).astype(float).tolist(),
+                            "cam_t_m2c": (t[n] * 1000.0).astype(float).tolist(),
+                            "obj_id": int(obj_idx[n]) + 1})
+                infos.append({"bbox_obj": bbox(rows_a[k], cols_a[k]),
+                              "bbox_visib": bbox(rows_v[k], cols_v[k]),
+                              "px_count_all": int(n_all[k]), "px_count_visib": int(n_vis[k]),
+                              "visib_fract": float(n_vis[k] / max(n_all[k], 1))})
+            inst_np = inst_map.cpu().numpy()
+            rgb = np.full((height, width, 3), 60, np.uint8)
+            rgb[inst_np >= 0] = colors[obj_idx[idx][inst_np[inst_np >= 0]]]
+            write_png(osp.join(scene_dir, "rgb", f"{im_id:06d}.png"), rgb)
+            save_depth(osp.join(scene_dir, "depth", f"{im_id:06d}.png"),
+                       torch.where(hit, zmin, 0.0).cpu().numpy())
+            scene_gt[str(im_id)] = gts
+            scene_gt_info[str(im_id)] = infos
+            scene_camera[str(im_id)] = {"cam_K": K.astype(float).reshape(-1).tolist(),
+                                        "depth_scale": 1.0}
+        for fname, obj in (("scene_gt.json", scene_gt), ("scene_gt_info.json", scene_gt_info),
+                           ("scene_camera.json", scene_camera)):
+            with open(osp.join(scene_dir, fname), "w") as fp:
+                json.dump(obj, fp)
+    return meta_from_json(root), keys

@@ -56,6 +56,40 @@ def proj_batch(R_est, t_est, R_gt, t_gt, K, pts) -> torch.Tensor:
             ).norm(dim=-1).mean(dim=-1)
 
 
+def _sym_gt_points(R_gt, t_gt, pts, sym_rots) -> torch.Tensor:
+    """GT points under each symmetry: R_gt @ S_k applied to pts, plus t_gt
+    -> [B, K, N, 3]."""
+    Rk = (R_gt[:, None, :, :, None] * sym_rots[:, :, None, :, :]).sum(-2)  # [B, K, 3, 3]
+    if pts.dim() == 2:
+        pts = pts[None].expand(R_gt.shape[0], -1, -1)
+    return (Rk[:, :, None, :, :] * pts[:, None, :, None, :]).sum(-1) + t_gt[:, None, None, :]
+
+
+def _proj(K, p) -> torch.Tensor:
+    """[B,3,3] intrinsics, [B, ..., N, 3] camera points -> [B, ..., N, 2] pixels."""
+    Kb = K.reshape(K.shape[0], *([1] * (p.dim() - 2)), 3, 3)
+    uvw = (Kb * p[..., None, :]).sum(-1)
+    return uvw[..., :2] / uvw[..., 2:3].clamp_min(1e-12)
+
+
+def mssd_batch(R_est, t_est, R_gt, t_gt, pts, sym_rots, sym_mask) -> torch.Tensor:
+    """Maximum symmetry-aware surface distance (pose_error.mssd:131-154):
+    min over symmetry transforms of the MAX point distance. sym_rots
+    [B, K, 3, 3] identity-padded, sym_mask [B, K] bool."""
+    pe = _tp(pts, R_est, t_est)                                   # [B, N, 3]
+    pg = _sym_gt_points(R_gt, t_gt, pts, sym_rots)                # [B, K, N, 3]
+    maxd = (pe[:, None] - pg).norm(dim=-1).amax(dim=-1)           # [B, K]
+    return maxd.masked_fill(~sym_mask, float("inf")).amin(dim=-1)
+
+
+def mspd_batch(R_est, t_est, R_gt, t_gt, K, pts, sym_rots, sym_mask) -> torch.Tensor:
+    """Maximum symmetry-aware projection distance (pose_error.mspd:156-182)."""
+    proj_e = _proj(K, _tp(pts, R_est, t_est))                     # [B, N, 2]
+    proj_g = _proj(K, _sym_gt_points(R_gt, t_gt, pts, sym_rots))  # [B, K, N, 2]
+    maxd = (proj_e[:, None] - proj_g).norm(dim=-1).amax(dim=-1)
+    return maxd.masked_fill(~sym_mask, float("inf")).amin(dim=-1)
+
+
 def vocap_auc(errors: np.ndarray, max_val: float = 0.1) -> float:
     """AUC of the error-recall curve up to max_val (YCB-Video VOCap)."""
     errors = np.sort(np.asarray(errors, np.float64))

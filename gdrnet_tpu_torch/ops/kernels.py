@@ -3,7 +3,15 @@
 `nn_min_dist`: batched nearest-neighbour mean distance, the ADI / ADD-S core
 (the counterpart of gdrnet_tpu/ops/pallas_kernels.py:nn_min_dist). On a CUDA
 tensor it launches the CUDA kernel in csrc/nn_min_dist.cu; on a CPU tensor it
-runs `nn_min_dist_ref`. `nn_min_dist.launches` counts kernel launches.
+runs `nn_min_dist_ref`.
+
+`rasterize_xyz`: the z-buffer depth + object-coordinate render of one mesh
+under B poses over pixel windows (the counterpart of
+gdrnet_tpu/ops/pallas_kernels.py:rasterize_xyz_pallas). On a CUDA tensor it
+launches the CUDA kernel in csrc/rasterize_xyz.cu; on a CPU tensor it runs
+`rasterize_xyz_ref`. Both read the per-face table of `raster_face_tables`.
+
+Each wrapper's `launches` attribute counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -91,3 +99,207 @@ def nn_min_dist(query: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 nn_min_dist.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# triangle rasterization (z-buffer)
+# ---------------------------------------------------------------------------
+
+Z_NEAR = 1e-4
+_RASTER_ELEMS = 1 << 22  # bounds each [poses, pixels, faces] temporary of the plain version
+_RASTER_FACE_CHUNK = 512
+
+
+def _rows(M: torch.Tensor, k: int, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+          ) -> torch.Tensor:
+    """Row k of [B,3,3] M times the vectors (a, b, c) [.., V]: f32 products
+    summed left to right (no matmul, so no TF32 and no reordered sums)."""
+    return M[:, k, 0:1] * a + M[:, k, 1:2] * b + M[:, k, 2:3] * c
+
+
+def raster_face_tables(verts: torch.Tensor, attrs: torch.Tensor, faces: torch.Tensor,
+                       K: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
+                       z_near: float = Z_NEAR) -> tuple[torch.Tensor, torch.Tensor]:
+    """Screen-space table of every face under every pose, in f32: the
+    per-face data that rasterize_xyz_pallas builds before its kernel
+    (gdrnet_tpu/ops/pallas_kernels.py:244-264), with rasterize_attr's
+    projection and validity test (gdrnet_tpu/ops/rasterizer.py:60-89).
+
+    verts [V,3], attrs [V,C], faces [F,3] int, K and R [B,3,3], t [B,3] ->
+      geom [B,F,12]: x0 y0 x1 y1 | x2 y2 inv_area valid | iz0 iz1 iz2 0
+      attr [B,F,3C]: attr / z at vertex 0, then 1, then 2.
+    A face is valid when its doubled screen area exceeds 1e-12 in magnitude
+    and its three vertices lie beyond z_near; an invalid face has inv_area 0.
+    """
+    x, y, z = verts[:, 0], verts[:, 1], verts[:, 2]
+    cx = _rows(R, 0, x, y, z) + t[:, 0:1]                        # [B, V]
+    cy = _rows(R, 1, x, y, z) + t[:, 1:2]
+    cz = _rows(R, 2, x, y, z) + t[:, 2:3]
+    uw = _rows(K, 2, cx, cy, cz).clamp_min(z_near)
+    u = _rows(K, 0, cx, cy, cz) / uw
+    v = _rows(K, 1, cx, cy, cz) / uw
+    inv_z = 1.0 / cz.clamp_min(z_near)
+    attrs_over_z = attrs[None] * inv_z[..., None]               # [B, V, C]
+
+    f = faces.long()
+    i0, i1, i2 = f[:, 0], f[:, 1], f[:, 2]
+    x0, y0, x1, y1, x2, y2 = u[:, i0], v[:, i0], u[:, i1], v[:, i1], u[:, i2], v[:, i2]
+    area = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
+    valid = ((area.abs() > 1e-12) & (cz[:, i0] > z_near) & (cz[:, i1] > z_near)
+             & (cz[:, i2] > z_near))
+    inv_area = torch.where(valid, 1.0 / torch.where(valid, area, 1.0), 0.0)
+    geom = torch.stack([x0, y0, x1, y1, x2, y2, inv_area, valid.float(),
+                        inv_z[:, i0], inv_z[:, i1], inv_z[:, i2], torch.zeros_like(x0)], dim=-1)
+    attr = torch.cat([attrs_over_z[:, i0], attrs_over_z[:, i1], attrs_over_z[:, i2]], dim=-1)
+    return geom, attr
+
+
+def zbuffer_ref(geom: torch.Tensor, attr: torch.Tensor, origins: torch.Tensor,
+                height: int, width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain z-buffer over the tables of `raster_face_tables`: pixel (i, j)
+    of pose b samples (j + origins[b, 0], i + origins[b, 1]). Returns depth
+    [B,H,W] and attributes [B,H,W,C]; 0 where no face covers a pixel.
+
+    Faces and pixels go in chunks (each [poses, pixels, faces] temporary
+    stays near 2^22 elements). In a chunk the first arg-max of 1/z wins, and
+    a later chunk replaces it only when strictly nearer, so ties go to the
+    lowest face index (gdrnet_tpu/ops/rasterizer.py:104-116)."""
+    B, F, _ = geom.shape
+    C = attr.shape[-1] // 3
+    P = height * width
+    dev = geom.device
+    fc = min(F, _RASTER_FACE_CHUNK)
+    bc = max(1, min(B, _RASTER_ELEMS // (fc * 256)))  # poses, leaving >= 256 pixels a chunk
+    pc = max(1, min(P, _RASTER_ELEMS // (bc * fc)))
+    pix = torch.arange(P, device=dev)
+    gx, gy = (pix % width).float(), (pix // width).float()
+    depth = torch.empty(B, P, dtype=torch.float32, device=dev)
+    out = torch.empty(B, P, C, dtype=torch.float32, device=dev)
+    for b0 in range(0, B, bc):
+        g_b, a_b = geom[b0:b0 + bc], attr[b0:b0 + bc]
+        nb = g_b.shape[0]
+        for p0 in range(0, P, pc):
+            qx = (gx[None, p0:p0 + pc] + origins[b0:b0 + nb, 0:1])[..., None]  # [nb, pc, 1]
+            qy = (gy[None, p0:p0 + pc] + origins[b0:b0 + nb, 1:2])[..., None]
+            n = qx.shape[1]
+            best = torch.zeros(nb, n, dtype=torch.float32, device=dev)
+            bw0, bw1 = torch.zeros_like(best), torch.zeros_like(best)
+            bface = torch.zeros(nb, n, dtype=torch.long, device=dev)
+            for f0 in range(0, F, fc):
+                g = g_b[:, None, f0:f0 + fc]                                  # [nb, 1, fc, 12]
+                x0, y0, x1, y1 = g[..., 0], g[..., 1], g[..., 2], g[..., 3]
+                x2, y2, inv_area, valid = g[..., 4], g[..., 5], g[..., 6], g[..., 7]
+                w0 = ((x1 - qx) * (y2 - qy) - (y1 - qy) * (x2 - qx)) * inv_area
+                w1 = ((x2 - qx) * (y0 - qy) - (y2 - qy) * (x0 - qx)) * inv_area
+                w2 = 1.0 - w0 - w1
+                inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & (valid > 0)
+                frag = torch.where(inside, w0 * g[..., 8] + w1 * g[..., 9] + w2 * g[..., 10], 0.0)
+                k = frag.argmax(dim=-1, keepdim=True)                          # first maximum
+                cand = frag.gather(-1, k)[..., 0]
+                take = cand > best
+                best = torch.where(take, cand, best)
+                bw0 = torch.where(take, w0.gather(-1, k)[..., 0], bw0)
+                bw1 = torch.where(take, w1.gather(-1, k)[..., 0], bw1)
+                bface = torch.where(take, k[..., 0] + f0, bface)
+            hit = best > 0
+            safe = best.clamp_min(1e-12)
+            a = a_b.gather(1, bface[..., None].expand(-1, -1, 3 * C))          # [nb, n, 3C]
+            bw2 = 1.0 - bw0 - bw1
+            val = (bw0[..., None] * a[..., 0:C] + bw1[..., None] * a[..., C:2 * C]
+                   + bw2[..., None] * a[..., 2 * C:]) / safe[..., None]
+            depth[b0:b0 + nb, p0:p0 + n] = torch.where(hit, 1.0 / safe, 0.0)
+            out[b0:b0 + nb, p0:p0 + n] = torch.where(hit[..., None], val, 0.0)
+    return depth.reshape(B, height, width), out.reshape(B, height, width, C)
+
+
+def rasterize_attr_ref(verts, attrs, faces, K, R, t, origins, height: int, width: int,
+                       z_near: float = Z_NEAR) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain z-buffer render of per-vertex attributes attrs [V,C] under B
+    poses: depth [B,H,W] and the perspective-correct attribute map
+    [B,H,W,C] (gdrnet_tpu/ops/rasterizer.py:rasterize_attr, batched)."""
+    geom, attr = raster_face_tables(verts, attrs, faces, K, R, t, z_near)
+    return zbuffer_ref(geom, attr, origins, height, width)
+
+
+def rasterize_xyz_ref(verts, faces, K, R, t, origins, height: int, width: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `rasterize_xyz`: rasterize_attr_ref with attrs = verts."""
+    return rasterize_attr_ref(verts, verts, faces, K, R, t, origins, height, width)
+
+
+@functools.cache
+def _raster_lib() -> ctypes.CDLL:
+    lib = csrc.load("rasterize_xyz")
+    lib.rasterize_xyz_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.rasterize_xyz_launch.restype = ctypes.c_int
+    lib.rasterize_xyz_error_string.argtypes = [ctypes.c_int]
+    lib.rasterize_xyz_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_raster_inputs(verts, faces, K, R, t, origins, height, width) -> None:
+    shapes = {"verts": (verts, None), "K": (K, (3, 3)), "R": (R, (3, 3)), "t": (t, (3,)),
+              "origins": (origins, (2,))}
+    for name, (x, tail) in shapes.items():
+        if x.dtype != torch.float32:
+            raise TypeError(f"rasterize_xyz: {name} must be float32, got {x.dtype}")
+        if tail is not None and (x.dim() != 1 + len(tail) or tuple(x.shape[1:]) != tail):
+            raise ValueError(f"rasterize_xyz: {name} must be [B, {', '.join(map(str, tail))}], "
+                             f"got {tuple(x.shape)}")
+        if x.device != verts.device:
+            raise ValueError(f"rasterize_xyz: {name} on {x.device}, verts on {verts.device}")
+    if verts.dim() != 2 or verts.shape[1] != 3 or verts.shape[0] < 1:
+        raise ValueError(f"rasterize_xyz: verts must be [V, 3], got {tuple(verts.shape)}")
+    if faces.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"rasterize_xyz: faces must be int32 or int64, got {faces.dtype}")
+    if faces.dim() != 2 or faces.shape[1] != 3 or faces.shape[0] < 1:
+        raise ValueError(f"rasterize_xyz: faces must be [F, 3], F >= 1, got {tuple(faces.shape)}")
+    if faces.device != verts.device:
+        raise ValueError(f"rasterize_xyz: faces on {faces.device}, verts on {verts.device}")
+    B = K.shape[0]
+    if B < 1 or R.shape[0] != B or t.shape[0] != B or origins.shape[0] != B:
+        raise ValueError("rasterize_xyz: K, R, t and origins need one batch size >= 1, got "
+                         f"{K.shape[0]}, {R.shape[0]}, {t.shape[0]}, {origins.shape[0]}")
+    if not origins.is_contiguous():
+        raise ValueError("rasterize_xyz: origins must be contiguous")
+    if height < 1 or width < 1:
+        raise ValueError(f"rasterize_xyz: empty window {height}x{width}")
+
+
+def rasterize_xyz(verts: torch.Tensor, faces: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
+                  t: torch.Tensor, origins: torch.Tensor, height: int, width: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depth [B,H,W] and object-coordinate XYZ [B,H,W,3] of the mesh
+    (verts [V,3] f32, faces [F,3] int) under poses K, R [B,3,3], t [B,3],
+    each over the H x W pixel window whose top-left pixel is origins[b]
+    ([B,2] f32, integer valued). 0 where no face covers a pixel.
+
+    CUDA tensors go through the CUDA kernel (or raise); CPU tensors through
+    `rasterize_xyz_ref`."""
+    _check_raster_inputs(verts, faces, K, R, t, origins, height, width)
+    if verts.device.type == "cpu":
+        return rasterize_xyz_ref(verts, faces, K, R, t, origins, height, width)
+    if verts.device.type != "cuda":
+        raise ValueError(f"rasterize_xyz: no kernel for device {verts.device}")
+    B, F = K.shape[0], faces.shape[0]
+    if B > 65535:
+        raise ValueError(f"rasterize_xyz: batch {B} exceeds the kernel's grid limit 65535")
+    lib = _raster_lib()
+    geom, attr = raster_face_tables(verts, verts, faces, K, R, t)
+    depth = torch.empty((B, height, width), dtype=torch.float32, device=verts.device)
+    xyz = torch.empty((B, height, width, 3), dtype=torch.float32, device=verts.device)
+    with torch.cuda.device(verts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.rasterize_xyz_launch(geom.data_ptr(), attr.data_ptr(), origins.data_ptr(),
+                                      depth.data_ptr(), xyz.data_ptr(), B, F, height, width,
+                                      stream)
+    if rc != 0:
+        raise RuntimeError(f"rasterize_xyz kernel launch failed: "
+                           f"{lib.rasterize_xyz_error_string(rc).decode()} ({rc})")
+    rasterize_xyz.launches += 1
+    return depth, xyz
+
+
+rasterize_xyz.launches = 0

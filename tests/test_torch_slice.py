@@ -123,20 +123,26 @@ def test_custom_evaluator_matches_jax(predictions, with_auc, missing):
 
 
 def test_port_imports_no_jax():
+    """Nor cv2 or tabulate, which the card's machine lacks."""
     modules = ["gdrnet_tpu_torch", "gdrnet_tpu_torch.csrc", "gdrnet_tpu_torch.ops.kernels",
                "gdrnet_tpu_torch.ops.rotation", "gdrnet_tpu_torch.ops.pose",
                "gdrnet_tpu_torch.ops.symmetry", "gdrnet_tpu_torch.models.gdrn",
                "gdrnet_tpu_torch.utils.jax_convert", "gdrnet_tpu_torch.engine.steps",
                "gdrnet_tpu_torch.eval.pose_errors", "gdrnet_tpu_torch.eval.custom_evaluator",
-               "gdrnet_tpu_torch.data.synthetic"]
+               "gdrnet_tpu_torch.data.synthetic", "gdrnet_tpu_torch.data.io",
+               "gdrnet_tpu_torch.data.ply", "gdrnet_tpu_torch.data.ref_meta",
+               "gdrnet_tpu_torch.data.bop", "gdrnet_tpu_torch.data.model_store",
+               "gdrnet_tpu_torch.ops.fps", "gdrnet_tpu_torch.ops.rasterizer",
+               "gdrnet_tpu_torch.eval.bop_writer", "gdrnet_tpu_torch.eval.vsd",
+               "gdrnet_tpu_torch.eval.bop_score"]
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "from gdrnet_tpu_torch import merged_config\n"
         f"merged_config({FLAGSHIP!r})\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cv2', 'tabulate'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -4,6 +4,7 @@ gdrnet_tpu_torch.utils.jax_convert, and the small flagship-shaped config."""
 
 from __future__ import annotations
 
+import importlib.util
 from pathlib import Path
 
 import jax
@@ -15,6 +16,15 @@ from gdrnet_tpu_torch.utils.jax_convert import jax_to_torch
 
 REPO = Path(__file__).resolve().parents[1]
 FLAGSHIP = str(REPO / "configs/gdrn/synth/a6_cPnP_synth.py")
+
+
+def gen_scale_dataset():
+    """tools/gen_scale_dataset.py (mesh_zoo, _subdivide), loaded from its path."""
+    spec = importlib.util.spec_from_file_location("gen_scale_dataset",
+                                                  REPO / "tools/gen_scale_dataset.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def small_flagship_cfg():
