@@ -12,17 +12,23 @@ BOP19 CSV and back, and eval/bop_score.score_results scores them with the
 config's VAL.ERROR_TYPES (ad,rete,re,te,proj,vsd,mssd,mspd) against a
 BOP-layout test split of the dataset's ten meshes (tools/gen_scale_dataset.py
 mesh_zoo) that this script writes; VSD's depth renders go through the
-hand-written CUDA z-buffer kernel (gdrnet_tpu_torch/csrc/rasterize_xyz.cu).
+hand-written CUDA z-buffer kernels (gdrnet_tpu_torch/csrc/rasterize_xyz.cu:
+the face setup on the device, then the z-buffer with per-tile face culling).
 
 Phases, one line each (or one per case): device, kernel builds (both nvcc
 runs at once), nn_min_dist against its plain PyTorch version and cKDTree,
-rasterize_xyz against its plain version, f32 forward on the GPU against the
-CPU, bf16 serving, CustomEvaluator scoring (kernel against the plain
-version), the BOP split, BOP scoring on the card and against the plain
-versions on the CPU, throughput. Any failure raises; the exit code is then
-non-zero and the result line is not printed. The last line is
+timed beside its bound and torch.cdist; rasterize_xyz against its plain
+version (20 cases), and its time beside its bounds and the share of
+pixel-face pairs it culls; f32 forward on the GPU against the CPU, bf16
+serving, CustomEvaluator scoring (kernel against the plain version),
+throughput, the BOP split, BOP scoring on the card and against the plain
+versions on the CPU; last, what torch.profiler measures (rasterize_xyz's
+launches per call and its kernels' device time, the device time of a BOP
+scoring call), so that no host-bound phase is timed after a profiler
+session. Any failure raises; the exit code is then non-zero and the result
+line is not printed. The last line is
 {"ok": true, "device": {...}}; the line before it holds the kernels'
-launches, errors and times.
+launches, errors, times and bounds.
 
 Run from the repository root:  python3 chip_smoke.py
 It needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and scipy.
@@ -46,7 +52,9 @@ from gdrnet_tpu_torch import csrc, merged_config
 from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.data.synthetic import (
+    edge_on_poses,
     poses_near,
+    sliver_mesh,
     synthetic_object_models,
     synthetic_roi_batch,
     write_bop_test_split,
@@ -76,10 +84,17 @@ BENCH_BATCH = 1024             # bench.py's serving batch
 # table and round every operation alike, so hit masks must be equal and
 # depth / xyz within this many metres (bitwise equality is expected)
 RASTER_ATOL = 1e-6
+RASTER_TILE_PIXELS = kernels.RASTER_TILE ** 2
 # per-pair VSD errors, card (kernel) against CPU (plain versions): one pixel
 # of a union of at least 1,000
 VSD_ATOL = 1e-3
 PER_IMAGE, IMAGES_PER_SCENE = 8, 8  # the BOP split: 8 instances an image, 4 scenes of 8 images
+# bounds: the H100 SXM's published peaks (HBM 3.35 TB/s; FP32 outside the
+# tensor cores 67 TFLOP/s with an FMA as two, so 3.35e13 instructions/s) and
+# each kernel's f32 instructions per pair: B1's inner loop 3 sub, 1 mul, 2
+# FMA, 1 min; B2's two edge functions, w2, the 1/z interpolation, the tests
+HBM_BYTES_PER_S, FP32_INSTR_PER_S = 3.35e12, 3.35e13
+NN_INSTR_PER_PAIR, RASTER_INSTR_PER_PAIR = 7, 25
 
 
 def log(phase: str, **fields) -> None:
@@ -99,6 +114,46 @@ def cuda_times(fn, iters: int, warmup: int = 3) -> np.ndarray:
         end.record()
     torch.cuda.synchronize()
     return np.asarray([start.elapsed_time(end) for start, end in events])
+
+
+def host_times(fn, iters: int, warmup: int = 3) -> np.ndarray:
+    """Host-clock ms of each of `iters` calls of fn() that each end in
+    torch.cuda.synchronize(), after `warmup` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return np.asarray(out)
+
+
+def profiled_device_ms(fn, iters: int, names=("",)) -> dict | None:
+    """Device ms per call of fn() over `iters` calls, after one call that is
+    not profiled, from torch.profiler: for each of `names`, the sum over the
+    device activity (kernels, copies) whose name holds it ("" holds all);
+    None where the profiler sees no device activity."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        return None
+    return {k: sum(us for n, us in spans if k in n) / iters / 1e3 for k in names}
+
+
+def bound(n_bytes: float, n_instr: float) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    HBM rate and the f32 instructions over the issue rate."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_instr / FP32_INSTR_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes > by_ops else (by_ops, "operations")
 
 
 def to_device(batch: dict, device) -> dict:
@@ -159,12 +214,21 @@ def phase_kernel() -> dict:
     kern = [cuda_times(lambda: kernels.nn_min_dist(q, r), 50) for _ in range(2)]
     plain.append(cuda_times(lambda: kernels.nn_min_dist_ref(q, r), 10))
     kern, plain = np.concatenate(kern), np.concatenate(plain)
+    # the one PyTorch call of the same function, a yardstick the port never calls
+    library = cuda_times(lambda: torch.cdist(q, r).amin(-1).mean(-1), 10)
+    lib_rel = float(((torch.cdist(q, r).amin(-1).mean(-1) - kernels.nn_min_dist(q, r)).abs()
+                     / kernels.nn_min_dist_ref(q, r)).max())
+    bound_ms, bound_by = bound(4.0 * (q.numel() + r.numel() + b), NN_INSTR_PER_PAIR * b * nq * nr)
     log("nn_min_dist_time", shape=f"{b}x{nq}x{nr}", order="plain,kernel,kernel,plain",
         kernel_median_ms=f"{np.median(kern):.4f}", kernel_max_ms=f"{kern.max():.4f}",
         kernel_n=len(kern), plain_median_ms=f"{np.median(plain):.4f}",
-        plain_max_ms=f"{plain.max():.4f}", plain_n=len(plain))
+        plain_max_ms=f"{plain.max():.4f}", plain_n=len(plain),
+        cdist_median_ms=f"{np.median(library):.4f}", cdist_n=len(library),
+        cdist_max_rel_diff=f"{lib_rel:.3e}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        share_of_bound=f"{bound_ms / np.median(kern):.3f}")
     return {"max_abs_err": max_abs_err, "ms": float(np.median(kern)),
-            "plain_ms": float(np.median(plain))}
+            "plain_ms": float(np.median(plain)), "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": float(np.median(library))}
 
 
 def phase_forward_f32(cfg32, state_dict: dict, batch: dict) -> None:
@@ -198,10 +262,11 @@ def mesh_tools():
 
 
 def raster_args(verts, faces, K, R, t, origins) -> list:
-    return [torch.as_tensor(np.array(verts, np.float32), device=DEV),
-            torch.as_tensor(np.asarray(faces, np.int32), device=DEV),
-            *(torch.as_tensor(np.array(x, np.float32), device=DEV) for x in (K, R, t)),
-            torch.as_tensor(np.asarray(origins, np.float32), device=DEV).contiguous()]
+    """rasterize_xyz's tensor arguments on the card, C-contiguous (a
+    strided one would cost the wrapper a copy kernel)."""
+    return [torch.as_tensor(np.ascontiguousarray(x, dtype), device=DEV)
+            for x, dtype in ((verts, np.float32), (faces, np.int32), (K, np.float32),
+                             (R, np.float32), (t, np.float32), (origins, np.float32))]
 
 
 def raster_case(case: str, args: list, h: int, w: int) -> tuple[float, int]:
@@ -268,6 +333,16 @@ def phase_raster(gsd) -> dict:
     behind = t[:2] * np.array([1.0, 1.0, -1.0], np.float32)
     cases.append(("behind_camera", raster_args(tower_v, tower_f, Ks[:2], R[:2], behind,
                                                centred_origins(K, t[:2], 128)), 128, 128))
+    # face planes through the camera centre, then near-degenerate faces
+    R_on, t_on = edge_on_poses(0.035)
+    c_on = t_on @ K.T
+    cases.append(("edge_on_cube", raster_args(zoo[0][1], zoo[0][2], Ks[:4], R_on, t_on,
+                                              np.floor(c_on[:, :2] / c_on[:, 2:] - 64)),
+                  128, 128))
+    sv, sf = sliver_mesh(K, seed=1)
+    cases.append(("slivers", raster_args(sv, sf, Ks[:2], np.stack([np.eye(3)] * 2),
+                                         np.zeros((2, 3)), [[188.0, 146.0], [220.0, 130.0]]),
+                  96, 128))
     for case, args, h, w in cases:
         err, hits = raster_case(case, args, h, w)
         worst = max(worst, err)
@@ -278,26 +353,68 @@ def phase_raster(gsd) -> dict:
 
     # time in turns, plain, kernel, kernel, plain: the main path's shape (a
     # 16-pose batch of 128^2 windows over a zoo mesh), then a heavy one
+    timed = [("16x128x128/tower_448", cases[3][1], 128, 10),
+             ("16x256x256/tower_subdiv2_7168", cases[12][1], 256, 3)]
     times = {}
-    for label, args, hw, n_plain in (
-            ("16x128x128/tower_448", cases[3][1], 128, 10),
-            ("16x256x256/tower_subdiv2_7168", cases[12][1], 256, 3)):
+    for label, args, hw, n_plain in timed:
         plain = [cuda_times(lambda: kernels.rasterize_xyz_ref(*args, hw, hw), n_plain, 1)]
         kern = [cuda_times(lambda: kernels.rasterize_xyz(*args, hw, hw), 20) for _ in range(2)]
         plain.append(cuda_times(lambda: kernels.rasterize_xyz_ref(*args, hw, hw), n_plain, 1))
         kern, plain = np.concatenate(kern), np.concatenate(plain)
-        # the wrapper's PyTorch prologue alone (the face table both versions read)
+        host = host_times(lambda: kernels.rasterize_xyz(*args, hw, hw), 20)
+        # the plain version's PyTorch prologue alone (the face table), which
+        # the CUDA path builds in its setup kernel instead
+        geom, _ = kernels.raster_face_tables(args[0], args[0], *args[1:5])
         table = cuda_times(lambda: kernels.raster_face_tables(args[0], args[0], *args[1:5]), 20)
-        times[label] = (float(np.median(kern)), float(np.median(plain)))
-        pairs = args[2].shape[0] * hw * hw * args[1].shape[0]
+        B, V, F = args[2].shape[0], args[0].shape[0], args[1].shape[0]
+        pairs = B * hw * hw * F
+        # pairs the kernel tests after culling: kept faces x the tile's pixels
+        # (every tile is full at these window sizes)
+        kept = int(kernels.raster_tile_keep(geom, args[5], hw, hw).sum()) * RASTER_TILE_PIXELS
+        n_bytes = 4.0 * (3 * V + 3 * F + 23 * B) + 16.0 * B * hw * hw
+        all_ms, _ = bound(n_bytes, RASTER_INSTR_PER_PAIR * pairs)
+        bound_ms, bound_by = bound(n_bytes, RASTER_INSTR_PER_PAIR * kept)
+        med = float(np.median(kern))
+        times[label] = {"ms": med, "plain_ms": float(np.median(plain)), "bound_ms": bound_ms,
+                        "bound_by": bound_by}
         log("rasterize_xyz_time", shape=label, order="plain,kernel,kernel,plain",
-            kernel_median_ms=f"{np.median(kern):.4f}", kernel_max_ms=f"{kern.max():.4f}",
+            kernel_median_ms=f"{med:.4f}", kernel_max_ms=f"{kern.max():.4f}",
             kernel_n=len(kern), plain_median_ms=f"{np.median(plain):.4f}",
             plain_max_ms=f"{plain.max():.4f}", plain_n=len(plain),
+            host_synced_call_median_ms=f"{np.median(host):.4f}", host_n=len(host),
             face_table_median_ms=f"{np.median(table):.4f}",
-            pixel_face_pairs_per_s=f"{pairs / np.median(kern) * 1e3:.3e}")
-    ms, plain_ms = times["16x128x128/tower_448"]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            all_pairs_bound_ms=f"{all_ms:.4f}", share_of_all_pairs_bound=f"{all_ms / med:.3f}",
+            culled_pair_share=f"{1.0 - kept / pairs:.4f}",
+            kept_pairs_bound_ms=f"{bound_ms:.4f}", share_of_kept_pairs_bound=f"{bound_ms / med:.3f}",
+            pixel_face_pairs_per_s=f"{pairs / med * 1e3:.3e}")
+    stats = {"max_abs_err": worst, **times["16x128x128/tower_448"], "library_ms": None}
+    return stats, [(label, args, hw) for label, args, hw, _ in timed]
+
+
+def check_raster_launches(args: list, hw: int) -> None:
+    """One rasterize_xyz call on the card calls no raster_face_tables (the
+    face table is built on the device) and, where the profiler sees the
+    device, launches exactly the setup and the z-buffer kernel."""
+    table_calls = []
+    plain_table = kernels.raster_face_tables
+    kernels.raster_face_tables = lambda *a, **k: table_calls.append(1) or plain_table(*a, **k)
+    try:
+        kernels.rasterize_xyz(*args, hw, hw)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            kernels.rasterize_xyz(*args, hw, hw)
+            torch.cuda.synchronize()
+    finally:
+        kernels.raster_face_tables = plain_table
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kinds = sorted("face_setup_kernel" if "face_setup_kernel" in n else
+                   "zbuffer_kernel" if "zbuffer_kernel" in n else n for n in names)
+    if table_calls or (names and kinds != ["face_setup_kernel", "zbuffer_kernel"]):
+        raise AssertionError(f"rasterize_xyz on the card: {len(table_calls)} face-table calls, "
+                             f"device activity {names}")
+    log("rasterize_xyz_launches", face_table_calls=0,
+        kernels_per_call=len(names) if names else "not measured (no device events)",
+        kernels="|".join(kinds))
 
 
 def bop_rows(keys, classes, R, t) -> list[dict]:
@@ -379,11 +496,12 @@ def compare_with_plain(cfg, results, split, label: str) -> None:
         plain_cpu_s=f"{plain_s:.2f}")
 
 
-def phase_bop_score(cfg, split, R, t, root: str) -> int:
+def phase_bop_score(cfg, split, R, t, root: str) -> tuple[int, list]:
     """Score the served poses, then GT perturbed by poses_near, through
-    BOP19 CSVs; returns the z-buffer kernel's launches in the served run."""
+    BOP19 CSVs; returns the z-buffer kernel's launches in the served run and
+    [(csv label, its results)]."""
     types = bop_score.validate_error_types(cfg.VAL.ERROR_TYPES)
-    served_launches = 0
+    served_launches, scored = 0, []
     R_near, t_near = poses_near(split["R_gt"], split["t_gt"], seed=2)
     for label, (R_e, t_e) in (("served", (R, t)), ("gt_near", (R_near, t_near))):
         path = str(Path(root) / f"{label}.csv")
@@ -427,7 +545,35 @@ def phase_bop_score(cfg, split, R, t, root: str) -> int:
             by_type[etype] = f"{np.median(ms):.1f}"
         log("bop_score_by_type", csv=label, warm_ms_median=json.dumps(by_type).replace(" ", ""))
         compare_with_plain(cfg, results, split, label)
-    return served_launches
+        scored.append((label, results))
+    return served_launches, scored
+
+
+def phase_profile(cfg, split, scored: list, timed: list) -> None:
+    """The measurements that need torch.profiler, made last, so that no
+    host-bound phase is timed after a profiler session (whether a session
+    slows later launches is measured by scripts/probe_torch_zbuffer.py):
+    rasterize_xyz's launches and its kernels' device ms per call at the
+    timed shapes, then the device ms of one warm score_results call of each
+    CSV, all of it and each kernel's share."""
+    check_raster_launches(timed[0][1], timed[0][2])
+    for label, args, hw in timed:
+        device = profiled_device_ms(lambda: kernels.rasterize_xyz(*args, hw, hw), 20,
+                                    ("", "face_setup_kernel", "zbuffer_kernel"))
+        log("rasterize_xyz_device", shape=label, calls=20, **(
+            {"device_ms_per_call": "not measured"} if device is None else {
+                "device_ms_per_call": f"{device['']:.4f}",
+                "setup_ms": f"{device['face_setup_kernel']:.4f}",
+                "zbuffer_ms": f"{device['zbuffer_kernel']:.4f}"}))
+    for label, results in scored:
+        prof = profiled_device_ms(
+            lambda: score(cfg, results, split["records"], split["models"], DEV), 1,
+            ("", "face_setup_kernel", "zbuffer_kernel", "nn_min_dist_kernel", "Memcpy"))
+        log("bop_score_device", csv=label, **(
+            {"device_ms": "not measured"} if prof is None else {
+                "device_ms": f"{prof['']:.3f}", "memcpy_ms": f"{prof['Memcpy']:.3f}",
+                "rasterize_xyz_ms": f"{prof['face_setup_kernel'] + prof['zbuffer_kernel']:.3f}",
+                "nn_min_dist_ms": f"{prof['nn_min_dist_kernel']:.3f}"}))
 
 
 def check_rotations(R: np.ndarray, where: str) -> None:
@@ -457,13 +603,13 @@ def main() -> int:
     phase_build()
     nn_stats = phase_kernel()
     gsd = mesh_tools()
-    raster_stats = phase_raster(gsd)
+    raster_stats, raster_timed = phase_raster(gsd)
 
     # 4a. flagship forward in f32 on the GPU against the CPU
     cfg = merged_config(FLAGSHIP)
     cfg32 = merged_config(FLAGSHIP)
     cfg32.PARALLEL.DTYPE = "float32"
-    ref_model = init_weights(build_model(cfg32), torch.Generator().manual_seed(0))
+    ref_model = init_weights(build_model(cfg32, device="cpu"), torch.Generator().manual_seed(0))
     state_dict = ref_model.state_dict()
     n_cls = cfg.MODEL.CDPN.ROT_HEAD.NUM_CLASSES
     roi_bs = cfg.TEST.ROI_BATCH_SIZE
@@ -547,12 +693,7 @@ def main() -> int:
         warm_evaluate_ms_median=f"{np.median(warm_ms):.1f}", warm_n=len(warm_ms),
         avg_ad_10=results["Avg"]["ad_10"], avg_mean_ad=f"{results['Avg']['mean_ad']:.6f}")
 
-    # 6. the flagship's BOP scoring of the served poses (engine/tester.py:315-332)
-    with tempfile.TemporaryDirectory() as root:
-        split = phase_bop_split(cfg, gsd, requests, root)
-        raster_launches = phase_bop_score(cfg, split, R, t, root)
-
-    # 7. throughput, bf16 serving
+    # 6. throughput, bf16 serving
     for bs in (roi_bs, BENCH_BATCH):
         torch.cuda.reset_peak_memory_stats()
         batch = to_device(synthetic_roi_batch(batch_size=bs, input_res=res[0], out_res=res[1],
@@ -562,6 +703,13 @@ def main() -> int:
             max_ms=f"{ms.max():.3f}", crops_per_s_median=f"{bs / np.median(ms) * 1e3:.1f}",
             peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
         del batch
+
+    # 7. the flagship's BOP scoring of the served poses (engine/tester.py:315-332),
+    # 8. then the profiled measurements
+    with tempfile.TemporaryDirectory() as root:
+        split = phase_bop_split(cfg, gsd, requests, root)
+        raster_launches, scored = phase_bop_score(cfg, split, R, t, root)
+        phase_profile(cfg, split, scored, raster_timed)
 
     print(json.dumps({"kernels": [
         {"name": "nn_min_dist", "route": "cuda",

@@ -1,9 +1,15 @@
 """gdrnet_tpu_torch: the PyTorch and CUDA port of gdrnet_tpu for NVIDIA Hopper.
 
 The JAX package `gdrnet_tpu` is the reference this port is tested against;
-the module paths here mirror its paths. Nothing in this package imports JAX.
+the module paths here mirror its paths. Nothing in this package imports JAX
+or the JAX package.
+
+Entry points that take a `device` run on the CUDA card unless the caller
+passes another device (the CPU tests pass device="cpu"); without a card they
+raise.
 
 Layout:
+  config/    the config system and defaults (a copy of gdrnet_tpu/config)
   ops/       rotation / pose / symmetry math on tensors, and the CUDA kernels' wrappers
   models/    nn.Modules: ResNet backbone, geometry head, ConvPnPNet, GDRN
   engine/    the predict step
@@ -15,8 +21,7 @@ Layout:
 
 from __future__ import annotations
 
-from gdrnet_tpu.config import base_config, load_config
-from gdrnet_tpu.config.config import Config, merge_dict
+from gdrnet_tpu_torch.config import Config, base_config, load_config, merge_dict
 
 __all__ = ["base_config", "load_config", "merged_config"]
 

@@ -170,6 +170,48 @@ def poses_near(R: np.ndarray, t: np.ndarray, seed: int = 0, max_deg: float = 15.
 
 
 # ---------------------------------------------------------------------------
+# hard z-buffer inputs (port only): faces seen edge-on, sliver faces
+# ---------------------------------------------------------------------------
+
+
+def edge_on_poses(half: float, depths=(0.4, 0.6, 0.5, 0.3)) -> tuple[np.ndarray, np.ndarray]:
+    """Four poses R = I, t [4, 3] of a box of half extent `half` about its
+    origin (mesh_zoo's cube: 0.035) that put some of its face planes through
+    the camera centre: faces x = +half and y = -half or +half project to a
+    line, up to the projection's rounding, or (the last two poses, moved by
+    1e-7 and 3e-8 of `half`) to slivers a few ulps wide."""
+    t = np.array([[-half, -half, depths[0]], [-half, half, depths[1]],
+                  [half * (1 + 1e-7), -half, depths[2]], [-half, -half * (1 - 3e-8), depths[3]]],
+                 np.float32)
+    return np.stack([np.eye(3, dtype=np.float32)] * 4), t
+
+
+def sliver_mesh(K: np.ndarray, n: int = 150, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """n near-degenerate faces (verts [3n, 3] f32, faces [n, 3] int32) for a
+    camera with intrinsics K at R = I, t = 0: each has a vertex within 1e-6
+    to 1e-3 px of a pixel centre of x in [210, 260), y in [160, 210), and
+    runs 0.5 to 6 px from it with its third vertex as little off the line;
+    one in three lies along a viewing ray (seen edge-on)."""
+    rs = np.random.RandomState(seed)
+    K = np.asarray(K, np.float64)
+    vs, fs = [], []
+    for k in range(n):
+        scale = 10.0 ** rs.uniform(-6, -3)
+        c = np.array([rs.randint(210, 260), rs.randint(160, 210)], np.float64)
+        d = rs.randn(2)
+        d *= rs.uniform(0.5, 6.0) / np.linalg.norm(d)
+        uv = np.stack([c, c + d, c + 0.5 * d]) + scale * rs.randn(3, 2)
+        z = np.full(3, rs.uniform(0.4, 0.8))
+        if k % 3 == 0:
+            uv[1:] = uv[0] + scale * rs.randn(2, 2)
+            z = z * np.array([1.0, 1.1, 1.2])
+        vs.append(np.stack([(uv[:, 0] - K[0, 2]) / K[0, 0] * z,
+                            (uv[:, 1] - K[1, 2]) / K[1, 1] * z, z], 1))
+        fs.append([3 * k, 3 * k + 1, 3 * k + 2])
+    return np.concatenate(vs).astype(np.float32), np.array(fs, np.int32)
+
+
+# ---------------------------------------------------------------------------
 # BOP-layout test split (port only): the scoring fixture of chip_smoke.py
 # ---------------------------------------------------------------------------
 
@@ -181,7 +223,7 @@ def _mesh_diameter_mm(v: np.ndarray) -> float:
 
 def write_bop_test_split(root: str, meshes: list, obj_idx: np.ndarray, R: np.ndarray,
                          t: np.ndarray, K: np.ndarray, width: int = 640, height: int = 480,
-                         per_image: int = 8, images_per_scene: int = 8, device="cpu"):
+                         per_image: int = 8, images_per_scene: int = 8, device="cuda"):
     """Write a BOP-layout dataset with one test split holding the given
     instances, as tools/gen_scale_dataset.py lays its datasets out:
     models/obj_XXXXXX.ply (mm) + models_info.json (diameter, extents,

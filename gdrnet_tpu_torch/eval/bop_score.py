@@ -63,7 +63,7 @@ def validate_error_types(error_types: str) -> list:
 
 
 def _vsd_errors_by_obj(pairs, models, delta_mm: float, taus,
-                       batch: int = 64, device="cpu") -> dict:
+                       batch: int = 64, device="cuda") -> dict:
     """Per-object lists of [T] vsd error arrays over the matched pairs
     (missing estimates -> all-ones, i.e. fail every threshold). Est + gt
     depths render through the BATCHED windowed rasterizer ladder and the
@@ -199,7 +199,7 @@ def score_results(results: list[dict], gts: list[dict], models,
                   error_types: str = "ad,rete,re,te,proj",
                   sym_objs: list[str] | None = None, n_top: int = 1,
                   image_width: int = 640, precision: bool = False,
-                  device="cpu") -> dict:
+                  device="cuda") -> dict:
     """models: ObjectModels (points/diameters/sym_rots). Returns
     {error_type: {obj: recall(s)} + {"avg": ...}}. precision=True reproduces
     the reference's VAL.EVAL_PRECISION mode (per-estimate denominators).

@@ -32,7 +32,7 @@ class CustomEvaluator:
                  diameters: dict[str, float], sym_objs: list[str] | None = None,
                  sym_rots: dict[str, np.ndarray] | None = None,
                  with_auc: bool = False, eval_precision: bool = False,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         """model_points: per-object [N,3] points (metres); diameters in
         metres; sym_rots: per-symmetric-object [K,3,3]; device: where the
         errors are computed."""

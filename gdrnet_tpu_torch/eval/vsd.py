@@ -88,7 +88,7 @@ def vsd_from_depths(depth_est, depth_gt, depth_test, K, delta: float, taus, diam
     return torch.where((union_count == 0)[:, None], torch.ones_like(errs), errs)
 
 
-def render_depths_many(verts, faces, Ks, Rs, ts, height: int, width: int, device="cpu"
+def render_depths_many(verts, faces, Ks, Rs, ts, height: int, width: int, device="cuda"
                        ) -> torch.Tensor:
     """[N,H,W] full-frame depths on `device`: windows of 128, 256 and 512
     pixels for the poses whose projection fits one (render_xyz_roi_many),
@@ -118,7 +118,7 @@ def render_depths_many(verts, faces, Ks, Rs, ts, height: int, width: int, device
 def vsd_pairs(R_est, t_est, R_gt, t_gt, depth_tests, Ks, verts, faces,
               delta: float = 15.0 / 1000.0, taus=None, diameter: float = 0.1,
               normalized_by_diameter: bool = True, cost_type: str = "step",
-              device="cpu") -> np.ndarray:
+              device="cuda") -> np.ndarray:
     """Batched VSD for P same-object pairs -> [P, T] errors (numpy). Renders
     the est and gt depths of all pairs together, then evaluates every pair
     at once on `device`."""
@@ -139,7 +139,7 @@ def vsd_pairs(R_est, t_est, R_gt, t_gt, depth_tests, Ks, verts, faces,
 def vsd(R_est, t_est, R_gt, t_gt, depth_test, K, verts, faces,
         delta: float = 15.0 / 1000.0, taus=None, diameter: float = 0.1,
         normalized_by_diameter: bool = True, cost_type: str = "step",
-        device="cpu") -> np.ndarray:
+        device="cuda") -> np.ndarray:
     """Full VSD for one estimate -> [T] errors. depth_test in metres (BOP
     depth png / depth_scale / 1000). Default delta=15mm, taus=0.05..0.5 step
     0.05 (BOP19)."""

@@ -163,7 +163,7 @@ class GDRN(nn.Module):
         }
 
 
-def build_model(cfg, device: torch.device | str = "cpu") -> GDRN:
+def build_model(cfg, device: torch.device | str = "cuda") -> GDRN:
     """MODEL.CDPN config subtree -> GDRN on `device` (weights left at
     PyTorch's default init: load a state dict or call `init_weights`)."""
     net_cfg = cfg.MODEL.CDPN

@@ -8,10 +8,14 @@ runs `nn_min_dist_ref`.
 `rasterize_xyz`: the z-buffer depth + object-coordinate render of one mesh
 under B poses over pixel windows (the counterpart of
 gdrnet_tpu/ops/pallas_kernels.py:rasterize_xyz_pallas). On a CUDA tensor it
-launches the CUDA kernel in csrc/rasterize_xyz.cu; on a CPU tensor it runs
-`rasterize_xyz_ref`. Both read the per-face table of `raster_face_tables`.
+launches the CUDA kernels in csrc/rasterize_xyz.cu, which build the per-face
+table on the device and cull faces per pixel tile; on a CPU tensor it runs
+`rasterize_xyz_ref`, whose prologue `raster_face_tables` builds the same
+table in PyTorch. `raster_tile_keep` is the plain version of the kernel's
+per-tile culling rule.
 
-Each wrapper's `launches` attribute counts its kernel launches.
+Each wrapper's `launches` attribute counts its calls that launched the
+wrapper's kernels.
 """
 
 from __future__ import annotations
@@ -227,15 +231,90 @@ def rasterize_xyz_ref(verts, faces, K, R, t, origins, height: int, width: int
     return rasterize_attr_ref(verts, verts, faces, K, R, t, origins, height, width)
 
 
+# The CUDA kernel's culling rule (csrc/rasterize_xyz.cu, "Culling"): a face is
+# dropped from a tile only when it is invalid, or when one of its exact
+# barycentrics lies below minus a bound on the f32 rounding error of that
+# barycentric at all four corners of the tile's sample rectangle. The bound's
+# constants, in f64: _CULL_GAMMA covers the five roundings of edge() then
+# * inv_area (5u / (1 - 5u) < 6u, u = 2^-24) and the f64 evaluation,
+# _CULL_W2 the two roundings of w2 = (1 - w0) - w1 (u (2 + u) < 3u), and
+# _CULL_TINY the subnormal range (2^-150 per rounding).
+RASTER_TILE = 16
+_CULL_GAMMA = 6.0 * 2.0 ** -24
+_CULL_W2 = 3.0 * 2.0 ** -24
+_CULL_TINY = 2.0 ** -148
+
+
+def _edge_cull(xa, ya, xb, yb, ia, abs_ia, px, py):
+    """Exact barycentric ((xa - px)(yb - py) - (ya - py)(xb - px)) * ia at the
+    four corners [.., 2, 2] (px, py each [.., 2]: the rectangle's low and
+    high sample point) and its error bound E over the rectangle, in f64 and
+    in the kernel's order of operations."""
+    A, D = xa[..., None] - px, xb[..., None] - px          # [.., 2] over x
+    Bv, Cv = yb[..., None] - py, ya[..., None] - py        # [.., 2] over y
+    w = (Bv[..., :, None] * A[..., None, :] - Cv[..., :, None] * D[..., None, :]) \
+        * ia[..., None, None]                              # [.., y, x]
+    S = (A.abs().amax(-1) * Bv.abs().amax(-1)) + (Cv.abs().amax(-1) * D.abs().amax(-1))
+    return w, (_CULL_GAMMA * abs_ia) * S + _CULL_TINY * (abs_ia + 1.0)
+
+
+def raster_tile_keep(geom: torch.Tensor, origins: torch.Tensor, height: int, width: int,
+                     tile: int = RASTER_TILE) -> torch.Tensor:
+    """[B, ceil(H/tile), ceil(W/tile), F] bool: which faces of the table of
+    `raster_face_tables` the CUDA kernel keeps for each tile x tile block of
+    the window (the plain version of its culling rule, in f64).
+
+    Pixel (i, j) of pose b samples the f32 point (j + origins[b, 0], i +
+    origins[b, 1]); a tile's sample rectangle spans its first and last
+    pixel inside the window. wk(p) = ((xa - px)(yb - py) - (ya - py)(xb - px))
+    * inv_area is affine in p, so when wk < -Ek at the four corners it is
+    below -Ek on the whole rectangle, and the f32 value the z-buffer
+    computes, which differs from it by at most Ek, is negative: the face
+    covers no pixel of the tile. Ek is the error bound of _CULL_* above, from
+    the largest |xa - px|, |yb - py|, |ya - py|, |xb - px| on the rectangle.
+    A near-degenerate face has a huge inv_area and so a huge bound: it is
+    kept."""
+    B, F, _ = geom.shape
+    dev = geom.device
+    j_lo = torch.arange(0, width, tile, device=dev)
+    i_lo = torch.arange(0, height, tile, device=dev)
+    j = torch.stack([j_lo, (j_lo + tile - 1).clamp_max(width - 1)], -1).float()  # [TX, 2]
+    i = torch.stack([i_lo, (i_lo + tile - 1).clamp_max(height - 1)], -1).float()  # [TY, 2]
+    keep = torch.empty(B, len(i_lo), len(j_lo), F, dtype=torch.bool, device=dev)
+    for b in range(B):  # one pose at a time bounds the [TY, TX, F, 2, 2] temporaries
+        px = (j + origins[b, 0]).double()[None, :, None, :]     # [1, TX, 1, 2]
+        py = (i + origins[b, 1]).double()[:, None, None, :]     # [TY, 1, 1, 2]
+        g = geom[b].double()
+        x0, y0, x1, y1, x2, y2, ia = (g[:, k] for k in range(7))
+        abs_ia = ia.abs()
+        w0, e0 = _edge_cull(x1, y1, x2, y2, ia, abs_ia, px, py)
+        w1, e1 = _edge_cull(x2, y2, x0, y0, ia, abs_ia, px, py)
+        w2 = (1.0 - w0) - w1
+        m0, m1 = w0.abs().flatten(-2).amax(-1), w1.abs().flatten(-2).amax(-1)
+        e2 = (e0 + e1) + _CULL_W2 * (((1.0 + m0) + e0) + (m1 + e1))
+        outside = ((w0 < -e0[..., None, None]).flatten(-2).all(-1)
+                   | (w1 < -e1[..., None, None]).flatten(-2).all(-1)
+                   | (w2 < -e2[..., None, None]).flatten(-2).all(-1))
+        keep[b] = (g[:, 7] > 0) & ~outside
+    return keep
+
+
 @functools.cache
 def _raster_lib() -> ctypes.CDLL:
     lib = csrc.load("rasterize_xyz")
     lib.rasterize_xyz_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p]
     lib.rasterize_xyz_launch.restype = ctypes.c_int
+    lib.rasterize_xyz_tile.argtypes = []
+    lib.rasterize_xyz_tile.restype = ctypes.c_int
     lib.rasterize_xyz_error_string.argtypes = [ctypes.c_int]
     lib.rasterize_xyz_error_string.restype = ctypes.c_char_p
+    if lib.rasterize_xyz_tile() != RASTER_TILE:
+        raise RuntimeError(f"rasterize_xyz.cu culls {lib.rasterize_xyz_tile()}-pixel tiles, "
+                           f"raster_tile_keep {RASTER_TILE}")
     return lib
 
 
@@ -276,25 +355,35 @@ def rasterize_xyz(verts: torch.Tensor, faces: torch.Tensor, K: torch.Tensor, R: 
     each over the H x W pixel window whose top-left pixel is origins[b]
     ([B,2] f32, integer valued). 0 where no face covers a pixel.
 
-    CUDA tensors go through the CUDA kernel (or raise); CPU tensors through
+    CUDA tensors go through the CUDA kernels (or raise): two launches, the
+    face setup and the z-buffer, with no PyTorch op between them (a face
+    index outside [0, V) stops the setup kernel with a device-side fault, as
+    PyTorch's own index kernels do). CPU tensors go through
     `rasterize_xyz_ref`."""
     _check_raster_inputs(verts, faces, K, R, t, origins, height, width)
     if verts.device.type == "cpu":
         return rasterize_xyz_ref(verts, faces, K, R, t, origins, height, width)
     if verts.device.type != "cuda":
         raise ValueError(f"rasterize_xyz: no kernel for device {verts.device}")
-    B, F = K.shape[0], faces.shape[0]
-    if B > 65535:
-        raise ValueError(f"rasterize_xyz: batch {B} exceeds the kernel's grid limit 65535")
+    B, V, F = K.shape[0], verts.shape[0], faces.shape[0]
+    if B > 65535 or -(-height // RASTER_TILE) > 65535:
+        raise ValueError(f"rasterize_xyz: batch {B} or height {height} exceeds the kernel's "
+                         "grid limit")
+    if max(V, F, height, width) >= 2 ** 31:
+        raise ValueError(f"rasterize_xyz: {V} vertices, {F} faces or a {height}x{width} "
+                         "window exceed the kernel's 32-bit counts")
     lib = _raster_lib()
-    geom, attr = raster_face_tables(verts, verts, faces, K, R, t)
-    depth = torch.empty((B, height, width), dtype=torch.float32, device=verts.device)
-    xyz = torch.empty((B, height, width, 3), dtype=torch.float32, device=verts.device)
-    with torch.cuda.device(verts.device):
+    verts, faces, K, R, t = (x.contiguous() for x in (verts, faces, K, R, t))
+    dev = verts.device
+    geom = torch.empty((B, F, 12), dtype=torch.float32, device=dev)  # the setup's face table
+    depth = torch.empty((B, height, width), dtype=torch.float32, device=dev)
+    xyz = torch.empty((B, height, width, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rasterize_xyz_launch(geom.data_ptr(), attr.data_ptr(), origins.data_ptr(),
-                                      depth.data_ptr(), xyz.data_ptr(), B, F, height, width,
-                                      stream)
+        rc = lib.rasterize_xyz_launch(
+            verts.data_ptr(), faces.data_ptr(), int(faces.dtype == torch.int64), K.data_ptr(),
+            R.data_ptr(), t.data_ptr(), origins.data_ptr(), geom.data_ptr(), depth.data_ptr(),
+            xyz.data_ptr(), B, V, F, height, width, Z_NEAR, stream)
     if rc != 0:
         raise RuntimeError(f"rasterize_xyz kernel launch failed: "
                            f"{lib.rasterize_xyz_error_string(rc).decode()} ({rc})")

@@ -58,7 +58,7 @@ def rasterize_attr(verts, attrs, faces, K, R, t, *, height: int, width: int,
 
 
 def render_xyz_windows(verts, faces, Ks, Rs, ts, origins, height: int, width: int,
-                       device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+                       device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """Depth [N,H,W] and XYZ [N,H,W,3] of one mesh under N poses, pose n
     over the H x W window whose top-left pixel is origins[n], in one
     kernels.rasterize_xyz call on `device`."""
@@ -68,7 +68,7 @@ def render_xyz_windows(verts, faces, Ks, Rs, ts, origins, height: int, width: in
         _f32(origins, dev).contiguous(), height, width)
 
 
-def render_xyz(verts, faces, K, R, t, height: int, width: int, device="cpu"
+def render_xyz(verts, faces, K, R, t, height: int, width: int, device="cuda"
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Object-coordinate XYZ map [H,W,3] + depth [H,W] of the full frame
     under pose (R, t) — the GT the reference generates by GL render +
@@ -79,7 +79,7 @@ def render_xyz(verts, faces, K, R, t, height: int, width: int, device="cpu"
     return depth[0], xyz[0]
 
 
-def render_depth(verts, faces, K, R, t, height: int, width: int, device="cpu"
+def render_depth(verts, faces, K, R, t, height: int, width: int, device="cuda"
                  ) -> torch.Tensor:
     """Depth-only render (for VSD eval, lib/pysixd/pose_error.vsd:22)."""
     return render_xyz(verts, faces, K, R, t, height, width, device)[0]
@@ -119,7 +119,7 @@ def window_origin(verts32, K, R, t, height: int, width: int,
 
 
 def render_xyz_roi(verts, faces, K, R, t, height: int, width: int, tile: int = 256,
-                   device="cpu"):
+                   device="cuda"):
     """Windowed XYZ render: rasterize only a [tile, tile] pixel window around
     the projected object instead of the full frame, with the same sampling.
 
@@ -149,7 +149,7 @@ def paste_window(full, win, origin):
 
 
 def render_xyz_roi_many(verts, faces, Ks, Rs, ts, height: int, width: int, tile: int = 128,
-                        on_misfit: str = "raise", device="cpu"):
+                        on_misfit: str = "raise", device="cuda"):
     """Windowed XYZ renders of ONE mesh under many poses, all in one
     rasterize_xyz launch (the offline GT generator's and VSD's hot loop; the
     reference renders sequentially with GL, lm_pbr_1_gen_xyz_crop.py:98-207).

@@ -197,7 +197,7 @@ def test_score_results_matches_jax(chains, rng, tmp_path, case, precision):
     kw = dict(error_types=ERROR_TYPES, sym_objs=["brick"], image_width=320,
               precision=precision)
     want = jbop_score.score_results(results, jrec, jmodels, **kw)
-    got = bop_score.score_results(results, precs, pmodels, **kw)
+    got = bop_score.score_results(results, precs, pmodels, **kw, device="cpu")
     _assert_same(got, want, case)
     assert bop_score.bop19_average_recall(got) == jbop_score.bop19_average_recall(want)
     if case == "perturbed":
@@ -230,7 +230,7 @@ def test_written_bop_split_loads_through_jax(tmp_path):
     K = np.array([[200.0, 0, 80.0], [0, 200.0, 60.0], [0, 0, 1]], np.float32)
     pmeta, keys = write_bop_test_split(str(tmp_path), zoo, np.array([0, 1, 2, 2, 1, 0]), R, t,
                                        K, width=160, height=120, per_image=3,
-                                       images_per_scene=1)
+                                       images_per_scene=1, device="cpu")
     assert keys.tolist() == [[1, 0]] * 3 + [[2, 0]] * 3
     jmeta = jref_meta.meta_from_json(str(tmp_path))
     _assert_same(dataclasses.asdict(pmeta), dataclasses.asdict(jmeta), "meta")

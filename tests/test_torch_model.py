@@ -145,11 +145,11 @@ def test_decode_rot_other_types_not_ported():
     cfg = small_flagship_cfg()
     cfg.MODEL.CDPN.PNP_NET.ROT_TYPE = "allo_quat"
     with pytest.raises(NotImplementedError, match="A12"):
-        gdrn.build_model(cfg)
+        gdrn.build_model(cfg, device="cpu")
     cfg = small_flagship_cfg()
     cfg.MODEL.CDPN.PNP_NET.PNP_HEAD_CFG.type = "PointPnPNet"
     with pytest.raises(NotImplementedError, match="A12"):
-        gdrn.build_model(cfg)
+        gdrn.build_model(cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -241,7 +241,7 @@ def _small_models(seed):
     params, stats = randomize(init_shapes(jm, jnp.asarray(batch["roi_img"]),
                                           **{k: jnp.asarray(batch[k]) for k in keys}),
                               seed=seed)
-    port = load_port(gdrn.build_model(cfg), params, stats)
+    port = load_port(gdrn.build_model(cfg, device="cpu"), params, stats)
     return cfg, jm, {"params": params, "batch_stats": stats}, port, batch, keys
 
 

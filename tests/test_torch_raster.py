@@ -23,6 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 from gdrnet_tpu.ops import rasterizer as jrast
 from gdrnet_tpu.ops.pallas_kernels import rasterize_xyz_pallas
 
+from gdrnet_tpu_torch.data.synthetic import edge_on_poses, sliver_mesh
 from gdrnet_tpu_torch.ops import kernels, rasterizer
 from test_rasterizer import K as CUBE_K
 from test_rasterizer import make_cube
@@ -84,10 +85,10 @@ def test_render_xyz_matches_jax(z):
     R = np.eye(3, dtype=np.float32)
     t = np.array([0.02, -0.01, z], np.float32)
     want = jrast.render_xyz(v, f, CUBE_K, R, t, height=96, width=128)
-    got = rasterizer.render_xyz(v, f, CUBE_K, R, t, height=96, width=128)
+    got = rasterizer.render_xyz(v, f, CUBE_K, R, t, height=96, width=128, device="cpu")
     _assert_render_close(*got, *want)
     assert (np.asarray(got[0]) > 0).any() == (z > 0)
-    np.testing.assert_allclose(rasterizer.render_depth(v, f, CUBE_K, R, t, 96, 128),
+    np.testing.assert_allclose(rasterizer.render_depth(v, f, CUBE_K, R, t, 96, 128, "cpu"),
                                got[0], rtol=0, atol=0)
 
 
@@ -96,15 +97,15 @@ def test_render_xyz_roi_matches_jax(rng, mesh):
     v, f = MESHES[mesh]
     R, t = _pose(rng, 0.8, (0.05, -0.04))
     dj, xj, oj = jrast.render_xyz_roi(v, f, K_VGA, R, t, 480, 640, tile=128)
-    dp, xp, op = rasterizer.render_xyz_roi(v, f, K_VGA, R, t, 480, 640, tile=128)
+    dp, xp, op = rasterizer.render_xyz_roi(v, f, K_VGA, R, t, 480, 640, tile=128, device="cpu")
     assert op == oj
     _assert_render_close(dp, xp, dj, xj)
     # the window equals the same pixels of the full-frame render
-    full, _ = rasterizer.render_xyz(v, f, K_VGA, R, t, 480, 640)
+    full, _ = rasterizer.render_xyz(v, f, K_VGA, R, t, 480, 640, device="cpu")
     np.testing.assert_array_equal(dp.numpy(), full[oj[1]:oj[1] + 128, oj[0]:oj[0] + 128].numpy())
     with pytest.raises(ValueError, match="exceeds tile"):
         rasterizer.render_xyz_roi(v, f, K_VGA, R, t * np.float32([1, 1, 0.2]), 480, 640,
-                                  tile=128)
+                                  tile=128, device="cpu")
 
 
 def test_render_xyz_roi_many_matches_jax(rng):
@@ -118,13 +119,13 @@ def test_render_xyz_roi_many_matches_jax(rng):
     want, want_fit = jrast.render_xyz_roi_many(v, f, Ks, Rs, ts, 480, 640, tile=128,
                                                on_misfit="skip")
     got, got_fit = rasterizer.render_xyz_roi_many(v, f, Ks, Rs, ts, 480, 640, tile=128,
-                                                  on_misfit="skip")
+                                                  on_misfit="skip", device="cpu")
     assert got_fit == want_fit == [0, 1, 3]
     for (dp, xp, op), (dj, xj, oj) in zip(got, want):
         assert op == oj
         _assert_render_close(dp, xp, dj, xj)
     with pytest.raises(ValueError, match="exceed tile"):
-        rasterizer.render_xyz_roi_many(v, f, Ks, Rs, ts, 480, 640, tile=128)
+        rasterizer.render_xyz_roi_many(v, f, Ks, Rs, ts, 480, 640, tile=128, device="cpu")
 
 
 def test_window_origin_equals_jax(rng):
@@ -139,7 +140,8 @@ def test_window_origin_equals_jax(rng):
 def test_paste_window_and_xyz_crop_equal_jax(rng):
     v, f = MESHES["brick"]
     R, t = _pose(rng, 0.8)
-    dp, xp, org = rasterizer.render_xyz_roi(v, f, K_VGA, R, t, 480, 640, tile=128)
+    dp, xp, org = rasterizer.render_xyz_roi(v, f, K_VGA, R, t, 480, 640, tile=128,
+                                            device="cpu")
     got = rasterizer.paste_window(torch.zeros(480, 640), dp, (600, 450)).numpy()
     want = jrast.paste_window(np.zeros((480, 640), np.float32), dp.numpy(), (600, 450))
     np.testing.assert_array_equal(got, want)
@@ -204,6 +206,99 @@ def test_zbuffer_ref_chunking_changes_nothing(rng, monkeypatch):
     assert (want[0] > 0).sum() > 100
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _tile_by_tile_zbuffer(geom, attr, origins, height, width):
+    """zbuffer_ref run on each RASTER_TILE block of the window over only the
+    faces raster_tile_keep keeps for it (in face order)."""
+    keep = kernels.raster_tile_keep(geom, origins, height, width)
+    T = kernels.RASTER_TILE
+    B, _, _ = geom.shape
+    depth = torch.zeros(B, height, width)
+    out = torch.zeros(B, height, width, attr.shape[-1] // 3)
+    for b in range(B):
+        for ty in range(keep.shape[1]):
+            for tx in range(keep.shape[2]):
+                idx = keep[b, ty, tx].nonzero()[:, 0]
+                i0, j0 = ty * T, tx * T
+                th, tw = min(T, height - i0), min(T, width - j0)
+                if len(idx):  # else no face can cover the tile: it stays 0
+                    org = origins[b:b + 1] + torch.tensor([[float(j0), float(i0)]])
+                    d, a = kernels.zbuffer_ref(geom[b:b + 1, idx], attr[b:b + 1, idx], org,
+                                               th, tw)
+                    depth[b, i0:i0 + th, j0:j0 + tw] = d[0]
+                    out[b, i0:i0 + th, j0:j0 + tw] = a[0]
+    return depth, out, keep
+
+
+def _random_poses(rs, n, z=(0.5, 1.0)):
+    """n random rotations and translations that put the object's centre at
+    a random pixel of the VGA frame's middle; returns R, t and that pixel."""
+    q = np.linalg.qr(rs.randn(n, 3, 3))[0]
+    R = (q * np.sign(np.linalg.det(q))[:, None, None]).astype(np.float32)
+    c = np.stack([rs.uniform(200, 440, n), rs.uniform(140, 340, n), np.ones(n)], 1)
+    t = (rs.uniform(*z, (n, 1)) * c @ np.linalg.inv(K_VGA).T).astype(np.float32)
+    return R, t, c[:, :2]
+
+
+CULL_CASES = ["zoo/tower", "zoo/brick", "zoo/octa", "zoo/hexprism", "subdiv2/tower", "off_frame",
+              "edge_on_cube", "slivers"]
+
+
+def _cull_case(case):
+    """(verts, faces, K [B,3,3], R, t, origins [B,2], height, width)."""
+    rs = np.random.RandomState(sum(map(ord, case)))
+    h = w = 96
+    if case == "edge_on_cube":  # the zoo cube, faces seen exactly edge-on
+        v, f = ZOO["cube"]
+        R, t = edge_on_poses(0.035)
+        c = t @ K_VGA.T
+        centres = c[:, :2] / c[:, 2:]
+    elif case == "slivers":
+        v, f = sliver_mesh(K_VGA, seed=1)
+        R = np.broadcast_to(np.eye(3, dtype=np.float32), (2, 3, 3))
+        t = np.zeros((2, 3), np.float32)
+        centres = np.array([[236.0, 186.0], [250.0, 170.0]])
+        h, w = 80, 112
+    else:
+        v, f = ZOO[case.split("/")[1] if "/" in case else "tower"]
+        if case.startswith("subdiv2"):
+            gsd = gen_scale_dataset()
+            v, f = gsd._subdivide(*gsd._subdivide(v, f))
+        R, t, centres = _random_poses(rs, 1 if case.startswith("subdiv2") else 3)
+        if case == "off_frame":  # objects at the frame's corners, windows over its edges
+            centres = np.array([[5.0, 475.0], [636.0, 3.0], [2.0, 2.0]])
+            t = (0.6 * np.concatenate([centres, np.ones((3, 1))], 1)
+                 @ np.linalg.inv(K_VGA).T).astype(np.float32)
+    B = len(R)
+    origins = np.floor(centres - [w // 2, h // 2]).astype(np.float32)
+    return v, f, np.broadcast_to(K_VGA, (B, 3, 3)), R, t, origins, h, w
+
+
+@pytest.mark.parametrize("case", CULL_CASES)
+def test_tile_culling_changes_no_bit(case):
+    """The CUDA kernel's per-tile culling rule (raster_tile_keep, its plain
+    version): the z-buffer over only the kept faces of each tile equals the
+    unculled plain z-buffer bit for bit, near-degenerate faces included."""
+    v, f, K, R, t, origins, h, w = _cull_case(case)
+    v32 = torch.from_numpy(np.asarray(v, np.float32))
+    geom, attr = kernels.raster_face_tables(
+        v32, v32, torch.from_numpy(np.asarray(f, np.int32)),
+        *(torch.from_numpy(np.array(x, np.float32)) for x in (K, R, t)))
+    org = torch.from_numpy(origins)
+    want = kernels.zbuffer_ref(geom, attr, org, h, w)
+    depth, xyz, keep = _tile_by_tile_zbuffer(geom, attr, org, h, w)
+    assert torch.equal(depth, want[0]) and torch.equal(xyz, want[1])
+    assert (want[0] > 0).sum() > 20
+    assert keep.shape == (len(R), -(-h // 16), -(-w // 16), len(f))
+    assert keep.float().mean() < 0.5
+    inv_area = geom[..., 6].abs()[geom[..., 7] > 0]
+    if case == "subdiv2/tower":  # the rule is not vacuous: most faces leave most tiles
+        assert keep.float().mean() < 0.2
+    if case == "edge_on_cube":  # faces seen edge-on: valid, with a thin sliver of area
+        assert (inv_area > 100).any()
+    if case == "slivers":  # near-degenerate faces, their bounds huge, are kept where needed
+        assert (inv_area > 1e5).any() and (geom[..., 7] == 0).any()
 
 
 def test_rasterize_xyz_checks_its_inputs():

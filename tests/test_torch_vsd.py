@@ -108,7 +108,7 @@ def test_vsd_matches_jax(fixture, rng):
         d_test = load_depth(r["depth_path"], r["depth_scale"])
         args = (R_e, t_e, r["R"], r["t"], d_test, r["K"], m["pts"], m["faces"])
         want = jvsd.vsd(*args, diameter=0.12)
-        got = vsd.vsd(*args, diameter=0.12)
+        got = vsd.vsd(*args, diameter=0.12, device="cpu")
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
         assert got.shape == (len(TAUS),)
 
@@ -122,7 +122,7 @@ def test_vsd_pairs_matches_jax(fixture, rng):
             np.stack([load_depth(p[2]["depth_path"]) for p in pairs]),
             np.stack([p[2]["K"] for p in pairs]), m["pts"], m["faces"])
     want = jvsd.vsd_pairs(*args, diameter=0.13)
-    got = vsd.vsd_pairs(*args, diameter=0.13)
+    got = vsd.vsd_pairs(*args, diameter=0.13, device="cpu")
     assert got.shape == want.shape == (len(pairs), len(TAUS))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
