@@ -14,6 +14,9 @@ BOP-layout test split of the dataset's ten meshes (tools/gen_scale_dataset.py
 mesh_zoo) that this script writes; VSD's depth renders go through the
 hand-written CUDA z-buffer kernels (gdrnet_tpu_torch/csrc/rasterize_xyz.cu:
 the face setup on the device, then the z-buffer with per-tile face culling).
+Last, the flagship trains (engine/steps.make_train_step: the GDR-Net losses,
+Ranger with flat_and_anneal, bf16 autocast) at SOLVER.IMS_PER_BATCH=128 on
+synthetic batches; no Pallas kernel of the JAX package lies on that path.
 
 Phases, one line each (or one per case): device, kernel builds (both nvcc
 runs at once), nn_min_dist against its plain PyTorch version and cKDTree,
@@ -22,10 +25,12 @@ version (20 cases), and its time beside its bounds and the share of
 pixel-face pairs it culls; f32 forward on the GPU against the CPU, bf16
 serving, CustomEvaluator scoring (kernel against the plain version),
 throughput, the BOP split, BOP scoring on the card and against the plain
-versions on the CPU; last, what torch.profiler measures (rasterize_xyz's
-launches per call and its kernels' device time, the device time of a BOP
-scoring call), so that no host-bound phase is timed after a profiler
-session. Any failure raises; the exit code is then non-zero and the result
+versions on the CPU; the train step (one f32 step on the card against the
+CPU, 30 bf16 steps, a skipped NaN step, its time per step and split); last,
+what torch.profiler measures (rasterize_xyz's launches per call and its
+kernels' device time, the device time of a BOP scoring call, the train
+step's busy share, top device operations and Ranger's launches), so that no
+host-bound phase is timed after a profiler session. Any failure raises; the exit code is then non-zero and the result
 line is not printed. The last line is
 {"ok": true, "device": {...}}; the line before it holds the kernels'
 launches, errors, times and bounds.
@@ -48,7 +53,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from gdrnet_tpu_torch import csrc, merged_config
+from gdrnet_tpu_torch import (
+    build_lr_schedule,
+    build_optimizer,
+    create_train_state,
+    csrc,
+    make_train_step,
+    merged_config,
+)
 from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.data.synthetic import (
@@ -59,6 +71,7 @@ from gdrnet_tpu_torch.data.synthetic import (
     synthetic_roi_batch,
     write_bop_test_split,
 )
+from gdrnet_tpu_torch.engine import steps
 from gdrnet_tpu_torch.engine.steps import make_predict_step
 from gdrnet_tpu_torch.eval import bop_score
 from gdrnet_tpu_torch.eval.bop_writer import load_bop_results, save_bop_results
@@ -67,7 +80,7 @@ from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
 from gdrnet_tpu_torch.ops import kernels
 
 REPO = Path(__file__).resolve().parent
-DEV = "cuda"  # device of the rasterize_xyz and BOP phases
+DEV = "cuda"  # device of the rasterize_xyz, BOP and train phases
 FLAGSHIP = str(REPO / "configs/gdrn/synth/a6_cPnP_synth.py")
 # the synth dataset's objects (tools/gen_scale_dataset.py), in class order
 OBJECTS = ["cube", "brick", "plate", "tower", "pyramid", "lblock", "wedge", "octa",
@@ -95,6 +108,29 @@ PER_IMAGE, IMAGES_PER_SCENE = 8, 8  # the BOP split: 8 instances an image, 4 sce
 # FMA, 1 min; B2's two edge functions, w2, the 1/z interpolation, the tests
 HBM_BYTES_PER_S, FP32_INSTR_PER_S = 3.35e12, 3.35e13
 NN_INSTR_PER_PAIR, RASTER_INSTR_PER_PAIR = 7, 25
+# the train step: the flagship's schedule over its run's length (160 epochs at
+# IMS_PER_BATCH=128, 14,880 updates, SCALE_RUN.md:41); one f32 step on the
+# card against the CPU at TRAIN_F32_BATCH; TRAIN_STEPS bf16 steps at
+# SOLVER.IMS_PER_BATCH; TRAIN_TIMED steps timed after TRAIN_WARMUP
+TRAIN_TOTAL_ITERS, TRAIN_F32_BATCH, TRAIN_STEPS = 14880, 8, 30
+TRAIN_TIMED, TRAIN_WARMUP, TRAIN_BATCHES = 20, 3, (64, 128)
+# f32, card (TF32 off) against CPU: loss terms and BN buffers; gradients by
+# their relative L2 error per tensor and over all of them, since a ReLU unit
+# within rounding of 0 routes its gradient differently in the two runs
+# (tests/test_torch_train.py measures the same against the JAX package)
+TRAIN_LOSS_RTOL, TRAIN_BN_RTOL, TRAIN_BN_ATOL = 1e-3, 1e-3, 1e-5
+TRAIN_GRAD_TENSOR_REL, TRAIN_GRAD_ALL_REL = 0.15, 0.08
+# device kernels of a train step by kind, from marks in their names
+TRAIN_OP_KINDS = (
+    ("conv_and_matmul", ("xmma", "gemm", "conv", "cudnn", "cutlass", "sm90_")),
+    ("batch_norm", ("batch_norm",)),
+    ("group_norm", ("group_norm", "GroupNorm")),
+    ("foreach", ("multi_tensor_apply", "foreach")),
+    ("copy_and_cast", ("copy",)),
+    ("upsample", ("upsample",)),
+    ("reduce", ("reduce",)),
+    ("elementwise", ("elementwise",)),
+)
 
 
 def log(phase: str, **fields) -> None:
@@ -549,7 +585,7 @@ def phase_bop_score(cfg, split, R, t, root: str) -> tuple[int, list]:
     return served_launches, scored
 
 
-def phase_profile(cfg, split, scored: list, timed: list) -> None:
+def phase_profile(cfg, split, scored: list, timed: list, train: tuple) -> None:
     """The measurements that need torch.profiler, made last, so that no
     host-bound phase is timed after a profiler session (whether a session
     slows later launches is measured by scripts/probe_torch_zbuffer.py):
@@ -574,6 +610,233 @@ def phase_profile(cfg, split, scored: list, timed: list) -> None:
                 "device_ms": f"{prof['']:.3f}", "memcpy_ms": f"{prof['Memcpy']:.3f}",
                 "rasterize_xyz_ms": f"{prof['face_setup_kernel'] + prof['zbuffer_kernel']:.3f}",
                 "nn_min_dist_ms": f"{prof['nn_min_dist_kernel']:.3f}"}))
+    profile_train(*train)
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def train_batch(cfg, batch_size: int, seed: int) -> dict:
+    """A flagship-shaped batch: 256^2 crops, 64^2 maps, 64 regions, 10
+    classes, NUM_PM_POINTS model points."""
+    net = cfg.MODEL.CDPN
+    return synthetic_roi_batch(batch_size=batch_size, input_res=net.BACKBONE.INPUT_RES,
+                               out_res=net.BACKBONE.OUTPUT_RES,
+                               num_classes=net.ROT_HEAD.NUM_CLASSES,
+                               num_points=net.PNP_NET.NUM_PM_POINTS,
+                               num_regions=net.ROT_HEAD.NUM_REGIONS, seed=seed)
+
+
+def train_setup(cfg, state_dict: dict, device: str):
+    """The flagship's model, Ranger with its schedule, train state and step."""
+    model = build_model(cfg, device=device)
+    model.load_state_dict(state_dict)
+    opt = build_optimizer(cfg, model, build_lr_schedule(
+        cfg, cfg.SOLVER.OPTIMIZER_CFG["lr"], TRAIN_TOTAL_ITERS))
+    return create_train_state(model, opt), make_train_step(cfg, model, opt)
+
+
+def phase_train_f32(cfg32, state_dict: dict) -> None:
+    """(a) One f32 step on the card against one on the CPU, same weights and
+    batch: every loss term, the gradients, the updated parameters and the BN
+    buffers."""
+    batch = train_batch(cfg32, TRAIN_F32_BATCH, seed=200)
+    runs = {}
+    for device in (DEV, "cpu"):
+        state, step = train_setup(cfg32, state_dict, device)
+        t0 = time.perf_counter()
+        _, metrics = step(state, to_device(batch, device), None)
+        runs[device] = ({k: float(v) for k, v in metrics.items()},
+                        {k: p.grad.cpu() for k, p in state.model.named_parameters()},
+                        {k: v.cpu() for k, v in state.model.state_dict().items()},
+                        time.perf_counter() - t0)
+    (m_gpu, g_gpu, sd_gpu, _), (m_cpu, g_cpu, sd_cpu, cpu_s) = runs[DEV], runs["cpu"]
+    for k in m_cpu:
+        np.testing.assert_allclose(m_gpu[k], m_cpu[k], rtol=TRAIN_LOSS_RTOL, atol=1e-6, err_msg=k)
+    loss_rel = max(abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in m_cpu)
+    grad_rel = {k: rel_l2(g_gpu[k], g_cpu[k]) for k in g_cpu}
+    worst = max(grad_rel, key=grad_rel.get)
+    grad_all = rel_l2(torch.cat([g.flatten() for g in g_gpu.values()]),
+                      torch.cat([g_cpu[k].flatten() for k in g_gpu]))
+    if grad_rel[worst] > TRAIN_GRAD_TENSOR_REL or grad_all > TRAIN_GRAD_ALL_REL:
+        raise AssertionError(f"train_f32: gradients card vs CPU: {worst} {grad_rel[worst]}, "
+                             f"all {grad_all}")
+    param_diff = max(float((sd_gpu[k] - sd_cpu[k]).abs().max()) for k in g_cpu)
+    bn_diff = 0.0
+    for k in sd_cpu:
+        if k not in g_cpu:
+            torch.testing.assert_close(sd_gpu[k], sd_cpu[k], rtol=TRAIN_BN_RTOL,
+                                       atol=TRAIN_BN_ATOL, msg=k)
+            bn_diff = max(bn_diff, float((sd_gpu[k] - sd_cpu[k]).abs().max()))
+    log("train_f32", batch=TRAIN_F32_BATCH, vs="cpu", loss_terms=len(m_cpu) - 4,
+        loss_max_rel=f"{loss_rel:.3e}", grad_all_rel_l2=f"{grad_all:.3e}",
+        grad_worst_tensor=worst, grad_worst_rel_l2=f"{grad_rel[worst]:.3e}",
+        param_max_abs=f"{param_diff:.3e}", bn_buffer_max_abs=f"{bn_diff:.3e}",
+        cpu_step_s=f"{cpu_s:.1f}", check="ok")
+
+
+def train_snapshot(state) -> list[torch.Tensor]:
+    opt = state.optimizer
+    return [v.clone() for v in state.model.state_dict().values()] + \
+        [t.clone() for st in opt.state.values() for t in st.values()]
+
+
+def phase_train(cfg, state_dict: dict, card: str) -> tuple:
+    """(b) TRAIN_STEPS bf16 steps at IMS_PER_BATCH with the flagship's
+    schedule: every metric finite, nothing skipped. (c) A NaN in roi_img:
+    the step is skipped and the parameters, the optimizer state and the BN
+    buffers are bitwise unchanged. (d) ms per step, ROIs/s, the split into
+    forward, loss, backward and optimizer, and peak memory at each of
+    TRAIN_BATCHES, each time with `card` (name, power limit) beside it.
+    Returns what the profiled run needs."""
+    bs = cfg.SOLVER.IMS_PER_BATCH
+    state, step = train_setup(cfg, state_dict, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    batch = to_device(train_batch(cfg, bs, seed=300), DEV)
+    kernels.nn_min_dist.launches = 0
+    kernels.rasterize_xyz.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = [step(state, batch, gen)[1] for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    hist = {k: torch.stack([h[k] for h in history]).cpu().numpy() for k in history[0]}
+    if not all(np.all(np.isfinite(v)) for v in hist.values()) or hist["nonfinite_skip"].any():
+        raise AssertionError(f"train_bf16: non-finite metrics or skipped steps: {hist}")
+    log("train_bf16", batch=bs, steps=TRAIN_STEPS, schedule="flat_and_anneal",
+        total_iters=TRAIN_TOTAL_ITERS, lr_last=f"{state.optimizer.lr(TRAIN_STEPS - 1):.3e}",
+        total_loss_first=f"{hist['total_loss'][0]:.4f}",
+        total_loss_last=f"{hist['total_loss'][-1]:.4f}",
+        loss_terms=",".join(k for k in hist if k.startswith("loss_")),
+        skipped=int(hist["nonfinite_skip"].sum()), wall_s=f"{wall_s:.2f}",
+        launches_nn_min_dist=kernels.nn_min_dist.launches,
+        launches_rasterize_xyz=kernels.rasterize_xyz.launches, check="ok")
+
+    bad = dict(batch, roi_img=batch["roi_img"].clone())
+    bad["roi_img"][3, 10, 20, 1] = float("nan")
+    before = train_snapshot(state)
+    _, m_bad = step(state, bad, gen)
+    unchanged = all(torch.equal(a, b) for a, b in zip(before, train_snapshot(state)))
+    _, m_next = step(state, batch, gen)
+    if not (float(m_bad["nonfinite_skip"]) == 1.0 and unchanged
+            and float(m_next["nonfinite_skip"]) == 0.0 and np.isfinite(float(m_next["total_loss"]))):
+        raise AssertionError(f"train_skip: skip {float(m_bad['nonfinite_skip'])}, state "
+                             f"unchanged {unchanged}, next {float(m_next['total_loss'])}")
+    log("train_skip", nan_in="roi_img", nonfinite_skip=1, state_tensors=len(before),
+        bitwise_unchanged=True, next_step_total_loss=f"{float(m_next['total_loss']):.4f}",
+        check="ok")
+
+    for b in TRAIN_BATCHES:
+        data = batch if b == bs else to_device(train_batch(cfg, b, seed=301), DEV)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_times(lambda: step(state, data, gen), TRAIN_TIMED, TRAIN_WARMUP)
+        split = train_split(state, step, data, gen)
+        log("train_time", card=repr(card), batch=b, steps=len(ms),
+            median_ms=f"{np.median(ms):.3f}",
+            max_ms=f"{ms.max():.3f}", rois_per_s=f"{b / np.median(ms) * 1e3:.1f}",
+            **{f"{k}_ms": f"{v:.3f}" for k, v in split.items()},
+            peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return state, step, batch, gen, card
+
+
+def train_split(state, step, batch, gen) -> dict:
+    """Median device ms of each part of a train step, from CUDA events that
+    hooks record at the model's forward, after gdrn_loss, and around the
+    optimizer's step."""
+    marks: dict[str, list] = {}
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.setdefault(name, []).append(ev)
+
+    plain_loss = steps.gdrn_loss
+
+    def loss_then_mark(*args, **kwargs):
+        out = plain_loss(*args, **kwargs)
+        mark("loss")
+        return out
+
+    hooks = [state.model.register_forward_pre_hook(lambda *a: mark("forward")),
+             state.model.register_forward_hook(lambda *a: mark("forward_end")),
+             state.optimizer.register_step_pre_hook(lambda *a: mark("optimizer")),
+             state.optimizer.register_step_post_hook(lambda *a: mark("optimizer_end"))]
+    steps.gdrn_loss = loss_then_mark
+    try:
+        for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+            mark("start")
+            step(state, batch, gen)
+            mark("end")
+    finally:
+        steps.gdrn_loss = plain_loss
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    parts = {"prologue": ("start", "forward"), "forward": ("forward", "forward_end"),
+             "loss": ("forward_end", "loss"), "backward": ("loss", "optimizer"),
+             "optimizer": ("optimizer", "optimizer_end"), "epilogue": ("optimizer_end", "end"),
+             "step": ("start", "end")}
+    return {name: float(np.median([a.elapsed_time(b) for a, b in
+                                   zip(marks[s][TRAIN_WARMUP:], marks[e][TRAIN_WARMUP:])]))
+            for name, (s, e) in parts.items()}
+
+
+def device_spans(prof) -> list[tuple[str, float, float]]:
+    """(name, start us, end us) of each device activity a profile saw, without
+    the user annotations the profiler mirrors onto the device."""
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def profile_train(state, step, batch, gen, card: str, n_steps: int = 5) -> None:
+    """A profiled run of n_steps train steps: the device's busy share of the
+    host-clock window (profiler on) and the top device operations; then one
+    optimizer step alone, for Ranger's launches and device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted(device_spans(prof), key=lambda s: s[1])
+    if not spans:
+        log("train_profile", device_busy="not measured (no device events)")
+        return
+    busy, end = 0.0, -1.0
+    for _, a, b in spans:  # the union of the device's busy intervals
+        busy += max(b, end) - max(a, end) if b > end else 0.0
+        end = max(end, b)
+    by_name: dict[str, float] = {}
+    for name, a, b in spans:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    log("train_profile", card=repr(card), batch=len(batch["roi_img"]), steps=n_steps,
+        window_ms_per_step=f"{window_ms / n_steps:.3f}",
+        device_busy_ms_per_step=f"{busy / 1e3 / n_steps:.3f}",
+        device_busy_share=f"{busy / 1e3 / window_ms:.3f}", device_ops=len(spans) // n_steps)
+    print("[train_top_ops] " + json.dumps(
+        [{"name": n[:80], "ms_per_step": round(us / 1e3 / n_steps, 4),
+          "share": round(us / sum(by_name.values()), 4)} for n, us in top]), flush=True)
+    by_kind: dict[str, float] = {}
+    for name, us in by_name.items():  # the first kind whose marks the name holds
+        kind = next((k for k, marks in TRAIN_OP_KINDS if any(m in name for m in marks)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us
+    print("[train_device_by_kind] " + json.dumps(
+        {k: round(us / 1e3 / n_steps, 3) for k, us in sorted(by_kind.items(),
+                                                            key=lambda kv: -kv[1])}), flush=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        state.optimizer.step()
+        torch.cuda.synchronize()
+    ranger = device_spans(prof)
+    log("train_ranger", card=repr(card), params=len(state.optimizer._params),
+        launches_per_step=len(ranger) if ranger else "not measured",
+        device_ms=f"{sum(b - a for _, a, b in ranger) / 1e3:.3f}" if ranger else "not measured")
+
 
 
 def check_rotations(R: np.ndarray, where: str) -> None:
@@ -594,7 +857,8 @@ def main() -> int:
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     name = torch.cuda.get_device_name(0)
     log("device", name=repr(name), count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
@@ -705,11 +969,14 @@ def main() -> int:
         del batch
 
     # 7. the flagship's BOP scoring of the served poses (engine/tester.py:315-332),
-    # 8. then the profiled measurements
+    # 8. its train step, 9. then the profiled measurements
     with tempfile.TemporaryDirectory() as root:
         split = phase_bop_split(cfg, gsd, requests, root)
         raster_launches, scored = phase_bop_score(cfg, split, R, t, root)
-        phase_profile(cfg, split, scored, raster_timed)
+        del model, m32, predict
+        phase_train_f32(cfg32, state_dict)
+        train = phase_train(cfg, state_dict, card)
+        phase_profile(cfg, split, scored, raster_timed, train)
 
     print(json.dumps({"kernels": [
         {"name": "nn_min_dist", "route": "cuda",

@@ -3,7 +3,8 @@ gdrnet_tpu/models/conv_pnp_net.py).
 
 Input: [xyz (denormalized by the extents when there are 3 or 5 coordinate
 channels) | optional 2D coords | optional region attention | optional mask
-attention] at 64x64; three stride-2 convs (GN by default) down to 8x8;
+attention] at 64x64; DropBlock at train time when drop_prob > 0; three
+stride-2 convs (GN by default) down to 8x8;
 flatten (C, H, W order) -> fc1 -> fc2 with LeakyReLU 0.1 -> fc_r and fc_t in f32.
 """
 
@@ -13,21 +14,19 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from gdrnet_tpu_torch.models.layers import conv_norm_act
+from gdrnet_tpu_torch.models.layers import DropBlock2D, conv_norm_act
 
 
 class ConvPnPNet(nn.Module):
     def __init__(self, in_channels: int, rot_dim: int = 6, featdim: int = 128,
                  num_layers: int = 3, norm: str = "GN", num_gn_groups: int = 32,
-                 drop_prob: float = 0.0, mask_attention_type: str = "none",
-                 flat_hw: int = 8 * 8):
+                 drop_prob: float = 0.0, dropblock_size: int = 5,
+                 mask_attention_type: str = "none", flat_hw: int = 8 * 8):
         super().__init__()
-        if drop_prob > 0:
-            raise NotImplementedError(
-                "ConvPnPNet DropBlock is not ported yet (ROADMAP A6, train step)")
         if mask_attention_type not in ("none", "mul", "concat"):
             raise ValueError(f"Wrong mask attention type: {mask_attention_type}")
         self.mask_attention_type = mask_attention_type
+        self.dropblock = DropBlock2D(drop_prob, dropblock_size)
         feats: list[nn.Module] = []
         for i in range(num_layers):
             feats += conv_norm_act(in_channels if i == 0 else featdim, featdim, 3,
@@ -40,11 +39,13 @@ class ConvPnPNet(nn.Module):
 
     def forward(self, coor_feat: torch.Tensor, region: torch.Tensor | None = None,
                 extents: torch.Tensor | None = None,
-                mask_attention: torch.Tensor | None = None
+                mask_attention: torch.Tensor | None = None,
+                dropblock_progress: float = 1.0, generator: torch.Generator | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """coor_feat [B,C,64,64] (xyz first when C is 3 or 5), region
         [B,R,64,64] attention, extents [B,3], mask_attention [B,1,64,64].
-        Returns (rot [B,rot_dim], t [B,3]) in f32."""
+        DropBlock (train mode, drop_prob > 0) draws from `generator` at
+        `dropblock_progress`. Returns (rot [B,rot_dim], t [B,3]) in f32."""
         if coor_feat.shape[1] in (3, 5):
             if extents is None:
                 raise ValueError("ConvPnPNet: extents are needed to denormalize xyz")
@@ -55,6 +56,7 @@ class ConvPnPNet(nn.Module):
             x = x * mask_attention
         elif self.mask_attention_type == "concat":
             x = torch.cat([x, mask_attention], dim=1)
+        x = self.dropblock(x, dropblock_progress, generator)
 
         for layer in self.features:
             x = layer(x)

@@ -69,7 +69,8 @@ class GDRN(nn.Module):
                  rot_class_aware: bool = False, mask_class_aware: bool = False,
                  region_class_aware: bool = False, pnp_norm: str = "GN",
                  pnp_gn_groups: int = 32, pnp_featdim: int = 128, pnp_num_layers: int = 3,
-                 pnp_drop_prob: float = 0.0, with_2d_coord: bool = False,
+                 pnp_drop_prob: float = 0.0, pnp_dropblock_size: int = 5,
+                 with_2d_coord: bool = False,
                  region_attention: bool = False, mask_attention: str = "none",
                  rot_type: str = "allo_rot6d", trans_type: str = "centroid_z",
                  z_type: str = "REL", output_res: int = 64,
@@ -77,7 +78,7 @@ class GDRN(nn.Module):
         super().__init__()
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"Unknown compute dtype: {compute_dtype}")
-        self.compute_dtype = compute_dtype  # read by engine.steps.make_predict_step
+        self.compute_dtype = compute_dtype  # read by engine.steps (bf16 autocast)
         if "rot6d" not in rot_type:
             raise NotImplementedError(
                 f"rot type {rot_type!r} is not ported yet (ROADMAP A12; only rot6d is)")
@@ -111,7 +112,8 @@ class GDRN(nn.Module):
         self.pnp_net = ConvPnPNet(
             pnp_in, rot_dim=rot_param_dim(rot_type), featdim=pnp_featdim,
             num_layers=pnp_num_layers, norm=pnp_norm, num_gn_groups=pnp_gn_groups,
-            drop_prob=pnp_drop_prob, mask_attention_type=mask_attention,
+            drop_prob=pnp_drop_prob, dropblock_size=pnp_dropblock_size,
+            mask_attention_type=mask_attention,
             flat_hw=(output_res // 8) ** 2)
 
     def forward(self, x: torch.Tensor, roi_classes: torch.Tensor | None = None,
@@ -120,9 +122,13 @@ class GDRN(nn.Module):
                 roi_centers: torch.Tensor | None = None,
                 roi_whs: torch.Tensor | None = None,
                 roi_extents: torch.Tensor | None = None,
-                resize_ratios: torch.Tensor | None = None) -> dict:
+                resize_ratios: torch.Tensor | None = None,
+                dropblock_progress: float = 1.0,
+                generator: torch.Generator | None = None) -> dict:
         """x [B, H, W, 3] normalized ROI crops. Returns the decoded pose
-        ("rot" [B,3,3], "trans" [B,3]), the NHWC maps and the net outputs."""
+        ("rot" [B,3,3], "trans" [B,3]), the NHWC maps and the net outputs.
+        In train mode the PnP net's DropBlock (if any) draws from `generator`
+        at `dropblock_progress` (train step / nr_steps)."""
         head_out = self.rot_head_net(self.backbone(_nchw(x)))
         mask, coor_x, coor_y, coor_z, region = self.rot_head_net.split_outputs(
             head_out, roi_classes if self.class_aware else None)
@@ -143,7 +149,8 @@ class GDRN(nn.Module):
                       if self.mask_attention != "none" else None)
 
         pred_rot_param, pred_t_ = self.pnp_net(
-            coor_feat, region=region_atten, extents=roi_extents, mask_attention=mask_atten)
+            coor_feat, region=region_atten, extents=roi_extents, mask_attention=mask_atten,
+            dropblock_progress=dropblock_progress, generator=generator)
 
         with torch.autocast(x.device.type, enabled=False):
             pred_rot_m = decode_rot(pred_rot_param, self.rot_type)
@@ -199,6 +206,7 @@ def build_model(cfg, device: torch.device | str = "cuda") -> GDRN:
         pnp_featdim=head_cfg.get("featdim", 128),
         pnp_num_layers=head_cfg.get("num_layers", 3),
         pnp_drop_prob=head_cfg.get("drop_prob", 0.0),
+        pnp_dropblock_size=head_cfg.get("dropblock_size", 5),
         with_2d_coord=pnp.WITH_2D_COORD,
         region_attention=pnp.REGION_ATTENTION,
         mask_attention=pnp.MASK_ATTENTION,

@@ -7,6 +7,14 @@ import torch
 from gdrnet_tpu_torch.ops import rotation as R
 
 
+def transform_pts(pts: torch.Tensor, rot: torch.Tensor,
+                  t: torch.Tensor | None = None) -> torch.Tensor:
+    """Apply [..., 3, 3] rotations (and [..., 3] translations) to [..., N, 3]
+    points, in full f32 (broadcast multiply-and-sum, as ops.rotation.mm3)."""
+    out = (pts[..., :, None, :] * rot[..., None, :, :]).sum(-1)
+    return out if t is None else out + t[..., None, :]
+
+
 def translation_from_centroid_z(pred_centroids: torch.Tensor, pred_z: torch.Tensor,
                                 roi_cams: torch.Tensor, roi_centers: torch.Tensor,
                                 resize_ratios: torch.Tensor, roi_whs: torch.Tensor,

@@ -65,6 +65,16 @@ def allo_to_ego_mat(translation: torch.Tensor, rot_allo: torch.Tensor,
     return mm3(quat_to_mat(q), rot_allo)
 
 
+def angular_distance_mat(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """(3 - tr(R1 R2^T)) / 4, in [0, 1]."""
+    return (3.0 - (r1 * r2).sum(dim=(-2, -1))) / 4.0
+
+
+def angular_distance_quat(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """1 - <q1, q2>^2, in [0, 1]."""
+    return 1.0 - (q1 * q2).sum(-1).square()
+
+
 def rot_angle_deg(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
     """Geodesic angle between rotations, in degrees."""
     tr = (r1 * r2).sum(dim=(-2, -1))  # trace(r1 @ r2^T)

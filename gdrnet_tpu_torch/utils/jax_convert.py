@@ -1,4 +1,5 @@
-"""JAX package variables -> the port's state_dict.
+"""JAX package variables -> the port's state_dict, and the JAX package's
+Ranger state -> the port's Ranger state_dict.
 
 The exact inverse of gdrnet_tpu/utils/torch_convert.py:convert_torch_state_dict:
 it takes the `params` and `batch_stats` trees of a gdrnet_tpu GDRN (as numpy
@@ -152,3 +153,48 @@ def jax_to_torch(params: dict, batch_stats: dict | None = None,
         out[f"{key}.{name}"] = torch.from_numpy(v.copy())
         out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return out
+
+
+def _find_state(tree, fields: set[str]):
+    """The first namedtuple under `tree` (tuples, lists, namedtuples) that
+    has every one of `fields`."""
+    if hasattr(tree, "_fields") and fields <= set(tree._fields):
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for item in tree:
+            found = _find_state(item, fields)
+            if found is not None:
+                return found
+    return None
+
+
+def ranger_state_to_torch(opt_state, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                          **convert_kwargs) -> dict:
+    """The JAX package's Ranger state (optax LookaheadState(inner, slow,
+    count) with a ScaleByRAdamState(count, mu, nu) inside, possibly under a
+    clip chain or MultiSteps, whose partial sum is not carried: convert at an
+    update boundary) -> a state_dict for `optimizer`, the port's
+    Ranger over `model`'s parameters. mu, nu and slow go through jax_to_torch's
+    key and layout mapping (convert_kwargs as for jax_to_torch), so a JAX run
+    of N steps continues as a torch run."""
+    look = _find_state(opt_state, {"inner", "slow", "count"})
+    radam = None if look is None else _find_state(look.inner, {"count", "mu", "nu"})
+    if radam is None:
+        raise ValueError("no LookaheadState with a ScaleByRAdamState inside in opt_state")
+    count = int(np.asarray(look.count))
+    if count != int(np.asarray(radam.count)):
+        raise ValueError(f"Lookahead count {count} != RAdam count {int(np.asarray(radam.count))}")
+    trees = {name: jax_to_torch(tree, None, **convert_kwargs)
+             for name, tree in (("mu", radam.mu), ("nu", radam.nu), ("slow", look.slow))}
+    index = {id(p): i for i, p in enumerate(p for g in optimizer.param_groups
+                                            for p in g["params"])}
+    state: dict = {}
+    for name, p in model.named_parameters():
+        state[index[id(p)]] = {k: trees[k][name].to(p.device) for k in trees}
+    device = next(model.parameters()).device
+    shared = {"count": torch.tensor(count, device=device),
+              "mini_step": torch.tensor(0, device=device)}
+    if optimizer.accum_steps > 1:
+        shared["acc"] = torch.zeros(sum(p.numel() for p in model.parameters()), device=device)
+    state["shared"] = shared
+    return {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}
