@@ -14,9 +14,13 @@ BOP-layout test split of the dataset's ten meshes (tools/gen_scale_dataset.py
 mesh_zoo) that this script writes; VSD's depth renders go through the
 hand-written CUDA z-buffer kernels (gdrnet_tpu_torch/csrc/rasterize_xyz.cu:
 the face setup on the device, then the z-buffer with per-tile face culling).
-Last, the flagship trains (engine/steps.make_train_step: the GDR-Net losses,
-Ranger with flat_and_anneal, bf16 autocast) at SOLVER.IMS_PER_BATCH=128 on
-synthetic batches; no Pallas kernel of the JAX package lies on that path.
+Then the flagship's train step (engine/steps.make_train_step: the GDR-Net
+losses, Ranger with flat_and_anneal, bf16 autocast) runs at
+SOLVER.IMS_PER_BATCH=128 on synthetic batches, and last the flagship trains
+as a researcher runs it: engine/trainer.do_train from a BOP train split of
+the ten meshes on disk, whose XYZ ground truth the loader threads render
+with the z-buffer kernel on their own CUDA streams, with a checkpoint and a
+resume.
 
 Phases, one line each (or one per case): device, kernel builds (both nvcc
 runs at once), nn_min_dist against its plain PyTorch version and cKDTree,
@@ -26,7 +30,10 @@ pixel-face pairs it culls; f32 forward on the GPU against the CPU, bf16
 serving, CustomEvaluator scoring (kernel against the plain version),
 throughput, the BOP split, BOP scoring on the card and against the plain
 versions on the CPU; the train step (one f32 step on the card against the
-CPU, 30 bf16 steps, a skipped NaN step, its time per step and split); last,
+CPU, 30 bf16 steps, a skipped NaN step, its time per step and split); the
+train loop (the mapper on the card against the CPU, the loader alone,
+do_train to a checkpoint, the resumed state against it, do_train resumed,
+with its step, data and loader times and B2's launches a step); last,
 what torch.profiler measures (rasterize_xyz's launches per call and its
 kernels' device time, the device time of a BOP scoring call, the train
 step's busy share, top device operations and Ranger's launches), so that no
@@ -62,6 +69,7 @@ from gdrnet_tpu_torch import (
     merged_config,
 )
 from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts
+from gdrnet_tpu_torch.data.mapper import GDRNTrainMapper
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.data.synthetic import (
     edge_on_poses,
@@ -69,10 +77,12 @@ from gdrnet_tpu_torch.data.synthetic import (
     sliver_mesh,
     synthetic_object_models,
     synthetic_roi_batch,
-    write_bop_test_split,
+    write_bop_split,
 )
 from gdrnet_tpu_torch.engine import steps
+from gdrnet_tpu_torch.engine.checkpoint import CheckpointManager
 from gdrnet_tpu_torch.engine.steps import make_predict_step
+from gdrnet_tpu_torch.engine.trainer import build_input_pipeline, build_train_objects, do_train
 from gdrnet_tpu_torch.eval import bop_score
 from gdrnet_tpu_torch.eval.bop_writer import load_bop_results, save_bop_results
 from gdrnet_tpu_torch.eval.custom_evaluator import RECALL_KEYS, CustomEvaluator
@@ -120,6 +130,14 @@ TRAIN_TIMED, TRAIN_WARMUP, TRAIN_BATCHES = 20, 3, (64, 128)
 # (tests/test_torch_train.py measures the same against the JAX package)
 TRAIN_LOSS_RTOL, TRAIN_BN_RTOL, TRAIN_BN_ATOL = 1e-3, 1e-3, 1e-5
 TRAIN_GRAD_TENSOR_REL, TRAIN_GRAD_ALL_REL = 0.15, 0.08
+# the train loop: a BOP train split of the 10 zoo meshes, LOOP_SCENES x
+# LOOP_IMAGES images x LOOP_PER_IMAGE instances at 640x480 without xyz_crop
+# pickles; do_train to LOOP_SAVE iterations, then resumed to LOOP_ITERS;
+# the loader alone over LOOP_LOADER_BATCHES batches; LOOP_MAPPED records
+# mapped on the card against the CPU
+LOOP_SCENES, LOOP_IMAGES, LOOP_PER_IMAGE = 4, 16, 8
+LOOP_SAVE, LOOP_ITERS, LOOP_WORKERS = 12, 30, 4
+LOOP_LOADER_BATCHES, LOOP_MAPPED = 8, 16
 # device kernels of a train step by kind, from marks in their names
 TRAIN_OP_KINDS = (
     ("conv_and_matmul", ("xmma", "gemm", "conv", "cudnn", "cutlass", "sm90_")),
@@ -479,7 +497,7 @@ def phase_bop_split(cfg, gsd, requests, root: str) -> dict:
     t_gt = np.concatenate([r["gt_trans"] for r in requests])
     zoo = gsd.mesh_zoo()
     t0 = time.perf_counter()
-    meta, keys = write_bop_test_split(root, zoo, classes, R_gt, t_gt, requests[0]["roi_cams"][0],
+    meta, keys = write_bop_split(root, zoo, classes, R_gt, t_gt, requests[0]["roi_cams"][0],
                                       gsd.W_DEF, gsd.H_DEF, PER_IMAGE, IMAGES_PER_SCENE,
                                       device=DEV)
     write_s = time.perf_counter() - t0
@@ -676,10 +694,17 @@ def phase_train_f32(cfg32, state_dict: dict) -> None:
         cpu_step_s=f"{cpu_s:.1f}", check="ok")
 
 
-def train_snapshot(state) -> list[torch.Tensor]:
+def state_tensors(state) -> list[torch.Tensor]:
+    """Every tensor of a train state: the model's state dict, then Ranger's
+    per-parameter state in parameter order, then its shared counters."""
     opt = state.optimizer
-    return [v.clone() for v in state.model.state_dict().values()] + \
-        [t.clone() for st in opt.state.values() for t in st.values()]
+    return (list(state.model.state_dict().values())
+            + [t for p in opt._params for t in opt.state[p].values()]
+            + list(opt.state["shared"].values()))
+
+
+def train_snapshot(state) -> list[torch.Tensor]:
+    return [t.clone() for t in state_tensors(state)]
 
 
 def phase_train(cfg, state_dict: dict, card: str) -> tuple:
@@ -721,8 +746,12 @@ def phase_train(cfg, state_dict: dict, card: str) -> tuple:
     _, m_next = step(state, batch, gen)
     if not (float(m_bad["nonfinite_skip"]) == 1.0 and unchanged
             and float(m_next["nonfinite_skip"]) == 0.0 and np.isfinite(float(m_next["total_loss"]))):
+        # the gradients of the clean step are still on the parameters
+        bad_grads = [n for n, p in state.model.named_parameters()
+                     if p.grad is not None and not torch.isfinite(p.grad).all()]
         raise AssertionError(f"train_skip: skip {float(m_bad['nonfinite_skip'])}, state "
-                             f"unchanged {unchanged}, next {float(m_next['total_loss'])}")
+                             f"unchanged {unchanged}, next {float(m_next['total_loss'])} with "
+                             f"{len(bad_grads)} non-finite gradients {bad_grads[:6]}")
     log("train_skip", nan_in="roi_img", nonfinite_skip=1, state_tensors=len(before),
         bitwise_unchanged=True, next_step_total_loss=f"{float(m_next['total_loss']):.4f}",
         check="ok")
@@ -837,6 +866,148 @@ def profile_train(state, step, batch, gen, card: str, n_steps: int = 5) -> None:
         launches_per_step=len(ranger) if ranger else "not measured",
         device_ms=f"{sum(b - a for _, a, b in ranger) / 1e3:.3f}" if ranger else "not measured")
 
+
+
+def train_split_poses(n: int, K: np.ndarray, width: int, height: int, seed: int):
+    """n instances for the train split: zoo classes, random rotations, and
+    centres on a 4 x 2 grid of the frame per image (jittered), 0.5-0.9 m
+    away, so that most of each object shows."""
+    rng = np.random.RandomState(seed)
+    p = synthetic_roi_batch(batch_size=n, input_res=8, out_res=4, num_classes=len(OBJECTS),
+                            seed=seed)
+    cell = np.arange(n) % LOOP_PER_IMAGE
+    u = (cell % 4 + 0.5 + rng.uniform(-0.25, 0.25, n)) * width / 4
+    v = (cell // 4 + 0.5 + rng.uniform(-0.25, 0.25, n)) * height / 2
+    z = rng.uniform(0.5, 0.9, n)
+    t = np.stack([(u - K[0, 2]) * z / K[0, 0], (v - K[1, 2]) * z / K[1, 1], z], 1)
+    return p["roi_classes"], p["gt_ego_rot"], t.astype(np.float32)
+
+
+def loop_cfg(root: str, weights: str):
+    """The flagship config as a researcher would train it on the split."""
+    c = merged_config(FLAGSHIP)
+    c.OUTPUT_DIR = str(Path(root) / "train_out")
+    c.SEED = 0
+    c.MODEL.WEIGHTS = weights
+    c.DATASETS.TRAIN = ("loop_train",)
+    c.DATALOADER.NUM_WORKERS = LOOP_WORKERS
+    c.TRAIN.PRINT_FREQ = 1  # log every step's loss
+    c.SOLVER.CHECKPOINT_PERIOD = LOOP_SAVE
+    c.SOLVER.CHECKPOINT_BY_EPOCH = False
+    return c
+
+
+def check_card_mapper(cfg, root: str) -> None:
+    """(b) LOOP_MAPPED records mapped with the kernel on the card equal the
+    same records mapped with the plain rasterizer on the CPU, same seeds:
+    every array bit for bit (so the hit masks too)."""
+    _, records, _, models, mapper = build_train_objects(cfg, root, DEV)
+    np.random.seed(0)  # GaussianBlur(1.2*np.random.rand()) draws when a mapper is built
+    card = GDRNTrainMapper(cfg, models, bg_replacer=mapper.bg, device=DEV)
+    np.random.seed(0)
+    cpu = GDRNTrainMapper(cfg, models, bg_replacer=mapper.bg, device="cpu")
+    for i, rec in enumerate(records[::max(1, len(records) // LOOP_MAPPED)][:LOOP_MAPPED]):
+        got, want = card(dict(rec), np.random.RandomState(i)), cpu(dict(rec), np.random.RandomState(i))
+        for k in want:
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"train_loop: record {i} {k} card vs CPU differ by "
+                                     f"{np.abs(got[k].astype(np.float64) - want[k]).max()}")
+    log("train_loop_mapper", records=LOOP_MAPPED, vs="cpu", arrays=len(want), bitwise_equal=True,
+        check="ok")
+
+
+def time_loader(cfg, root: str) -> float:
+    """Samples/s of the loader alone (NUM_WORKERS threads, renders on the
+    card), over LOOP_LOADER_BATCHES batches after a first one."""
+    _, records, records2, _, mapper = build_train_objects(cfg, root, DEV)
+    loader, _ = build_input_pipeline(cfg, records, records2, mapper, seed=1, device=DEV)
+    it = iter(loader)
+    try:
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(LOOP_LOADER_BATCHES):
+            next(it)
+        return LOOP_LOADER_BATCHES * cfg.SOLVER.IMS_PER_BATCH / (time.perf_counter() - t0)
+    finally:
+        it.close()
+
+
+def phase_train_loop(cfg, state_dict: dict, gsd, root: str, card: str) -> int:
+    """The flagship trained by engine/trainer.do_train from a BOP train split
+    on disk: (a) every logged loss finite and no step skipped, (b) the
+    mapper on the card against the CPU, (c) the state resumed from the
+    checkpoint at LOOP_SAVE bitwise equal to the saved one, (d) B2 launched
+    at least once per sample mapped. Returns B2's launches in the loop."""
+    n = LOOP_SCENES * LOOP_IMAGES * LOOP_PER_IMAGE
+    K = gsd.K_DEF.astype(np.float32)
+    classes, R, t = train_split_poses(n, K, gsd.W_DEF, gsd.H_DEF, seed=400)
+    t0 = time.perf_counter()
+    write_bop_split(str(Path(root) / "loop"), gsd.mesh_zoo(), classes, R, t, K, gsd.W_DEF,
+                    gsd.H_DEF, LOOP_PER_IMAGE, LOOP_IMAGES, device=DEV, split="train")
+    weights = str(Path(root) / "flagship_seed0.pth")
+    torch.save({"model": state_dict}, weights)
+    c = loop_cfg(root, weights)
+    log("train_loop_split", scenes=LOOP_SCENES, images=LOOP_SCENES * LOOP_IMAGES,
+        instances=n, size=f"{gsd.W_DEF}x{gsd.H_DEF}", xyz_crop_pickles=0,
+        write_s=f"{time.perf_counter() - t0:.2f}")
+    check_card_mapper(c, root)
+    loader_rate = time_loader(c, root)
+
+    # the main path: do_train to LOOP_SAVE, then resumed to LOOP_ITERS
+    kernels.nn_min_dist.launches = 0
+    kernels.rasterize_xyz.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    saved, _, preempted = do_train(c, data_root=root, max_iters_override=LOOP_SAVE, device=DEV)
+    run_a_s = time.perf_counter() - t0
+    launches_a = kernels.rasterize_xyz.launches
+    if preempted or saved.step != LOOP_SAVE:
+        raise AssertionError(f"train_loop: first run ended at {saved.step}, preempted {preempted}")
+    # (c) a fresh model and optimizer resumed from the checkpoint
+    fresh = build_model(c, device=DEV)
+    fresh_opt = build_optimizer(c, fresh, build_lr_schedule(c, c.SOLVER.OPTIMIZER_CFG["lr"], 30))
+    resumed, start = CheckpointManager(str(Path(c.OUTPUT_DIR) / "ckpt")).resume_or_load(
+        create_train_state(fresh, fresh_opt), resume=True)
+    a, b = state_tensors(saved), state_tensors(resumed)
+    if start != LOOP_SAVE or len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"train_loop: resumed at {start}, state not bitwise equal")
+    del saved, resumed, fresh, fresh_opt, a, b
+    t0 = time.perf_counter()
+    state, _, preempted = do_train(c, resume=True, data_root=root, max_iters_override=LOOP_ITERS,
+                                   device=DEV)
+    torch.cuda.synchronize()
+    run_b_s = time.perf_counter() - t0
+    launches = kernels.rasterize_xyz.launches
+    if preempted or state.step != LOOP_ITERS:
+        raise AssertionError(f"train_loop: resumed run ended at {state.step}")
+
+    with open(Path(c.OUTPUT_DIR) / "metrics.json") as f:
+        rows = [json.loads(ln) for ln in f]
+    losses = np.array([r["total_loss"] for r in rows])
+    skips = np.array([r["nonfinite_skip"] for r in rows])
+    if [r["iteration"] for r in rows] != list(range(LOOP_ITERS)) or not np.all(
+            np.isfinite(losses)) or skips.any():
+        raise AssertionError(f"train_loop: iterations {[r['iteration'] for r in rows]}, "
+                             f"losses {losses.tolist()}, skips {skips.tolist()}")
+    steady = rows[1:]  # the first step includes the warm-up of every PyTorch kernel
+    step_ms = np.array([r["time/step"] for r in steady]) * 1e3
+    data_ms = np.array([r["time/data"] for r in steady]) * 1e3
+    samples = LOOP_ITERS * c.SOLVER.IMS_PER_BATCH
+    if launches < samples or kernels.nn_min_dist.launches:
+        raise AssertionError(f"train_loop: rasterize_xyz launched {launches} times for "
+                             f"{samples} samples, nn_min_dist {kernels.nn_min_dist.launches}")
+    log("train_loop", card=repr(card), batch=c.SOLVER.IMS_PER_BATCH, workers=LOOP_WORKERS,
+        iterations=LOOP_ITERS, resumed_at=start, state_tensors=len(state_tensors(state)),
+        resumed_bitwise_equal=True, losses_finite=True, skipped=int(skips.sum()),
+        total_loss_first=f"{losses[0]:.4f}", total_loss_last=f"{losses[-1]:.4f}",
+        step_ms_median=f"{np.median(step_ms):.1f}", data_ms_median=f"{np.median(data_ms):.1f}",
+        data_share=f"{data_ms.sum() / step_ms.sum():.3f}",
+        rois_per_s=f"{c.SOLVER.IMS_PER_BATCH / np.median(step_ms) * 1e3:.1f}",
+        loader_samples_per_s=f"{loader_rate:.1f}",
+        launches_rasterize_xyz=launches, launches_per_step=f"{launches / LOOP_ITERS:.1f}",
+        launches_run1=launches_a, wall_s=f"{run_a_s:.1f}+{run_b_s:.1f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", check="ok")
+    return launches
 
 
 def check_rotations(R: np.ndarray, where: str) -> None:
@@ -969,13 +1140,15 @@ def main() -> int:
         del batch
 
     # 7. the flagship's BOP scoring of the served poses (engine/tester.py:315-332),
-    # 8. its train step, 9. then the profiled measurements
+    # 8. its train step, 9. its training run from a BOP split on disk, 10. then
+    # the profiled measurements
     with tempfile.TemporaryDirectory() as root:
         split = phase_bop_split(cfg, gsd, requests, root)
         raster_launches, scored = phase_bop_score(cfg, split, R, t, root)
         del model, m32, predict
         phase_train_f32(cfg32, state_dict)
         train = phase_train(cfg, state_dict, card)
+        loop_launches = phase_train_loop(cfg, state_dict, gsd, root, card)
         phase_profile(cfg, split, scored, raster_timed, train)
 
     print(json.dumps({"kernels": [
@@ -986,7 +1159,7 @@ def main() -> int:
         {"name": "rasterize_xyz", "route": "cuda",
          "source": "gdrnet_tpu_torch/csrc/rasterize_xyz.cu",
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:140",
-         "launches": raster_launches, **raster_stats}]}), flush=True)
+         "launches": raster_launches + loop_launches, **raster_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

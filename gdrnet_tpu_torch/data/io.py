@@ -22,44 +22,73 @@ _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3}  # PNG colour type -> channels: gray, RGB
 
 
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    if pa <= pb and pa <= pc:
-        return a
-    return b if pb <= pc else c
+def _unfilter_rows(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo filters None, Sub and Up in whole-image vector operations, all
+    modulo 256: a Sub row is a running sum along the row; a run of Up rows
+    is a running sum down the columns from the row before the run."""
+    height, stride = rows.shape[0], rows.shape[1] - 1
+    ftype = rows[:, 0]
+    own = rows[:, 1:].copy()  # each row decoded without the rows above it
+    sub = ftype == 1
+    own[sub] = np.cumsum(own[sub].reshape(-1, stride // bpp, bpp), axis=1,
+                         dtype=np.uint8).reshape(-1, stride)
+    if not (ftype == 2).any():
+        return own
+    total = np.cumsum(own, axis=0, dtype=np.uint8)
+    # the last row that does not add the row above it (Up on the first row
+    # adds zeros); everything before it drops out of the running sum
+    start = np.maximum.accumulate(np.where((ftype != 2) | (np.arange(height) == 0),
+                                           np.arange(height), 0))
+    before = np.where((start > 0)[:, None], total[np.maximum(start - 1, 0)], 0)
+    return (total - before).astype(np.uint8)
+
+
+def _unfilter_diagonals(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo any mix of the five filters. Average and Paeth predict a pixel
+    from its left, upper and upper-left neighbours, so the pixels of one
+    anti-diagonal (y + x = d) depend only on the two diagonals before it:
+    the image is skewed so that each diagonal is one row of `sk`, and each
+    diagonal is one vector step over the image's rows."""
+    height, width = rows.shape[0], (rows.shape[1] - 1) // bpp
+    ftype = rows[:, 0].astype(np.int16)[:, None]
+    px = rows[:, 1:].reshape(height, width, bpp)
+    n_diag = height + width - 1
+    ys = np.arange(height)
+    # raw[d, y] = px[y, d - y]; sk[d + 2, y + 1] = decoded px[y, d - y], with
+    # zeros for the diagonals before the first, the row above the first and
+    # every position off the image
+    xs = np.arange(n_diag)[:, None] - ys[None, :]
+    raw = px[ys[None, :], np.clip(xs, 0, width - 1)].astype(np.int16)
+    sk = np.zeros((n_diag + 2, height + 1, bpp), np.int16)
+    # Paeth on every row, the usual choice of libpng's and PIL's writers (on
+    # the first row, with nothing above it, Paeth is Sub)
+    only_paeth = bool((ftype[1:] == 4).all()) and int(ftype[0, 0]) in (1, 4)
+    for d in range(n_diag):
+        y0, y1 = max(0, d - width + 1), min(height, d + 1)
+        a = sk[d + 1, y0 + 1:y1 + 1]  # left
+        b = sk[d + 1, y0:y1]          # up
+        c = sk[d, y0:y1]              # upper left
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        if not only_paeth:
+            f = ftype[y0:y1]
+            pred = np.where(f == 4, pred, np.where(f == 3, (a + b) >> 1,
+                                                   np.where(f == 2, b, np.where(f == 1, a, 0))))
+        sk[d + 2, y0 + 1:y1 + 1] = (raw[d, y0:y1] + pred) & 0xFF
+    x = np.arange(width)[None, :]
+    return sk[ys[:, None] + x + 2, ys[:, None] + 1].astype(np.uint8).reshape(height, -1)
 
 
 def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     """Undo the per-row PNG filters: raw holds height rows of 1 + stride
     bytes, the first byte of each row naming its filter."""
     rows = np.frombuffer(raw, np.uint8).reshape(height, stride + 1)
-    out = np.zeros((height, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(height):
-        ftype, line = rows[y, 0], rows[y, 1:]
-        if ftype == 0:
-            cur = line.copy()
-        elif ftype == 1:  # Sub: running sum per byte lane, modulo 256
-            cur = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
-        elif ftype == 2:  # Up
-            cur = line + prior
-        elif ftype in (3, 4):  # Average, Paeth: each byte needs the one bpp before it
-            cur = bytearray(line.tobytes())
-            up = prior.tobytes()
-            for i in range(stride):
-                left = cur[i - bpp] if i >= bpp else 0
-                if ftype == 3:
-                    pred = (left + up[i]) >> 1
-                else:
-                    pred = _paeth(left, up[i], up[i - bpp] if i >= bpp else 0)
-                cur[i] = (cur[i] + pred) & 0xFF
-            cur = np.frombuffer(bytes(cur), np.uint8)
-        else:
-            raise ValueError(f"PNG: unknown filter type {ftype} in row {y}")
-        out[y] = cur
-        prior = out[y]
-    return out
+    bad = np.flatnonzero(rows[:, 0] > 4)
+    if len(bad):
+        raise ValueError(f"PNG: unknown filter type {rows[bad[0], 0]} in row {bad[0]}")
+    if rows[:, 0].max(initial=0) <= 2:
+        return _unfilter_rows(rows, bpp)
+    return _unfilter_diagonals(rows, bpp)
 
 
 def read_png(path: str) -> np.ndarray:

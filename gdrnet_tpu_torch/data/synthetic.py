@@ -12,6 +12,7 @@ from __future__ import annotations
 import json
 import os
 import os.path as osp
+import pickle
 
 import numpy as np
 import torch
@@ -212,7 +213,7 @@ def sliver_mesh(K: np.ndarray, n: int = 150, seed: int = 0) -> tuple[np.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# BOP-layout test split (port only): the scoring fixture of chip_smoke.py
+# BOP-layout split (port only): the scoring and training fixture of chip_smoke.py
 # ---------------------------------------------------------------------------
 
 
@@ -221,15 +222,18 @@ def _mesh_diameter_mm(v: np.ndarray) -> float:
     return float(max(np.linalg.norm(v[i] - v, axis=-1).max() for i in range(len(v))) * 1000.0)
 
 
-def write_bop_test_split(root: str, meshes: list, obj_idx: np.ndarray, R: np.ndarray,
-                         t: np.ndarray, K: np.ndarray, width: int = 640, height: int = 480,
-                         per_image: int = 8, images_per_scene: int = 8, device="cuda"):
-    """Write a BOP-layout dataset with one test split holding the given
-    instances, as tools/gen_scale_dataset.py lays its datasets out:
-    models/obj_XXXXXX.ply (mm) + models_info.json (diameter, extents,
-    symmetries_discrete), meta.json, and test/<scene>/ with scene_gt.json,
-    scene_gt_info.json, scene_camera.json, rgb/*.png and 16-bit depth/*.png
-    (mm, depth_scale 1).
+def write_bop_split(root: str, meshes: list, obj_idx: np.ndarray, R: np.ndarray,
+                    t: np.ndarray, K: np.ndarray, width: int = 640, height: int = 480,
+                    per_image: int = 8, images_per_scene: int = 8, device="cuda",
+                    split: str = "test", with_xyz_crop: bool = False):
+    """Write a BOP-layout dataset with one split (`split`: "test", "train")
+    holding the given instances, as tools/gen_scale_dataset.py lays its
+    datasets out: models/obj_XXXXXX.ply (mm) + models_info.json (diameter,
+    extents, symmetries_discrete), meta.json, and <split>/<scene>/ with
+    scene_gt.json, scene_gt_info.json, scene_camera.json, rgb/*.png, 16-bit
+    depth/*.png (mm, depth_scale 1), and per instance mask/ and mask_visib/
+    PNGs ({im}_{inst}.png, 0 or 255) and, with `with_xyz_crop`, the
+    xyz_crop/{im}_{inst}.pkl of ops.rasterizer.xyz_crop_from_render.
 
     meshes: [(name, verts [V,3] m, faces [F,3], sym_rots list)] as
     tools/gen_scale_dataset.py:mesh_zoo returns them. Instance n (object
@@ -237,7 +241,8 @@ def write_bop_test_split(root: str, meshes: list, obj_idx: np.ndarray, R: np.nda
     n // (per_image * images_per_scene) + 1, image (n // per_image) %
     images_per_scene. Each image's depth is the z-merge of its instances'
     depth renders (ops.rasterizer, so the z-buffer kernel on a CUDA
-    `device`); the visible masks of scene_gt_info follow from it.
+    `device`); the visible masks of scene_gt_info and mask_visib/ follow
+    from it.
 
     Returns (DatasetMeta of `root`, [N, 2] int (scene_id, im_id) of each
     instance)."""
@@ -245,6 +250,7 @@ def write_bop_test_split(root: str, meshes: list, obj_idx: np.ndarray, R: np.nda
     from gdrnet_tpu_torch.data.ply import save_ply
     from gdrnet_tpu_torch.data.ref_meta import meta_from_json
     from gdrnet_tpu_torch.eval.vsd import render_depths_many
+    from gdrnet_tpu_torch.ops.rasterizer import render_xyz, xyz_crop_from_render
 
     obj_idx = np.asarray(obj_idx)
     R = np.asarray(R, np.float32)
@@ -294,8 +300,8 @@ def write_bop_test_split(root: str, meshes: list, obj_idx: np.ndarray, R: np.nda
     keys = np.stack([np.arange(N) // per_scene + 1, (np.arange(N) // per_image)
                      % images_per_scene], axis=1)
     for s in range(0, N, per_scene):
-        scene_dir = osp.join(root, "test", f"{s // per_scene + 1:06d}")
-        for sub in ("rgb", "depth"):
+        scene_dir = osp.join(root, split, f"{s // per_scene + 1:06d}")
+        for sub in ("rgb", "depth", "mask", "mask_visib") + (("xyz_crop",) if with_xyz_crop else ()):
             os.makedirs(osp.join(scene_dir, sub), exist_ok=True)
         scene_gt, scene_gt_info, scene_camera = {}, {}, {}
         for s0 in range(s, min(s + per_scene, N), per_image):
@@ -320,7 +326,19 @@ def write_bop_test_split(root: str, meshes: list, obj_idx: np.ndarray, R: np.nda
                         int(ys.max() - ys.min() + 1)]
 
             gts, infos = [], []
+            amodal_np, visib_np = amodal.cpu().numpy(), visib.cpu().numpy()
             for k, n in enumerate(idx):
+                stem = f"{im_id:06d}_{k:06d}"
+                write_png(osp.join(scene_dir, "mask", f"{stem}.png"),
+                          amodal_np[k].astype(np.uint8) * 255)
+                write_png(osp.join(scene_dir, "mask_visib", f"{stem}.png"),
+                          visib_np[k].astype(np.uint8) * 255)
+                if with_xyz_crop:
+                    _, v, f, _ = meshes[obj_idx[n]]
+                    crop = xyz_crop_from_render(*render_xyz(v, f, K, R[n], t[n], height, width,
+                                                            device=device))
+                    with open(osp.join(scene_dir, "xyz_crop", f"{stem}.pkl"), "wb") as fp:
+                        pickle.dump(crop, fp)
                 gts.append({"cam_R_m2c": R[n].reshape(-1).astype(float).tolist(),
                             "cam_t_m2c": (t[n] * 1000.0).astype(float).tolist(),
                             "obj_id": int(obj_idx[n]) + 1})

@@ -15,19 +15,28 @@ table in PyTorch. `raster_tile_keep` is the plain version of the kernel's
 per-tile culling rule.
 
 Each wrapper's `launches` attribute counts its calls that launched the
-wrapper's kernels.
+wrapper's kernels; loader threads call rasterize_xyz concurrently, so the
+count is bumped under a lock.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
 from gdrnet_tpu_torch import csrc
 
 _REF_CHUNK_ELEMS = 1 << 24  # bounds the [B, chunk, NR, 3] difference tensor
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch(wrapper) -> None:
+    """wrapper.launches += 1, exact under concurrent callers."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 def nn_min_dist_ref(query: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -98,7 +107,7 @@ def nn_min_dist(query: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"nn_min_dist kernel launch failed: "
                            f"{lib.nn_min_dist_error_string(rc).decode()} ({rc})")
-    nn_min_dist.launches += 1
+    _count_launch(nn_min_dist)
     return partial.sum(dim=1) / NQ
 
 
@@ -387,7 +396,7 @@ def rasterize_xyz(verts: torch.Tensor, faces: torch.Tensor, K: torch.Tensor, R: 
     if rc != 0:
         raise RuntimeError(f"rasterize_xyz kernel launch failed: "
                            f"{lib.rasterize_xyz_error_string(rc).decode()} ({rc})")
-    rasterize_xyz.launches += 1
+    _count_launch(rasterize_xyz)
     return depth, xyz
 
 

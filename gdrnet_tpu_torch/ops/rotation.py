@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 
 _EPS = 1e-8
+# the largest f32 below 1: arccos has a finite gradient up to it
+_ACOS_MAX = 1.0 - 2.0 ** -24
 
 
 def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -54,9 +56,13 @@ def allo_to_ego_mat(translation: torch.Tensor, rot_allo: torch.Tensor,
                     eps: float = 1e-4) -> torch.Tensor:
     """Allocentric -> egocentric: rotate by the angle between the camera ray
     (0, 0, 1) and the object's ray. translation [..., 3], rot_allo [..., 3, 3].
-    Norms are floored at eps, as in the JAX package."""
+    Norms are floored at eps, as in the JAX package. The ray's z is clamped
+    to +-_ACOS_MAX, not +-1: a ray within about 3.5e-4 of the axis rounds to
+    z = 1, where arccos's gradient is infinite and the translation's gradient
+    not finite (ROADMAP.md section C); the angle there is 3.45e-4 rad, not 0,
+    and every other ray's is unchanged."""
     obj_ray = translation / safe_norm(translation, eps=eps)
-    angle = torch.arccos(obj_ray[..., 2:3].clamp(-1.0, 1.0))
+    angle = torch.arccos(obj_ray[..., 2:3].clamp(-_ACOS_MAX, _ACOS_MAX))
     cam_ray = torch.tensor([0.0, 0.0, 1.0], dtype=translation.dtype,
                            device=translation.device).expand_as(obj_ray)
     axis = torch.linalg.cross(cam_ray, obj_ray)

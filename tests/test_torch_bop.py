@@ -30,7 +30,7 @@ from gdrnet_tpu.ops import fps as jfps
 from gdrnet_tpu.ops import symmetry as jsym
 
 from gdrnet_tpu_torch.data import bop, io, model_store, ply, ref_meta
-from gdrnet_tpu_torch.data.synthetic import write_bop_test_split
+from gdrnet_tpu_torch.data.synthetic import write_bop_split
 from gdrnet_tpu_torch.eval import bop_score, bop_writer
 from gdrnet_tpu_torch.ops import fps, symmetry
 from fixture_bop import build_fixture_dataset
@@ -228,7 +228,7 @@ def test_written_bop_split_loads_through_jax(tmp_path):
     R = (q * np.sign(np.linalg.det(q))[:, None, None]).astype(np.float32)
     t = np.concatenate([rng.uniform(-0.04, 0.04, (6, 2)), rng.uniform(0.5, 0.7, (6, 1))], 1)
     K = np.array([[200.0, 0, 80.0], [0, 200.0, 60.0], [0, 0, 1]], np.float32)
-    pmeta, keys = write_bop_test_split(str(tmp_path), zoo, np.array([0, 1, 2, 2, 1, 0]), R, t,
+    pmeta, keys = write_bop_split(str(tmp_path), zoo, np.array([0, 1, 2, 2, 1, 0]), R, t,
                                        K, width=160, height=120, per_image=3,
                                        images_per_scene=1, device="cpu")
     assert keys.tolist() == [[1, 0]] * 3 + [[2, 0]] * 3

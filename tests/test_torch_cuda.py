@@ -1,5 +1,7 @@
 """The CUDA kernels of gdrnet_tpu_torch against their plain PyTorch versions:
-nn_min_dist (B1) and rasterize_xyz (B2).
+nn_min_dist (B1) and rasterize_xyz (B2), and B2 under the train mapper
+(renders on the card equal to the CPU's, from loader-like threads on their
+own streams beside train steps).
 
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
 without one. This file imports no JAX, so it also runs where JAX is not
@@ -9,8 +11,10 @@ installed; tests/conftest.py does import JAX, so on such a machine run it as
 """
 
 import importlib.util
+import os.path as osp
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -186,3 +190,115 @@ def test_rasterize_xyz_stops_on_a_bad_face_index(cuda_device):
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=300, cwd=Path(__file__).resolve().parents[1])
     assert proc.returncode != 0 and "finished" not in proc.stdout, proc.stdout + proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# the train mapper's XYZ renders on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def zoo_train_split(tmp_path_factory):
+    """A BOP train split of the zoo meshes without xyz_crop pickles (2 scenes
+    x 2 images x 4 instances at 320x240) and the flagship config: (records,
+    models, cfg)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    from gdrnet_tpu_torch import merged_config
+    from gdrnet_tpu_torch.data.dataset_factory import resolve
+    from gdrnet_tpu_torch.data.model_store import ObjectModels
+    from gdrnet_tpu_torch.data.synthetic import synthetic_roi_batch, write_bop_split
+
+    spec = importlib.util.spec_from_file_location(
+        "gen_scale_dataset", Path(__file__).resolve().parents[1] / "tools/gen_scale_dataset.py")
+    gsd = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gsd)
+    root = tmp_path_factory.mktemp("zoo_cuda")
+    p = synthetic_roi_batch(batch_size=16, input_res=8, out_res=4, num_classes=10, seed=4)
+    K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)
+    t = p["gt_trans"].copy()
+    t[:, :2] = np.random.RandomState(2).uniform(-0.1, 0.1, (16, 2))
+    t[:, 2] += 0.4
+    write_bop_split(str(root / "zoo"), gsd.mesh_zoo(), p["roi_classes"], p["gt_ego_rot"], t, K,
+                    width=320, height=240, per_image=4, images_per_scene=2, device="cuda",
+                    split="train")
+    cfg = merged_config(str(Path(__file__).resolve().parents[1]
+                            / "configs/gdrn/synth/a6_cPnP_synth.py"))
+    meta, records = resolve("zoo_train", str(root), visib_thr=0.1)
+    models = ObjectModels(meta, num_pm_points=cfg.MODEL.CDPN.PNP_NET.NUM_PM_POINTS,
+                          num_fps=cfg.MODEL.CDPN.ROT_HEAD.NUM_REGIONS)
+    assert len(records) >= 8 and not any(osp.exists(r["xyz_path"]) for r in records)
+    return records, models, cfg
+
+
+@pytest.mark.cuda
+def test_mapper_renders_on_the_card_equal_the_cpu(zoo_train_split):
+    """Every record's sample mapped with the kernel on the card equals the
+    one mapped with the plain rasterizer on the CPU, same seeds, bit for bit
+    (the kernel equals its plain version bitwise)."""
+    from gdrnet_tpu_torch.data.mapper import GDRNTrainMapper
+
+    records, models, cfg = zoo_train_split
+    np.random.seed(0)
+    card = GDRNTrainMapper(cfg, models, device="cuda")
+    np.random.seed(0)
+    cpu = GDRNTrainMapper(cfg, models, device="cpu")
+    before = kernels.rasterize_xyz.launches
+    for i, rec in enumerate(records[:8]):
+        got, want = card(dict(rec), np.random.RandomState(i)), cpu(dict(rec), np.random.RandomState(i))
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"record {i} {k}")
+    assert kernels.rasterize_xyz.launches == before + 8
+
+
+@pytest.mark.cuda
+def test_renders_on_thread_streams_beside_a_train_step(zoo_train_split):
+    """Two threads render with the mapper, each on a CUDA stream of its own,
+    while train steps run on the default stream: each render equals the
+    plain version's, the streams are distinct and not the default one."""
+    from gdrnet_tpu_torch import build_lr_schedule, build_optimizer, create_train_state
+    from gdrnet_tpu_torch import make_train_step
+    from gdrnet_tpu_torch.data.mapper import GDRNTrainMapper
+    from gdrnet_tpu_torch.data.synthetic import synthetic_roi_batch
+    from gdrnet_tpu_torch.models.gdrn import build_model
+
+    records, models, cfg = zoo_train_split
+    mapper = GDRNTrainMapper(cfg, models, device="cuda")
+    want = {}
+    for i, rec in enumerate(records[:6]):
+        want[i] = GDRNTrainMapper(cfg, models, device="cpu")._render_xyz(rec, 240, 320)
+    model = build_model(cfg, device="cuda")
+    opt = build_optimizer(cfg, model, build_lr_schedule(cfg, 1e-4, 100))
+    state, step = create_train_state(model, opt), make_train_step(cfg, model, opt)
+    net = cfg.MODEL.CDPN
+    batch = synthetic_roi_batch(batch_size=16, input_res=net.BACKBONE.INPUT_RES,
+                                out_res=net.BACKBONE.OUTPUT_RES,
+                                num_classes=net.ROT_HEAD.NUM_CLASSES,
+                                num_points=net.PNP_NET.NUM_PM_POINTS,
+                                num_regions=net.ROT_HEAD.NUM_REGIONS, seed=1)
+    got, streams, errors = {}, {}, []
+
+    def render(worker):
+        try:
+            for i in range(worker, 6, 2):
+                got[i] = mapper._render_xyz(records[i], 240, 320)
+            streams[worker] = mapper._local.stream
+        except Exception as e:  # noqa: BLE001 — reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=render, args=(w,)) for w in range(2)]
+    for _ in range(2):
+        step(state, batch, None)  # queued on the default stream
+    for t in threads:
+        t.start()
+    for _ in range(2):
+        step(state, batch, None)
+    for t in threads:
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    default = torch.cuda.default_stream()
+    assert streams[0] != streams[1] and default not in streams.values()
+    for i in range(6):
+        np.testing.assert_array_equal(got[i], want[i], err_msg=f"record {i}")

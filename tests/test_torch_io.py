@@ -87,7 +87,9 @@ def test_read_png_equals_cv2_on_cv2_files(rng, tmp_path, kind):
 
 
 @pytest.mark.parametrize("kind", ["depth16", "gray8", "rgb8"])
-@pytest.mark.parametrize("filters", [(0,), (1,), (2,), (3,), (4,), (4, 3, 2, 1, 0)])
+@pytest.mark.parametrize("filters", [(0,), (1,), (2,), (3,), (4,), (4, 3, 2, 1, 0),
+                                     # PIL's choice: Sub on the first row, Paeth on the rest
+                                     (1,) + (4,) * 36, (3,) + (4,) * 36])
 def test_read_png_undoes_every_filter_type(rng, tmp_path, kind, filters):
     img = _image(rng, kind)
     path = tmp_path / "f.png"

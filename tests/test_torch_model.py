@@ -72,6 +72,24 @@ def test_rotation_op_matches_jax(rng, name):
     _close(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("offset", [0.0, 1e-4, 2e-4])
+def test_allo_to_ego_gradient_is_finite_near_the_optical_axis(rng, offset):
+    """A ray within about 3.5e-4 of the optical axis rounds to z = 1, where
+    arccos has an infinite gradient: the JAX package's translation gradient
+    is not finite there, so its train step skips such a batch; the port
+    clamps z below 1 and its gradients stay finite (ROADMAP.md section C).
+    Off the axis the port equals JAX (test_rotation_op_matches_jax)."""
+    t = np.array([[offset, 0.0, 0.9]], np.float32)
+    R = _rotations(rng, 1)
+    w = rng.randn(1, 3, 3).astype(np.float32)
+    jgrad = jax.grad(lambda tt: (jrot.allo_to_ego_mat(tt, jnp.asarray(R)) * w).sum())(
+        jnp.asarray(t))
+    tt = T(t).requires_grad_(True)
+    (rotation.allo_to_ego_mat(tt, T(R)) * T(w)).sum().backward()
+    assert torch.isfinite(tt.grad).all(), tt.grad
+    assert not np.isfinite(np.asarray(jgrad)).all(), jgrad
+
+
 @pytest.mark.parametrize("z_type", ["REL", "ABS"])
 def test_translation_from_centroid_z_matches_jax(rng, z_type):
     B = 8

@@ -157,26 +157,27 @@ def tiny_split(tmp_path_factory):
     and one GT-equal estimate per visible instance."""
     from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts
     from gdrnet_tpu_torch.data.model_store import ObjectModels
-    from gdrnet_tpu_torch.data.synthetic import write_bop_test_split
+    from gdrnet_tpu_torch.data.synthetic import write_bop_split
 
     root = str(tmp_path_factory.mktemp("tiny_split"))
     zoo = gen_scale_dataset().mesh_zoo()[:3]
     R = np.stack([np.eye(3, dtype=np.float32)] * 3)
     t = np.array([[-0.05, 0.0, 0.6], [0.0, 0.0, 0.6], [0.05, 0.0, 0.6]], np.float32)
     K = np.array([[200.0, 0, 80.0], [0, 200.0, 60.0], [0, 0, 1]], np.float32)
-    meta, _ = write_bop_test_split(root, zoo, np.arange(3), R, t, K, width=160, height=120,
-                                   per_image=3, images_per_scene=1, device="cpu")
+    meta, _ = write_bop_split(root, zoo, np.arange(3), R, t, K, width=160, height=120,
+                              per_image=3, images_per_scene=1, device="cpu")
     records = load_bop_scene_dicts(meta, "test")
     models = ObjectModels(meta, num_pm_points=50, num_fps=8)
     results = [{"scene_id": r["scene_id"], "im_id": r["im_id"], "obj_id": r["obj_id"],
                 "score": 1.0, "R": r["R"], "t": r["t"] * 1000.0, "time": -1.0}
                for r in records]
-    return {"zoo": zoo, "records": records, "models": models, "results": results, "K": K}
+    return {"zoo": zoo, "records": records, "models": models, "results": results, "K": K,
+            "root": root}
 
 
 def _entry_point_call(entry: str, split: dict, tmp_path):
     """A call of one entry point that names no device."""
-    from gdrnet_tpu_torch.data.synthetic import write_bop_test_split
+    from gdrnet_tpu_torch.data.synthetic import write_bop_split
     from gdrnet_tpu_torch.eval import bop_score, vsd
     from gdrnet_tpu_torch.ops import rasterizer
 
@@ -215,15 +216,29 @@ def _entry_point_call(entry: str, split: dict, tmp_path):
         return rasterizer.render_xyz_roi(v, f, K, R, t, 120, 160, tile=64)
     if entry == "render_xyz_roi_many":
         return rasterizer.render_xyz_roi_many(v, f, K[None], R[None], t[None], 120, 160, tile=64)
-    assert entry == "write_bop_test_split"
-    return write_bop_test_split(str(tmp_path), split["zoo"][:1], np.zeros(1, int), R[None],
-                                t[None], K, width=160, height=120, per_image=1,
-                                images_per_scene=1)
+    if entry == "GDRNTrainMapper":  # a record without xyz_crop renders its XYZ
+        from gdrnet_tpu_torch.data.mapper import GDRNTrainMapper
+
+        return GDRNTrainMapper(small_flagship_cfg(), split["models"])(
+            dict(split["records"][0]), np.random.RandomState(0))
+    if entry == "do_train":
+        from gdrnet_tpu_torch.data.dataset_factory import register
+        from gdrnet_tpu_torch.engine.trainer import do_train
+
+        cfg = small_flagship_cfg()
+        cfg.OUTPUT_DIR, cfg.DATASETS.TRAIN = str(tmp_path), ("tinysplit_train",)
+        register("tinysplit_train", lambda: (split["models"].meta, split["records"]))
+        return do_train(cfg, max_iters_override=1)
+    assert entry == "write_bop_split"
+    return write_bop_split(str(tmp_path), split["zoo"][:1], np.zeros(1, int), R[None],
+                           t[None], K, width=160, height=120, per_image=1,
+                           images_per_scene=1)
 
 
 ENTRY_POINTS = ["build_model", "CustomEvaluator", "_vsd_errors_by_obj", "score_results",
                 "render_depths_many", "vsd_pairs", "vsd", "render_xyz_windows", "render_xyz",
-                "render_depth", "render_xyz_roi", "render_xyz_roi_many", "write_bop_test_split"]
+                "render_depth", "render_xyz_roi", "render_xyz_roi_many", "write_bop_split",
+                "GDRNTrainMapper", "do_train"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -239,7 +254,8 @@ def test_entry_point_defaults_to_the_card(entry, tiny_split, tmp_path):
 def test_port_imports_no_jax():
     """Every module of the port (found by walking the package, so new ones
     are covered), then merged_config on the flagship: no JAX, nor the JAX
-    package, cv2 or tabulate, which the card's machine lacks."""
+    package, cv2 or tabulate, which the card's machine lacks, nor PIL,
+    torchvision or tensorboard, which no required path needs."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import gdrnet_tpu_torch\n"
@@ -252,7 +268,7 @@ def test_port_imports_no_jax():
         f"merged_config({FLAGSHIP!r})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gdrnet_tpu', 'cv2',\n"
-        "              'tabulate'))\n"
+        "              'tabulate', 'PIL', 'torchvision', 'tensorboard'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
