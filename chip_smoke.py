@@ -50,10 +50,12 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import pickle
 import subprocess
 import sys
 import tempfile
 import time
+from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -61,6 +63,7 @@ import numpy as np
 import torch
 
 from gdrnet_tpu_torch import (
+    base_config,
     build_lr_schedule,
     build_optimizer,
     create_train_state,
@@ -68,8 +71,9 @@ from gdrnet_tpu_torch import (
     make_train_step,
     merged_config,
 )
-from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts
-from gdrnet_tpu_torch.data.mapper import GDRNTrainMapper
+from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts, load_detections
+from gdrnet_tpu_torch.data.io import read_png, write_png
+from gdrnet_tpu_torch.data.mapper import GDRNTestMapper, GDRNTrainMapper, collate
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.data.synthetic import (
     edge_on_poses,
@@ -79,15 +83,17 @@ from gdrnet_tpu_torch.data.synthetic import (
     synthetic_roi_batch,
     write_bop_split,
 )
-from gdrnet_tpu_torch.engine import steps
-from gdrnet_tpu_torch.engine.checkpoint import CheckpointManager
+from gdrnet_tpu_torch.engine import build_test_items, do_test, steps
+from gdrnet_tpu_torch.engine.checkpoint import CheckpointManager, load_weights
 from gdrnet_tpu_torch.engine.steps import make_predict_step
 from gdrnet_tpu_torch.engine.trainer import build_input_pipeline, build_train_objects, do_train
 from gdrnet_tpu_torch.eval import bop_score
+from gdrnet_tpu_torch.eval import pose_errors as PE
 from gdrnet_tpu_torch.eval.bop_writer import load_bop_results, save_bop_results
 from gdrnet_tpu_torch.eval.custom_evaluator import RECALL_KEYS, CustomEvaluator
 from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
 from gdrnet_tpu_torch.ops import kernels
+from gdrnet_tpu_torch.ops.symmetry import get_closest_rot_batch, identity_padded_sym_arrays
 
 REPO = Path(__file__).resolve().parent
 DEV = "cuda"  # device of the rasterize_xyz, BOP and train phases
@@ -138,6 +144,19 @@ TRAIN_GRAD_TENSOR_REL, TRAIN_GRAD_ALL_REL = 0.15, 0.08
 LOOP_SCENES, LOOP_IMAGES, LOOP_PER_IMAGE = 4, 16, 8
 LOOP_SAVE, LOOP_ITERS, LOOP_WORKERS = 12, 30, 4
 LOOP_LOADER_BATCHES, LOOP_MAPPED = 8, 16
+# the test path: est_dets.json from the BOP split's visible GT boxes jittered by
+# up to DET_JITTER_PX, every DET_DROP_EVERY-th instance without a detection,
+# every DET_SECOND_EVERY-th with a lower-scored second one; scene 1 in f32 on
+# the card against the CPU: rotations within DO_TEST_ROT_ATOL, translations
+# within DO_TEST_TRANS_RTOL of their norm (the forward's tolerance above)
+DET_JITTER_PX, DET_DROP_EVERY, DET_SECOND_EVERY = 4, 16, 10
+DO_TEST_ROT_ATOL, DO_TEST_TRANS_RTOL, CLI_TIMEOUT_S = 1e-3, 1e-3, 300
+# the learning check (tools/validate_overfit.py): OVERFIT_STEPS updates on one
+# batch of the 2-object split, then do_test; loose gates, the TPU tool's
+# docstring expects about 2 degrees
+OVERFIT_IMAGES, OVERFIT_STEPS, OVERFIT_SEEDS = 6, 800, (0, 1, 2)
+OVERFIT_LOSS_RATIO, OVERFIT_MAX_RE_DEG = 0.2, 10.0
+OVERFIT_K = np.array([[280.0, 0, 160.0], [0, 280.0, 120.0], [0, 0, 1.0]], np.float32)
 # device kernels of a train step by kind, from marks in their names
 TRAIN_OP_KINDS = (
     ("conv_and_matmul", ("xmma", "gemm", "conv", "cudnn", "cutlass", "sm90_")),
@@ -1010,6 +1029,406 @@ def phase_train_loop(cfg, state_dict: dict, gsd, root: str, card: str) -> int:
     return launches
 
 
+def write_detections(split, path: str, seed: int = 5) -> dict:
+    """est_dets.json for the BOP split, from each visible GT instance's
+    bbox_visib: boxes jittered by up to DET_JITTER_PX, scores from a seed;
+    every DET_DROP_EVERY-th instance gets no detection, every
+    DET_SECOND_EVERY-th a second one, shifted and scored lower, that
+    DET_TOPK_PER_OBJ=1 filters out. Returns what do_test must find: the
+    detections kept, the GT instances left without one (dropped, or a
+    duplicate of an object beyond the image's top-1) and the images."""
+    rng = np.random.RandomState(seed)
+    body: dict = {}
+    dets_by_group: dict = defaultdict(int)
+    gt_by_group: dict = defaultdict(int)
+    dropped = 0
+    for i, r in enumerate(split["records"]):
+        group = (r["scene_id"], r["im_id"], r["obj_id"])
+        gt_by_group[group] += 1
+        if i % DET_DROP_EVERY == DET_DROP_EVERY - 1:
+            dropped += 1
+            continue
+        box = np.asarray(r["bbox_visib"], np.float64) + rng.randint(
+            -DET_JITTER_PX, DET_JITTER_PX + 1, 4)
+        score = float(rng.uniform(0.5, 1.0))
+        dets = body.setdefault(f"{r['scene_id']}/{r['im_id']}", [])
+        dets.append({"obj_id": int(r["obj_id"]), "bbox_est": box.tolist(), "score": score,
+                     "time": 0.0})
+        dets_by_group[group] += 1
+        if i % DET_SECOND_EVERY == 0:
+            dets.append({"obj_id": int(r["obj_id"]), "bbox_est": (box + [12, -9, 6, 4]).tolist(),
+                         "score": score - 0.45, "time": 0.0})
+    with open(path, "w") as f:
+        json.dump(body, f)
+    kept = sum(min(1, n) for n in dets_by_group.values())
+    missing = sum(n - min(1, dets_by_group[g]) for g, n in gt_by_group.items())
+    return {"path": path, "kept": kept, "missing": missing, "dropped": dropped,
+            "images": len({g[:2] for g in dets_by_group}),
+            "written": sum(len(v) for v in body.values())}
+
+
+def test_cfg(cfg, dets: dict):
+    """The flagship's test settings (est detections with top-1 per object,
+    VAL.USE_BOP over its ERROR_TYPES, ROI_BATCH_SIZE) on the smoke's files."""
+    c = merged_config(FLAGSHIP)
+    c.PARALLEL.DTYPE = cfg.PARALLEL.DTYPE
+    c.DATASETS.DET_FILES_TEST = (dets["path"],)
+    return c
+
+
+def flat_entries(cfg, records) -> list:
+    """do_test's flat (rgb_path, K, det) stream, in its order."""
+    dets = load_detections(cfg.DATASETS.DET_FILES_TEST[0], score_thr=cfg.DATASETS.DET_THR,
+                           topk_per_obj=cfg.DATASETS.DET_TOPK_PER_OBJ)
+    flat = []
+    for rgb_path, K, rois, _ in build_test_items(records, dets, cfg.TEST.TEST_BBOX_TYPE):
+        by_obj: dict = defaultdict(list)
+        for det in rois:
+            by_obj[int(det["obj_id"])].append(det)
+        flat += [(rgb_path, K, det) for ds in by_obj.values() for det in ds]
+    return flat
+
+
+def pose_errors_of(R, t, gts, models, name: str) -> dict:
+    """Every per-pair error a recall threshold is applied to, for poses R,
+    t (m) against GT records gts of object `name`, on the CPU."""
+    B = len(gts)
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))  # noqa: E731
+    R, t = f32(R), f32(t)
+    Rg, tg = f32(np.stack([g["R"] for g in gts])), f32(np.stack([g["t"] for g in gts]))
+    K, pts = f32(np.stack([g["K"] for g in gts])), f32(models.points[name])
+    sym, mask = identity_padded_sym_arrays(models.sym_rots.get(name), B)
+    sym, mask = f32(sym), torch.from_numpy(mask)
+    closest = get_closest_rot_batch(R, Rg, sym, mask)
+    is_sym = models.sym_rots.get(name) is not None
+    e = {"re": PE.re_batch(R, Rg), "re_sym": PE.re_batch(R, closest), "te": PE.te_batch(t, tg),
+         "proj": PE.proj_batch(R, t, Rg, tg, K, pts),
+         "proj_sym": PE.proj_batch(R, t, closest, tg, K, pts),
+         "ad": (PE.adi_batch if is_sym else PE.add_batch)(R, t, Rg, tg, pts),
+         "mssd": PE.mssd_batch(R, t, Rg, tg, pts, sym, mask),
+         "mspd": PE.mspd_batch(R, t, Rg, tg, K, pts, sym, mask)}
+    return {k: v.numpy() for k, v in e.items()}
+
+
+def threshold_flips(cfg, rows_a: list, rows_b: list, records: list, models) -> dict:
+    """Two pose sets of the same detections (BOP rows in one order, t in
+    mm): by error kind, the (pair, threshold) cases where the pair's error
+    lies on opposite sides of a recall threshold in the two sets, over the
+    pairings of both scorers (the first GT of its (image, object) key, as
+    bop_score with N_TOP=1; the GT nearest in translation, as do_test's
+    matching). What may make two runs' recalls differ although every pose
+    agrees within its tolerance."""
+    gts: dict = defaultdict(list)
+    for g in records:
+        gts[(g["scene_id"], g["im_id"], g["obj_id"])].append(g)
+    by_obj: dict = defaultdict(lambda: ([], [], []))
+    for a, b in zip(rows_a, rows_b):
+        if (a["scene_id"], a["im_id"], a["obj_id"]) != (b["scene_id"], b["im_id"], b["obj_id"]):
+            raise AssertionError(f"threshold_flips: rows in other orders: {a} vs {b}")
+        cands = gts.get((a["scene_id"], a["im_id"], a["obj_id"]), [])
+        picked = {0} if cands else set()
+        for row in (a, b):
+            if cands:
+                picked.add(int(np.argmin([np.linalg.norm(row["t"] / 1000.0 - g["t"])
+                                          for g in cands])))
+        lists = by_obj[models.meta.id2obj[a["obj_id"]]]
+        for k in sorted(picked):
+            lists[0].append(a)
+            lists[1].append(b)
+            lists[2].append(cands[k])
+    flips: dict = defaultdict(int)
+    ths = {"re": (2, 5, 10), "re_sym": (2, 5, 10), "te": (0.02, 0.05, 0.10), "proj": (2, 5, 10),
+           "proj_sym": (2, 5, 10),
+           "mspd": bop_score.BOP19_MSPD_THRESHOLDS * models.meta.width / 640.0}
+    for name, (ra, rb, gs) in by_obj.items():
+        dia = models.diameters[name]
+        obj_ths = dict(ths, ad=(0.02 * dia, 0.05 * dia, 0.10 * dia),
+                       mssd=bop_score.BOP19_MSSD_THRESHOLDS * dia)
+        ea, eb = (pose_errors_of(np.stack([r["R"] for r in rows]),
+                                 np.stack([r["t"] for r in rows]) / 1000.0, gs, models, name)
+                  for rows in (ra, rb))
+        for kind, th in obj_ths.items():
+            th = np.asarray(th)
+            flips[kind] += int(((ea[kind][:, None] < th) != (eb[kind][:, None] < th)).sum())
+        delta = bop_score.VSD_DELTAS_MM.get(models.meta.name.split("_")[0],
+                                            bop_score.VSD_DELTA_MM_DEFAULT)
+        va, vb = (np.stack(bop_score._vsd_errors_by_obj(list(zip(rows, gs)), models, delta,
+                                                        bop_score.BOP19_VSD_TAUS,
+                                                        device=DEV)[name])
+                  for rows in (ra, rb))
+        ths_v = bop_score.BOP19_VSD_THRESHOLDS
+        flips["vsd"] += int(((va[..., None] < ths_v) != (vb[..., None] < ths_v)).sum())
+    return dict(flips)
+
+
+# the error kinds behind each recall key of CustomEvaluator and each BOP error type
+RECALL_KINDS = {"ad": ("ad",), "re": ("re", "re_sym"), "te": ("te",),
+                "proj": ("proj", "proj_sym"), "rete": ("re", "re_sym", "te"),
+                "mssd": ("mssd",), "mspd": ("mspd",), "vsd": ("vsd",)}
+
+
+def recalls_differ(label: str, a: dict, b: dict, flips: dict | None) -> list:
+    """The recall keys of CustomEvaluator and the `_bop` entries where two
+    do_test results differ; raises unless each such difference has a
+    threshold flip of its error kind (`flips`; None allows none)."""
+    differ = [("eval", name, k) for name in a if not name.startswith("_")
+              for k in RECALL_KEYS if a[name][k] != b[name][k]]
+    differ += [("bop", etype, obj) for etype in a.get("_bop", {}) for obj in a["_bop"][etype]
+               if a["_bop"][etype][obj] != b["_bop"][etype][obj]]
+    for src, first, second in differ:
+        kind = second.split("_")[0] if src == "eval" else first
+        if not any((flips or {}).get(k, 0) for k in RECALL_KINDS[kind]):
+            raise AssertionError(f"{label}: recalls differ at {(first, second)}: "
+                                 f"{differ}, threshold flips {flips}")
+    return differ
+
+
+def csv_rows_check(rows: list, where: str) -> None:
+    R = np.stack([r["R"] for r in rows])
+    t = np.stack([r["t"] for r in rows])
+    if not np.all(np.isfinite(t)):
+        raise AssertionError(f"{where}: non-finite translations")
+    check_rotations(R, where)
+
+
+def phase_do_test(cfg, split, dets: dict, weights: str, root: str, card: str) -> tuple:
+    """The flagship's test path on the card: engine/tester.do_test over the
+    BOP split's estimated detections with the weights of [train_loop]'s
+    checkpoint, bf16, ROI_BATCH_SIZE buckets, VAL.USE_BOP over the config's
+    ERROR_TYPES. Gates: both kernels launched inside the call, every CSV row
+    finite with a rotation, one row per kept detection, the missing count
+    that of the GT instances left without a detection. Returns (its
+    results, its CSV rows, B1 and B2 launches)."""
+    c = test_cfg(cfg, dets)
+    model = load_weights(build_model(c, device=DEV), weights)
+    out = str(Path(root) / "test_out")
+    torch.cuda.synchronize()
+    kernels.nn_min_dist.launches = 0
+    kernels.rasterize_xyz.launches = 0
+    t0 = time.perf_counter()
+    res = do_test(c, model, split["models"], split["records"], output_dir=out, device=DEV)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernels.nn_min_dist.launches, kernels.rasterize_xyz.launches
+    if min(launches) < 1:
+        raise AssertionError(f"do_test: launches nn_min_dist {launches[0]}, rasterize_xyz "
+                             f"{launches[1]}; both must be > 0")
+    rows = load_bop_results(res["_csv_path"])
+    csv_rows_check(rows, "do_test")
+    n_missing = sum(r.get("n_missing", 0) for n, r in res.items()
+                    if not n.startswith("_") and n != "Avg")
+    if len(rows) != dets["kept"] or n_missing != dets["missing"]:
+        raise AssertionError(f"do_test: {len(rows)} CSV rows for {dets['kept']} kept detections, "
+                             f"{n_missing} missing for {dets['missing']}")
+    # the host mapping alone over the same buckets
+    flat = flat_entries(c, split["records"])
+    mapper = GDRNTestMapper(c, split["models"], roi_batch_size=c.TEST.ROI_BATCH_SIZE)
+    bs = c.TEST.ROI_BATCH_SIZE
+    t0 = time.perf_counter()
+    for s in range(0, len(flat), bs):
+        mapper.map_flat(flat[s:s + bs])
+    map_s = time.perf_counter() - t0
+    ar = res["_bop_average_recall"]
+    if not (np.isfinite(ar) and all(np.isfinite(res["_bop"][k]["avg"]) for k in res["_bop"])):
+        raise AssertionError(f"do_test: bad BOP recalls {res['_bop']}")
+    tm = res["_time"]
+    log("do_test", card=repr(card), images=dets["images"], detections_written=dets["written"],
+        detections_kept=len(flat), buckets=-(-len(flat) // bs), rois=len(flat),
+        roi_batch=bs, dtype=c.PARALLEL.DTYPE, missing=n_missing, dropped=dets["dropped"],
+        beyond_top1=n_missing - dets["dropped"],
+        compute_s_per_bucket=f"{tm['compute_s_per_bucket']:.4f}",
+        process_s_per_bucket=f"{tm['process_s_per_bucket']:.4f}",
+        wall_s=f"{wall_s:.2f}", host_mapping_s=f"{map_s:.2f}",
+        launches_nn_min_dist=launches[0], launches_rasterize_xyz=launches[1],
+        ar_bop19=f"{ar:.4f}", avg_ad_10=f"{res['Avg']['ad_10']:.4f}",
+        avg_mean_re=f"{res['Avg']['mean_re']:.3f}", csv_rows=len(rows), check="ok")
+    return res, rows, launches
+
+
+def phase_do_test_vs_cpu(cfg32, split, dets: dict, weights: str, root: str) -> None:
+    """Scene 1 through do_test in f32 (TF32 off) on the card and on the CPU
+    (the plain versions): CSV rotations within DO_TEST_ROT_ATOL and
+    translations within DO_TEST_TRANS_RTOL; the evaluator's recalls and the
+    BOP recalls equal except where a threshold flip explains them."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c = test_cfg(cfg32, dets)
+    records = [r for r in split["records"] if r["scene_id"] == 1]
+    runs = {}
+    for device in (DEV, "cpu"):
+        model = load_weights(build_model(c, device=device), weights)
+        t0 = time.perf_counter()
+        res = do_test(c, model, split["models"], records,
+                      output_dir=str(Path(root) / f"test_vs_cpu_{device}"), device=device)
+        runs[device] = res, load_bop_results(res["_csv_path"]), time.perf_counter() - t0
+    (card, rows_c, _), (cpu, rows_p, cpu_s) = runs[DEV], runs["cpu"]
+    R_c, R_p = (np.stack([r["R"] for r in rows]) for rows in (rows_c, rows_p))
+    t_c, t_p = (np.stack([r["t"] for r in rows]) for rows in (rows_c, rows_p))
+    rot_err = float(np.abs(R_c - R_p).max())
+    trans_rel = float((np.linalg.norm(t_c - t_p, axis=1) / np.linalg.norm(t_p, axis=1)).max())
+    if len(rows_c) != len(rows_p) or rot_err > DO_TEST_ROT_ATOL or trans_rel > DO_TEST_TRANS_RTOL:
+        raise AssertionError(f"do_test_vs_cpu: {len(rows_c)} vs {len(rows_p)} rows, rotations "
+                             f"differ by {rot_err}, translations by {trans_rel} relative")
+    flips = threshold_flips(c, rows_c, rows_p, records, split["models"])
+    differ = recalls_differ("do_test_vs_cpu", card, cpu, flips)
+    log("do_test_vs_cpu", scene=1, gt=len(records), rows=len(rows_c), dtype="float32",
+        rot_max_abs=f"{rot_err:.3e}", trans_max_rel=f"{trans_rel:.3e}",
+        rot_atol=DO_TEST_ROT_ATOL, trans_rtol=DO_TEST_TRANS_RTOL,
+        threshold_flips=json.dumps(flips).replace(" ", ""),
+        recalls="equal" if not differ else f"differ at {len(differ)} (flips)",
+        cpu_s=f"{cpu_s:.1f}", check="ok")
+
+
+def phase_cli(cfg, split, dets: dict, weights: str, root: str, in_process: tuple) -> None:
+    """`python -m gdrnet_tpu_torch.engine.train --eval-only` on the card over
+    the split as a dataset name (<dir>_test of a directory with meta.json),
+    the detections and the checkpoint: exit code 0, results.json,
+    config_dump.json and the CSV written, recalls equal to [do_test]'s."""
+    split_dir = Path(split["models"].meta.data_root)
+    out = Path(root) / "cli_out"
+    cmd = [sys.executable, "-m", "gdrnet_tpu_torch.engine.train", "--config-file", FLAGSHIP,
+           "--eval-only", "--data-root", str(split_dir.parent),
+           f"DATASETS.TEST=({split_dir.name + '_test'!r},)",
+           f"DATASETS.DET_FILES_TEST=({dets['path']!r},)", f"MODEL.WEIGHTS={weights!r}",
+           f"OUTPUT_DIR={str(out)!r}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    with open(out / "results.json") as f:
+        res = json.load(f)
+    missing = [p for p in (out / "results.json", out / "config_dump.json",
+                           Path(res["_csv_path"])) if not p.is_file()]
+    if missing:
+        raise AssertionError(f"cli: missing {missing}")
+    want, want_rows, _ = in_process
+    rows = load_bop_results(res["_csv_path"])
+    flips = threshold_flips(cfg, rows, want_rows, split["records"], split["models"])
+    differ = recalls_differ("cli", res, want, flips)
+    log("cli", rc=proc.returncode, wall_s=f"{wall_s:.1f}", csv_rows=len(rows),
+        files="results.json,config_dump.json,csv",
+        ar_bop19=f"{res['_bop_average_recall']:.4f}",
+        recalls_vs_do_test="equal" if not differ else f"differ at {len(differ)} (flips)",
+        threshold_flips=json.dumps(flips).replace(" ", ""), check="ok")
+
+
+def overfit_split(gsd, root: str):
+    """The counterpart of tests/fixture_bop.py: the zoo's cube and brick
+    (z-180 symmetric), OVERFIT_IMAGES images x 2 instances at 320x240 apart
+    enough not to occlude each other, a test split with xyz_crop pickles,
+    its frames painted as the fixture paints them (paint_like_fixture)."""
+    rng = np.random.RandomState(42)
+    n = 2 * OVERFIT_IMAGES
+    p = synthetic_roi_batch(batch_size=n, input_res=8, out_res=4, num_classes=2, seed=42)
+    t = np.stack([np.array([rng.uniform(-0.025, 0.025) + (-0.085 if i % 2 == 0 else 0.085),
+                            rng.uniform(-0.03, 0.03), rng.uniform(0.45, 0.7)])
+                  for i in range(n)]).astype(np.float32)
+    meta, _ = write_bop_split(root, gsd.mesh_zoo()[:2], np.arange(n) % 2, p["gt_ego_rot"], t,
+                              OVERFIT_K, width=320, height=240, per_image=2,
+                              images_per_scene=OVERFIT_IMAGES, device=DEV, with_xyz_crop=True)
+    paint_like_fixture(load_bop_scene_dicts(meta, "test"), 240, 320)
+    return meta
+
+
+def paint_like_fixture(records, height: int, width: int, seed: int = 0) -> None:
+    """Repaint each frame as tests/fixture_bop.py paints its own: a noise
+    background (60 + U[0, 40) a channel), each instance's visible pixels
+    shaded by their object-frame z (100 + 120 z / max z, in the fixture's
+    channel mix), so that a frame shows the object's orientation and not
+    only its silhouette (write_bop_split paints one flat colour an object,
+    and a flat box leaves flips beyond its declared symmetry unseen)."""
+    rng = np.random.RandomState(seed)
+    by_frame: dict = defaultdict(list)
+    for r in records:
+        by_frame[r["rgb_path"]].append(r)
+    for path, recs in by_frame.items():
+        bgr = (60 + rng.rand(height, width, 3) * 40).astype(np.uint8)
+        for r in recs:
+            with open(r["xyz_path"], "rb") as f:
+                crop = pickle.load(f)
+            x1, y1, x2, y2 = crop["xyxy"]
+            z = np.zeros((height, width), np.float32)
+            z[y1:y2 + 1, x1:x2 + 1] = np.asarray(crop["xyz_crop"], np.float32)[..., 2]
+            shade = 100 + 120 * (z / max(float(z.max()), 1e-6))
+            color = np.stack([shade * 0.6, shade, shade * (0.4 + 0.3 * r["obj_id"])], axis=-1)
+            visible = read_png(r["mask_visib_path"]) > 0
+            bgr = np.where(visible[..., None], color.clip(0, 255).astype(np.uint8), bgr)
+        write_png(path, np.ascontiguousarray(bgr[..., ::-1]))
+
+
+def overfit_cfg():
+    """tools/validate_overfit.py:38-54's config on the port's defaults."""
+    c = base_config()
+    c.MODEL.CDPN.BACKBONE.NUM_LAYERS = 18
+    c.MODEL.CDPN.ROT_HEAD.NUM_CLASSES = 2
+    c.MODEL.CDPN.ROT_HEAD.NUM_REGIONS = 8
+    pnp = c.MODEL.CDPN.PNP_NET
+    pnp.WITH_2D_COORD = pnp.REGION_ATTENTION = pnp.PM_LOSS_SYM = pnp.PM_NORM_BY_EXTENT = True
+    pnp.CENTROID_LW = pnp.Z_LW = 1.0
+    c.DATASETS.SYM_OBJS = ["brick"]
+    c.SOLVER.OPTIMIZER_CFG = dict(type="Ranger", lr=1e-3, weight_decay=0)
+    c.SOLVER.ANNEAL_POINT = 0.72
+    c.TEST.ROI_BATCH_SIZE = 4
+    c.PARALLEL.DTYPE = "bfloat16"
+    c.INPUT.DZI_TYPE = "none"  # train crops == test crops
+    return c
+
+
+def phase_overfit(gsd, root: str, card: str) -> None:
+    """The learning check (tools/validate_overfit.py with the port alone):
+    every record of a 2-object split mapped once by GDRNTrainMapper, then
+    OVERFIT_STEPS train steps on that one batch on the card, then do_test on
+    the same records with GT boxes, for each of OVERFIT_SEEDS. Gates: every
+    loss finite; the sum of the loss terms other than the region CE below
+    OVERFIT_LOSS_RATIO times its first value, and the region CE below its
+    first (the reference's region CE keeps a floor of about ln(R+1) times
+    the crop's pixels over its visible ones, losses/gdrn_loss.py:85-89, so
+    the total cannot fall to OVERFIT_LOSS_RATIO of its first: the JAX
+    package's own run stays near 0.24); Avg mean_re below
+    OVERFIT_MAX_RE_DEG."""
+    meta = overfit_split(gsd, str(Path(root) / "overfit"))
+    records = load_bop_scene_dicts(meta, "test", img_type="real")
+    c = overfit_cfg()
+    models = ObjectModels(meta, num_pm_points=256, num_fps=8)
+    mapper = GDRNTrainMapper(c, models, device=DEV)
+    batch = to_device(collate([mapper(rec, np.random.RandomState(i))
+                               for i, rec in enumerate(records)]), DEV)
+    for seed in OVERFIT_SEEDS:
+        model = init_weights(build_model(c, device=DEV), torch.Generator().manual_seed(seed))
+        opt = build_optimizer(c, model, build_lr_schedule(c, 1e-3, OVERFIT_STEPS))
+        state, step = create_train_state(model, opt), make_train_step(c, model, opt)
+        gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history = [step(state, batch, gen)[1] for _ in range(OVERFIT_STEPS)]
+        hist = {k: torch.stack([h[k] for h in history]).cpu().numpy()
+                for k in history[0] if k.startswith("loss") or k == "total_loss"}
+        train_s = time.perf_counter() - t0
+        total, region = hist["total_loss"], hist["loss_region"]
+        others = total - region
+        res = do_test(c, state.model, models, records,
+                      output_dir=str(Path(root) / f"overfit_out_{seed}"), device=DEV)
+        avg = res["Avg"]
+        log("overfit", card=repr(card), seed=seed, records=len(records), steps=OVERFIT_STEPS,
+            total_loss_first=f"{total[0]:.4f}", total_loss_last=f"{total[-1]:.4f}",
+            total_ratio=f"{total[-1] / total[0]:.4f}", region_first=f"{region[0]:.4f}",
+            region_last=f"{region[-1]:.4f}", others_ratio=f"{others[-1] / others[0]:.4f}",
+            train_s=f"{train_s:.1f}", ad_10=f"{avg['ad_10']:.4f}",
+            mean_re_deg=f"{avg['mean_re']:.3f}", mean_te_m=f"{avg['mean_te']:.4f}",
+            per_object=json.dumps({n: [round(res[n]["mean_re"], 3), round(res[n]["mean_te"], 4)]
+                                   for n in ("cube", "brick")}).replace(" ", ""))
+        finite = all(np.all(np.isfinite(v)) for v in hist.values())
+        if not (finite and others[-1] < OVERFIT_LOSS_RATIO * others[0] and region[-1] < region[0]
+                and avg["mean_re"] < OVERFIT_MAX_RE_DEG):
+            raise AssertionError(
+                f"overfit seed {seed}: losses finite {finite}, loss without the region CE "
+                f"{others[0]} -> {others[-1]}, region CE {region[0]} -> {region[-1]}, mean_re "
+                f"{avg['mean_re']} (gates: {OVERFIT_LOSS_RATIO} x first, lower, "
+                f"< {OVERFIT_MAX_RE_DEG})")
+        del state, step, model, opt
+
+
 def check_rotations(R: np.ndarray, where: str) -> None:
     if not np.all(np.isfinite(R)):
         raise AssertionError(f"{where}: non-finite rotations")
@@ -1140,8 +1559,10 @@ def main() -> int:
         del batch
 
     # 7. the flagship's BOP scoring of the served poses (engine/tester.py:315-332),
-    # 8. its train step, 9. its training run from a BOP split on disk, 10. then
-    # the profiled measurements
+    # 8. its train step, 9. its training run from a BOP split on disk, 10. its
+    # test path over estimated detections with the trained checkpoint, in
+    # process and through the CLI, 11. the learning check, 12. then the
+    # profiled measurements
     with tempfile.TemporaryDirectory() as root:
         split = phase_bop_split(cfg, gsd, requests, root)
         raster_launches, scored = phase_bop_score(cfg, split, R, t, root)
@@ -1149,17 +1570,25 @@ def main() -> int:
         phase_train_f32(cfg32, state_dict)
         train = phase_train(cfg, state_dict, card)
         loop_launches = phase_train_loop(cfg, state_dict, gsd, root, card)
+        ckpt = str(Path(root) / "train_out" / "ckpt")
+        dets = write_detections(split, str(Path(root) / "est_dets.json"))
+        tested = phase_do_test(cfg, split, dets, ckpt, root, card)
+        phase_do_test_vs_cpu(cfg32, split, dets, ckpt, root)
+        phase_cli(cfg, split, dets, ckpt, root, tested)
+        phase_overfit(gsd, root, card)
         phase_profile(cfg, split, scored, raster_timed, train)
+    test_launches = tested[2]
 
     print(json.dumps({"kernels": [
         {"name": "nn_min_dist", "route": "cuda",
          "source": "gdrnet_tpu_torch/csrc/nn_min_dist.cu",
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:28",
-         "launches": launches, **nn_stats},
+         "launches": launches + test_launches[0], **nn_stats},
         {"name": "rasterize_xyz", "route": "cuda",
          "source": "gdrnet_tpu_torch/csrc/rasterize_xyz.cu",
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:140",
-         "launches": raster_launches + loop_launches, **raster_stats}]}), flush=True)
+         "launches": raster_launches + loop_launches + test_launches[1],
+         **raster_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -1,6 +1,6 @@
-"""BOP scene parsing -> flat per-instance records (a copy of
-gdrnet_tpu/data/bop.py:load_bop_scene_dicts, which cannot be imported
-without JAX).
+"""BOP scene parsing -> flat per-instance records, and test detections (a
+copy of gdrnet_tpu/data/bop.py:load_bop_scene_dicts and load_detections,
+which cannot be imported without JAX).
 
 Covers the reference's dataset modules (core/gdrn_modeling/datasets/
 lm_dataset_d2.py:95-260, lm_pbr.py:120-260, ycbv_pbr.py, ycbv_d2.py): walk
@@ -152,3 +152,40 @@ def load_bop_scene_dicts(
         with open(cache_path, "wb") as f:
             pickle.dump(records, f)
     return records
+
+
+def load_detections(det_json_path: str, score_thr: float = 0.0,
+                    topk_per_obj: int = 1) -> dict:
+    """Test detections json -> {(scene_id, im_id): [det...]} with per-object
+    top-k / score filtering (reference load_detections_into_dataset,
+    core/utils/dataset_utils.py:116-180). Each det: {obj_id, bbox xywh or
+    bbox_est, score, time}. The json is either {"scene_id/im_id": [det...]}
+    or a list of dets that carry scene_id and im_id (or image_id)."""
+    with open(det_json_path) as f:
+        dets = json.load(f)
+    out: dict = {}
+    if isinstance(dets, dict):
+        # format {scene_im_id: [ {obj_id, bbox_est, score}, ...]}
+        items = []
+        for key, lst in dets.items():
+            sid, iid = key.split("/")
+            for d in lst:
+                d = dict(d)
+                d["scene_id"], d["im_id"] = int(sid), int(iid)
+                items.append(d)
+    else:
+        items = dets
+    by_img: dict = {}
+    for d in items:
+        key = (int(d["scene_id"]), int(d.get("im_id", d.get("image_id"))))
+        if float(d.get("score", 1.0)) < score_thr:
+            continue
+        by_img.setdefault(key, []).append(d)
+    for key, lst in by_img.items():
+        per_obj: dict = {}
+        for d in sorted(lst, key=lambda x: -float(x.get("score", 1.0))):
+            per_obj.setdefault(int(d["obj_id"]), [])
+            if len(per_obj[int(d["obj_id"])]) < topk_per_obj:
+                per_obj[int(d["obj_id"])].append(d)
+        out[key] = [d for ds in per_obj.values() for d in ds]
+    return out

@@ -1,5 +1,6 @@
-"""Per-instance ROI train mapper: BOP record -> fixed-shape ROI training sample
-(counterpart of gdrnet_tpu/data/mapper.py:26-310,470-473).
+"""Per-instance ROI train mapper: BOP record -> fixed-shape ROI training sample,
+and the test mapper: detections -> a padded ROI bucket (counterpart of
+gdrnet_tpu/data/mapper.py:26-310,385-473).
 
 The reference's GDRN_DatasetFromList.read_data (core/gdrn_modeling/
 data_loader.py:304-633) as the JAX package restates it: DZI bbox aug, warp
@@ -15,9 +16,10 @@ an xyz_crop pickle: a full-frame ops/rasterizer.render_xyz on the mapper's
 the train step runs on the default stream, so each thread renders on a CUDA
 stream of its own and waits for that stream alone before the copy back.
 
+GDRNTestMapper packs the ROIs of detections from several images into one
+bucket of `roi_batch_size` rows, on the host, for engine/tester.do_test.
 GDRNRawTrainMapper and GDRNDeviceTestMapper feed the JAX package's device
-pipeline, which the port does not need (ROADMAP.md "Do not port");
-GDRNTestMapper comes with do_test (ROADMAP.md A7).
+pipeline, which the port does not need (ROADMAP.md "Do not port").
 """
 
 from __future__ import annotations
@@ -121,14 +123,22 @@ def xyz_to_region_np(xyz: np.ndarray, fps_points: np.ndarray) -> np.ndarray:
     return np.where(mask, region, 0).astype(np.int32)
 
 
-def read_color_image(path: str) -> np.ndarray:
-    """8-bit BGR image, as cv2.IMREAD_COLOR reads a PNG (reference
-    read_image_cv2, core/utils/data_utils.py:6)."""
+def read_color_image(path: str, fmt: str = "BGR") -> np.ndarray:
+    """8-bit image in channel order `fmt` (INPUT.FORMAT: "BGR", as
+    cv2.IMREAD_COLOR reads a PNG, or "RGB"), as the reference's
+    read_image_cv2 (core/utils/data_utils.py:6) reads it."""
     if not path.lower().endswith(".png"):
         raise NotImplementedError(
             f"{path}: the port decodes PNG only; JPEG decoding is not ported yet "
             "(ROADMAP.md A13)")
-    return np.ascontiguousarray(load_im(path))
+    img = np.ascontiguousarray(load_im(path))
+    order = fmt.upper()
+    if order == "RGB":
+        return np.ascontiguousarray(img[..., ::-1])
+    if order != "BGR":
+        raise NotImplementedError(
+            f"INPUT.FORMAT={fmt!r}: the port reads colour images as BGR or RGB only")
+    return img
 
 
 def read_gray_image(path: str) -> np.ndarray:
@@ -315,6 +325,91 @@ class GDRNTrainMapper:
         sample["gt_trans_ratio"] = np.asarray(
             [dc[0] / bw, dc[1] / bh, rec["t"][2] / resize_ratio], np.float32)
         return sample
+
+
+class GDRNTestMapper:
+    """Detections -> one padded ROI bucket (reference test path batches
+    per-image ROIs in the mapper, data_loader.py:367-451; padding to
+    `roi_batch_size` keeps one batch shape for every call)."""
+
+    def __init__(self, cfg, models: ObjectModels, roi_batch_size: int = 64):
+        self.cfg = cfg
+        self.models = models
+        self.input_res = cfg.MODEL.CDPN.BACKBONE.INPUT_RES
+        self.out_res = cfg.MODEL.CDPN.BACKBONE.OUTPUT_RES
+        self.pad_scale = cfg.INPUT.DZI_PAD_SCALE
+        self.pixel_mean = np.asarray(cfg.MODEL.PIXEL_MEAN, np.float32)
+        self.pixel_std = np.asarray(cfg.MODEL.PIXEL_STD, np.float32)
+        self.roi_batch_size = roi_batch_size
+
+    def map_flat(self, entries: list[tuple]) -> dict:
+        """Pack ROIs from several images into one bucket (the reference runs
+        one image per batch, data_loader.py:389, which leaves most of a
+        fixed bucket empty). entries: [(rgb_path, K [3,3], det dict)] with
+        len <= roi_batch_size; each image is read once."""
+        bs = self.roi_batch_size
+        assert len(entries) <= bs
+        out = self._empty_batch(bs)
+        img_cache: dict = {}
+        for i, (rgb_path, K, det) in enumerate(entries):
+            if rgb_path not in img_cache:
+                img_cache[rgb_path] = read_color_image(
+                    rgb_path, self.cfg.INPUT.get("FORMAT", "BGR"))
+            img = img_cache[rgb_path]
+            self._fill_roi(out, i, img, np.asarray(K, np.float32), det)
+        return out
+
+    def _empty_batch(self, bs: int) -> dict:
+        return {
+            "roi_img": np.zeros((bs, self.input_res, self.input_res, 3), np.float32),
+            "roi_classes": np.zeros(bs, np.int32),
+            "roi_coord_2d": np.zeros((bs, self.out_res, self.out_res, 2), np.float32),
+            "roi_cams": np.tile(np.eye(3, dtype=np.float32)[None], (bs, 1, 1)),
+            "roi_centers": np.zeros((bs, 2), np.float32),
+            "roi_whs": np.ones((bs, 2), np.float32),
+            "roi_extents": np.ones((bs, 3), np.float32),
+            "resize_ratios": np.ones(bs, np.float32),
+            "valid": np.zeros(bs, bool),
+            "scores": np.zeros(bs, np.float32),
+            "obj_ids": np.zeros(bs, np.int32),
+            "im_hws": np.ones((bs, 2), np.int32),
+        }
+
+    def _fill_roi(self, out: dict, i: int, img: np.ndarray, K: np.ndarray,
+                  det: dict) -> None:
+        name = det.get("label") or self.models.meta.id2obj[int(det["obj_id"])]
+        cls = self.models.label_of(name)
+        bbox = det.get("bbox_est", det.get("bbox"))
+        x1, y1, x2, y2 = [float(v) for v in bbox]
+        if det.get("bbox_mode", "xyxy") == "xywh":
+            x2, y2 = x1 + x2, y1 + y2
+        center = np.asarray([(x1 + x2) / 2, (y1 + y2) / 2], np.float32)
+        bw, bh = max(x2 - x1, 1), max(y2 - y1, 1)
+        # the crop never exceeds the image's larger side
+        scale = min(max(bh, bw) * self.pad_scale, max(img.shape[:2])) * 1.0
+        roi = crop_resize(img, center, scale, self.input_res, cv_ops.INTER_LINEAR)
+        out["roi_img"][i] = (roi.astype(np.float32) - self.pixel_mean) / self.pixel_std
+        out["roi_coord_2d"][i] = roi_coord_2d(
+            img.shape[1], img.shape[0], center, scale, self.out_res)
+        out["roi_cams"][i] = K
+        out["roi_classes"][i] = cls
+        out["roi_centers"][i] = center
+        out["roi_whs"][i] = (bw, bh)
+        out["roi_extents"][i] = self.models.extents[name]
+        out["resize_ratios"][i] = self.out_res / scale
+        out["valid"][i] = True
+        out["scores"][i] = float(det.get("score", 1.0))
+        out["obj_ids"][i] = self.models.meta.obj2id[name]
+        out["im_hws"][i] = img.shape[:2]
+
+    def __call__(self, rgb_path: str, K: np.ndarray, rois: list[dict]) -> dict:
+        """Single-image form (reference per-image batching): rois =
+        [{obj_id or label, bbox xyxy (or xywh with 'bbox_mode'), score}]."""
+        assert len(rois) <= self.roi_batch_size, \
+            f"too many ROIs ({len(rois)}) for bucket {self.roi_batch_size}"
+        batch = self.map_flat([(rgb_path, K, det) for det in rois])
+        batch["im_hw"] = batch["im_hws"][0]  # the single image's [h, w]
+        return batch
 
 
 def collate(samples: list[dict]) -> dict:

@@ -141,6 +141,14 @@ def _load_into(model: torch.nn.Module, sd: dict, what: str) -> None:
     model.load_state_dict(sd, strict=False)
 
 
+def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load the model weights of a reference-layout .pth, or of the newest
+    checkpoint in a directory of them, into `model` (which they must cover),
+    without the optimizer state."""
+    _load_into(model, load_model_weights(path), path)
+    return model
+
+
 def _resolve_pretrained(spec: str) -> str:
     """BACKBONE.PRETRAINED value -> local .pth path. The reference passes
     "torchvision://resnet34" to mmcv, which downloads it (GDRN.py:713-721);
@@ -171,7 +179,7 @@ def init_model_weights(cfg, state: TrainState, logger=None) -> TrainState:
     """
     weights = cfg.MODEL.WEIGHTS
     if weights:
-        _load_into(state.model, load_model_weights(weights), weights)
+        load_weights(state.model, weights)
         if logger:
             logger.info(f"loaded initial model weights from {weights}")
         return state

@@ -149,9 +149,9 @@ class CustomEvaluator:
         return results
 
     def summarize(self, results: dict | None = None) -> str:
-        """Tabulated report (needs the `tabulate` package)."""
-        from tabulate import tabulate
-
+        """Plain-text table of the recalls (%) and mean errors, one column an
+        object and "Avg" last (the layout of tabulate's "plain" format,
+        without the package, which the card's machine lacks)."""
         if results is None:
             results = self.evaluate()
         names = [n for n in results if n != "Avg"] + (["Avg"] if "Avg" in results else [])
@@ -161,4 +161,8 @@ class CustomEvaluator:
         for k in keys:
             rows.append([k] + [f"{100 * results[n][k]:.2f}" if not k.startswith("mean")
                                else f"{results[n][k]:.4f}" for n in names])
-        return tabulate(rows, headers="firstrow", tablefmt="plain")
+        widths = [max(len(r[c]) for r in rows) for c in range(len(rows[0]))]
+        return "\n".join(
+            "  ".join(cell.ljust(w) if c == 0 else cell.rjust(w)
+                      for c, (cell, w) in enumerate(zip(row, widths))).rstrip()
+            for row in rows)

@@ -170,6 +170,11 @@ class GDRN(nn.Module):
         }
 
 
+# the std of a standard normal truncated at +-2 (flax's variance_scaling
+# divides by it, so that the truncated draw keeps the variance asked for)
+_TRUNC_NORMAL_STD = 0.87962566103423978
+
+
 def build_model(cfg, device: torch.device | str = "cuda") -> GDRN:
     """MODEL.CDPN config subtree -> GDRN on `device` (weights left at
     PyTorch's default init: load a state dict or call `init_weights`)."""
@@ -220,21 +225,36 @@ def build_model(cfg, device: torch.device | str = "cuda") -> GDRN:
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random weights for a model without a checkpoint: He-normal
-    convs, 1/sqrt(fan_in) linears, zero biases, identity norms with running
-    stats (0, 1). `generator` is a CPU generator; draws are made on the CPU
-    and copied to the module's device."""
+    """Seeded random weights for a model without a checkpoint, by the JAX
+    package's per-layer rules (the reference's normal_init of the heads):
+    the backbone's convs lecun-normal (flax's default: a normal of variance
+    1 / fan_in truncated at 2 std), the geometry head's and ConvPnPNet's
+    convs, transposed conv, fc1 and fc2 normal(0, 0.001), fc_r and fc_t
+    normal(0, 0.01) (gdrnet_tpu/models/{heads,conv_pnp_net,layers}.py);
+    zero biases, identity norms with running stats (0, 1). `generator` is a
+    CPU generator; draws are made on the CPU and copied to the module's
+    device."""
+
+    def draw(w: torch.Tensor, std: float, truncated: bool = False) -> None:
+        v = torch.empty(w.shape)
+        if truncated:
+            nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        else:
+            v.normal_(generator=generator)
+        w.copy_(v * std)
+
     with torch.no_grad():
+        for m in model.backbone.modules():
+            if isinstance(m, nn.Conv2d):
+                draw(m.weight, (1.0 / m.weight[0].numel()) ** 0.5 / _TRUNC_NORMAL_STD, True)
+        for head in (model.rot_head_net, model.pnp_net):
+            for m in head.modules():
+                if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                    draw(m.weight, 0.01 if m in (model.pnp_net.fc_r, model.pnp_net.fc_t)
+                         else 0.001)
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
-                w = m.weight
-                fan_in = w[0].numel() if not isinstance(m, nn.ConvTranspose2d) \
-                    else w.shape[0] * w[0, 0].numel()
-                gain = 1.0 if isinstance(m, nn.Linear) else 2.0
-                std = (gain / fan_in) ** 0.5
-                w.copy_(torch.randn(w.shape, generator=generator) * std)
-                if m.bias is not None:
-                    m.bias.zero_()
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) and m.bias is not None:
+                m.bias.zero_()
             elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()

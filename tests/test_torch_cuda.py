@@ -302,3 +302,80 @@ def test_renders_on_thread_streams_beside_a_train_step(zoo_train_split):
     assert streams[0] != streams[1] and default not in streams.values()
     for i in range(6):
         np.testing.assert_array_equal(got[i], want[i], err_msg=f"record {i}")
+
+
+# the test path: do_test on the card against do_test on the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_do_test_on_the_card_equals_the_cpu(tmp_path):
+    """A small f32 model (TF32 off) tests a BOP split of zoo meshes that
+    write_bop_split renders on the card: the poses of do_test on the card
+    within 1e-3 of those on the CPU (the plain versions), the recalls and
+    BOP recalls equal, and both kernels launched inside the card's call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    from gdrnet_tpu_torch import merged_config
+    from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts
+    from gdrnet_tpu_torch.data.model_store import ObjectModels
+    from gdrnet_tpu_torch.data.synthetic import synthetic_roi_batch, write_bop_split
+    from gdrnet_tpu_torch.engine.tester import do_test
+    from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
+
+    repo = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("gen_scale_dataset",
+                                                  repo / "tools/gen_scale_dataset.py")
+    gsd = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gsd)
+    K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)
+    p = synthetic_roi_batch(batch_size=8, input_res=8, out_res=4, num_classes=10, seed=6)
+    t = p["gt_trans"].copy()
+    t[:, :2] = np.random.RandomState(3).uniform(-0.08, 0.08, (8, 2))
+    t[:, 2] += 0.4
+    classes = np.array([0, 1, 3, 8, 1, 2, 3, 9])  # brick, tower, bar, hexprism are symmetric
+    meta, _ = write_bop_split(str(tmp_path / "split"), gsd.mesh_zoo(), classes, p["gt_ego_rot"],
+                              t, K, width=320, height=240, per_image=4, images_per_scene=2,
+                              device="cuda")
+    records = load_bop_scene_dicts(meta, "test")
+    models = ObjectModels(meta, num_pm_points=300, num_fps=8)
+
+    cfg = merged_config(str(repo / "configs/gdrn/synth/a6_cPnP_synth.py"))
+    net = cfg.MODEL.CDPN
+    net.BACKBONE.NUM_LAYERS, net.BACKBONE.INPUT_RES, net.BACKBONE.OUTPUT_RES = 18, 64, 16
+    net.ROT_HEAD.NUM_FILTERS, net.ROT_HEAD.NUM_REGIONS = 32, 8
+    net.PNP_NET.PNP_HEAD_CFG.featdim, net.PNP_NET.NUM_PM_POINTS = 32, 300
+    cfg.PARALLEL.DTYPE = "float32"
+    cfg.TEST.TEST_BBOX_TYPE = "gt"
+    cfg.TEST.ROI_BATCH_SIZE = 4
+    cfg.VAL.ERROR_TYPES = "ad,rete,proj,vsd,mssd,mspd"
+    state_dict = init_weights(build_model(cfg, device="cpu"),
+                              torch.Generator().manual_seed(0)).state_dict()
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    try:
+        for device in ("cuda", "cpu"):
+            model = build_model(cfg, device=device)
+            model.load_state_dict(state_dict)
+            kernels.nn_min_dist.launches = kernels.rasterize_xyz.launches = 0
+            res = do_test(cfg, model, models, records, output_dir=str(tmp_path / device),
+                          device=device)
+            runs[device] = res, (kernels.nn_min_dist.launches, kernels.rasterize_xyz.launches)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (card, launches), (cpu, cpu_launches) = runs["cuda"], runs["cpu"]
+    assert min(launches) >= 1 and cpu_launches == (0, 0), (launches, cpu_launches)
+    from gdrnet_tpu_torch.eval.bop_writer import load_bop_results
+
+    rows = [load_bop_results(r["_csv_path"]) for r in (card, cpu)]
+    assert len(rows[0]) == len(rows[1]) == len(records)
+    for a, b in zip(*rows):
+        np.testing.assert_allclose(a["R"], b["R"], atol=1e-3)
+        np.testing.assert_allclose(a["t"], b["t"], rtol=1e-3, atol=1e-3)
+    from gdrnet_tpu_torch.eval.custom_evaluator import RECALL_KEYS
+
+    for name in cpu:
+        if not name.startswith("_"):
+            assert {k: card[name][k] for k in RECALL_KEYS} == {k: cpu[name][k] for k in RECALL_KEYS}
+    assert card["_bop"] == cpu["_bop"]

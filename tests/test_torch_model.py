@@ -298,3 +298,44 @@ def test_jax_convert_round_trip_is_exact():
         assert set(want) == set(got)
         for path in want:
             np.testing.assert_array_equal(got[path], want[path], err_msg="/".join(path))
+
+
+MODEL_KEYS = ("roi_classes", "roi_coord_2d", "roi_cams", "roi_centers", "roi_whs",
+              "roi_extents", "resize_ratios")
+
+
+def jax_synthetic_batch():
+    from gdrnet_tpu.data.synthetic import synthetic_roi_batch
+
+    return synthetic_roi_batch(batch_size=2, input_res=64, out_res=16, num_classes=10, seed=0)
+
+
+def test_init_weights_follows_the_jax_package_init():
+    """init_weights draws each tensor as the JAX model's init does (flax's
+    lecun-normal backbone, normal(0.001) head and ConvPnPNet layers,
+    normal(0.01) fc_r / fc_t, zero biases, identity norms): per tensor, the
+    std of the port's draw within 10 % of the JAX init's (tensors of at
+    least 4,096 values; a draw's std has about 1 % sampling error there),
+    the constants equal, the backbone truncated at 2 std."""
+    cfg = small_flagship_cfg()
+    batch = {k: jnp.asarray(v) for k, v in jax_synthetic_batch().items()}
+    model = jgdrn.build_model(cfg)
+    variables = model.init({"params": jax.random.PRNGKey(0)}, batch["roi_img"],
+                           **{k: batch[k] for k in MODEL_KEYS}, train=False)
+    variables = jax.tree.map(np.asarray, dict(variables))
+    want = jax_to_torch(variables["params"], variables["batch_stats"])
+    got = gdrn.init_weights(gdrn.build_model(cfg, device="cpu"),
+                            torch.Generator().manual_seed(3)).state_dict()
+    assert got.keys() == want.keys()
+    compared = 0
+    for k, w in want.items():
+        g = got[k].double()
+        w = w.double()
+        if w.numel() >= 4096:
+            assert abs(float(g.std() / w.std()) - 1.0) < 0.1, (k, float(g.std()), float(w.std()))
+            compared += 1
+        elif w.numel() == 1 or float(w.std()) == 0.0:
+            assert torch.equal(g, w), k
+        if k.startswith("backbone.") and k.endswith("weight") and g.ndim == 4:
+            assert float(g.abs().max()) <= 2.0 * float(g.std()) * 1.2, k
+    assert compared > 20

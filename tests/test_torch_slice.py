@@ -229,6 +229,16 @@ def _entry_point_call(entry: str, split: dict, tmp_path):
         cfg.OUTPUT_DIR, cfg.DATASETS.TRAIN = str(tmp_path), ("tinysplit_train",)
         register("tinysplit_train", lambda: (split["models"].meta, split["records"]))
         return do_train(cfg, max_iters_override=1)
+    if entry == "do_test":
+        from gdrnet_tpu_torch.engine.tester import do_test
+
+        cfg = small_flagship_cfg()
+        return do_test(cfg, build_model(cfg, device="cpu"), split["models"], split["records"])
+    if entry == "train.main":
+        from gdrnet_tpu_torch.engine import train
+
+        return train.main(["--config-file", FLAGSHIP, "--eval-only",
+                           f"OUTPUT_DIR={str(tmp_path)!r}"])
     assert entry == "write_bop_split"
     return write_bop_split(str(tmp_path), split["zoo"][:1], np.zeros(1, int), R[None],
                            t[None], K, width=160, height=120, per_image=1,
@@ -238,7 +248,7 @@ def _entry_point_call(entry: str, split: dict, tmp_path):
 ENTRY_POINTS = ["build_model", "CustomEvaluator", "_vsd_errors_by_obj", "score_results",
                 "render_depths_many", "vsd_pairs", "vsd", "render_xyz_windows", "render_xyz",
                 "render_depth", "render_xyz_roi", "render_xyz_roi_many", "write_bop_split",
-                "GDRNTrainMapper", "do_train"]
+                "GDRNTrainMapper", "do_train", "do_test", "train.main"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
