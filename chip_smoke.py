@@ -10,17 +10,20 @@ kernel (gdrnet_tpu_torch/csrc/nn_min_dist.cu). Then the flagship's BOP
 scoring runs as engine/tester.py:315-332 runs it: the served poses go to a
 BOP19 CSV and back, and eval/bop_score.score_results scores them with the
 config's VAL.ERROR_TYPES (ad,rete,re,te,proj,vsd,mssd,mspd) against a
-BOP-layout test split of the dataset's ten meshes (tools/gen_scale_dataset.py
-mesh_zoo) that this script writes; VSD's depth renders go through the
+BOP-layout test split of the dataset's ten meshes (the mesh_zoo of
+gdrnet_tpu_torch/tools/gen_scale_dataset.py) that this script writes; VSD's depth renders go through the
 hand-written CUDA z-buffer kernels (gdrnet_tpu_torch/csrc/rasterize_xyz.cu:
 the face setup on the device, then the z-buffer with per-tile face culling).
 Then the flagship's train step (engine/steps.make_train_step: the GDR-Net
 losses, Ranger with flat_and_anneal, bf16 autocast) runs at
-SOLVER.IMS_PER_BATCH=128 on synthetic batches, and last the flagship trains
+SOLVER.IMS_PER_BATCH=128 on synthetic batches, and then the flagship trains
 as a researcher runs it: engine/trainer.do_train from a BOP train split of
 the ten meshes on disk, whose XYZ ground truth the loader threads render
 with the z-buffer kernel on their own CUDA streams, with a checkpoint and a
-resume.
+resume. Last, the rendering slice: the z-buffer kernel with the 12 per-pose
+attribute channels of the Phong + XYZ pass, the renders on the card against
+the CPU, and the flagship's synth dataset written by the port's generator
+(python -m gdrnet_tpu_torch.tools.gen_scale_dataset) as a user runs it.
 
 Phases, one line each (or one per case): device, kernel builds (both nvcc
 runs at once), nn_min_dist against its plain PyTorch version and cKDTree,
@@ -33,8 +36,16 @@ versions on the CPU; the train step (one f32 step on the card against the
 CPU, 30 bf16 steps, a skipped NaN step, its time per step and split); the
 train loop (the mapper on the card against the CPU, the loader alone,
 do_train to a checkpoint, the resumed state against it, do_train resumed,
-with its step, data and loader times and B2's launches a step); last,
-what torch.profiler measures (rasterize_xyz's launches per call and its
+with its step, data and loader times and B2's launches a step); the test
+path ([do_test], [do_test_vs_cpu], [cli]) and the learning check
+([overfit]); the rendering slice: [render_attr] (B2 at C = 12 against its
+plain version, bitwise, over 15 cases, and its time at the generator's
+shapes beside its bounds), [render_phong_xyz] (render_phong_xyz_roi_many,
+Renderer and SceneRenderer on the card against the CPU), [gen_dataset]
+(the generator's CLI on the card: wall s, images/s, its time by stage, B2's
+launches a chunk; the split resolves, maps from its pickles without a
+render, and agrees with the same scene written on the CPU); last, what
+torch.profiler measures (rasterize_xyz's launches per call and its
 kernels' device time, the device time of a BOP scoring call, the train
 step's busy share, top device operations and Ranger's launches), so that no
 host-bound phase is timed after a profiler session. Any failure raises; the exit code is then non-zero and the result
@@ -48,9 +59,9 @@ It needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and scipy.
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -72,9 +83,12 @@ from gdrnet_tpu_torch import (
     merged_config,
 )
 from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts, load_detections
+from gdrnet_tpu_torch.data.dataset_factory import resolve
 from gdrnet_tpu_torch.data.io import read_png, write_png
 from gdrnet_tpu_torch.data.mapper import GDRNTestMapper, GDRNTrainMapper, collate
 from gdrnet_tpu_torch.data.model_store import ObjectModels
+from gdrnet_tpu_torch.data.ply import save_ply
+from gdrnet_tpu_torch.data.scene_renderer import SceneRenderer
 from gdrnet_tpu_torch.data.synthetic import (
     edge_on_poses,
     poses_near,
@@ -91,8 +105,10 @@ from gdrnet_tpu_torch.eval import bop_score
 from gdrnet_tpu_torch.eval import pose_errors as PE
 from gdrnet_tpu_torch.eval.bop_writer import load_bop_results, save_bop_results
 from gdrnet_tpu_torch.eval.custom_evaluator import RECALL_KEYS, CustomEvaluator
+from gdrnet_tpu_torch.eval.renderer import create_renderer
 from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
 from gdrnet_tpu_torch.ops import kernels
+from gdrnet_tpu_torch.ops.rasterizer import render_phong_xyz_roi_many, vertex_normals
 from gdrnet_tpu_torch.ops.symmetry import get_closest_rot_batch, identity_padded_sym_arrays
 
 REPO = Path(__file__).resolve().parent
@@ -157,6 +173,18 @@ DO_TEST_ROT_ATOL, DO_TEST_TRANS_RTOL, CLI_TIMEOUT_S = 1e-3, 1e-3, 300
 OVERFIT_IMAGES, OVERFIT_STEPS, OVERFIT_SEEDS = 6, 800, (0, 1, 2)
 OVERFIT_LOSS_RATIO, OVERFIT_MAX_RE_DEG = 0.2, 10.0
 OVERFIT_K = np.array([[280.0, 0, 160.0], [0, 280.0, 120.0], [0, 0, 1.0]], np.float32)
+# the rendering slice: B2 with the generator's 12 attribute channels, timed at
+# its two shapes (label: (z range of the tower, window, plain-version calls));
+# the renders on the card against the CPU, rgb within 1 grey level at no more
+# than RENDER_FLIP_SHARE of the hit pixels; the generator's CLI at the synth
+# dataset's width, GEN_TRAIN + GEN_TEST images of GEN_PER_SCENE a scene, its
+# train mapper over GEN_MAPPED records, GEN_CPU_IMAGES compared with the CPU
+RENDER_ATTR_CHANNELS = 12
+RENDER_ATTR_TIMED = {"32x128x128x12/tower_448": ((0.5, 0.9), 128, 5),
+                     "32x512x512x12/tower_448": ((0.15, 0.22), 512, 2)}
+RENDER_FLIP_SHARE = 0.01
+GEN_TRAIN, GEN_TEST, GEN_PER_SCENE, GEN_MAPPED, GEN_CPU_IMAGES = 64, 32, 32, 16, 4
+GEN_TIMEOUT_S = 300
 # device kernels of a train step by kind, from marks in their names
 TRAIN_OP_KINDS = (
     ("conv_and_matmul", ("xmma", "gemm", "conv", "cudnn", "cutlass", "sm90_")),
@@ -325,13 +353,11 @@ def phase_forward_f32(cfg32, state_dict: dict, batch: dict) -> None:
 
 
 def mesh_tools():
-    """tools/gen_scale_dataset.py (stdlib + numpy at import): mesh_zoo and
-    _subdivide, loaded from its path."""
-    spec = importlib.util.spec_from_file_location("gen_scale_dataset",
-                                                  REPO / "tools/gen_scale_dataset.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    """The port's synth dataset generator (gdrnet_tpu_torch/tools/
+    gen_scale_dataset.py): mesh_zoo, _subdivide, K_DEF and the frame size."""
+    from gdrnet_tpu_torch.tools import gen_scale_dataset
+
+    return gen_scale_dataset
 
 
 def raster_args(verts, faces, K, R, t, origins) -> list:
@@ -1429,6 +1455,311 @@ def phase_overfit(gsd, root: str, card: str) -> None:
         del state, step, model, opt
 
 
+def attr_case_args(gsd, v, f, R, t, origins, per_pose: bool = True) -> list:
+    """rasterize_attr's tensor arguments on the card for mesh (v, f) under
+    poses R, t through the generator's K: the 12 per-pose channels the
+    generator renders (camera normal, camera position, a material, XYZ), or
+    one random set of 12 shared by every pose."""
+    B = len(R)
+    if per_pose:
+        attrs = np.concatenate([np.einsum("vk,bjk->bvj", vertex_normals(v, f), R),
+                                np.einsum("vk,bjk->bvj", v, R) + t[:, None],
+                                np.broadcast_to(np.float32([0.8, 0.6, 0.4]), (B, len(v), 3)),
+                                np.broadcast_to(v, (B,) + v.shape)], -1)
+    else:
+        attrs = np.random.RandomState(len(v)).randn(1, len(v), RENDER_ATTR_CHANNELS)
+    v_t, f_t, K, R_t, t_t, o = raster_args(v, f, np.broadcast_to(gsd.K_DEF, (B, 3, 3)), R, t,
+                                           origins)
+    return [v_t, torch.as_tensor(np.ascontiguousarray(attrs, np.float32), device=DEV), f_t, K,
+            R_t, t_t, o]
+
+
+def generator_poses(gsd, n: int, z: tuple, seed: int):
+    """n random rotations with centres at random pixels of the generator's
+    frame, z metres away."""
+    g = np.random.RandomState(seed)
+    q = np.linalg.qr(g.randn(n, 3, 3))[0]
+    R = (q * np.sign(np.linalg.det(q))[:, None, None]).astype(np.float32)
+    c = np.stack([g.uniform(120, 520, n), g.uniform(100, 380, n), np.ones(n)], 1)
+    t = (g.uniform(*z, (n, 1)) * c @ np.linalg.inv(gsd.K_DEF).T).astype(np.float32)
+    return R, t
+
+
+def phase_render_attr(gsd) -> None:
+    """B2 with C = 12 attribute channels against rasterize_attr_ref on the
+    card, bitwise (hit masks, depth, every channel): each zoo mesh at tile
+    128 with per-pose channels, tiles 256 and 512, a ragged window over F =
+    777, a shared set of 12, a pose whose faces reach behind z_near. Then
+    its time at the generator's shapes, [32, 128^2] and [32, 512^2] over the
+    tower (448 faces), beside its bounds, the plain version's time and the
+    host time of a call."""
+    zoo = gsd.mesh_zoo()
+    tower_v, tower_f = zoo[3][1], zoo[3][2]
+
+    def centred(t, tile):
+        return centred_origins(gsd.K_DEF, t, tile)
+
+    cases = []
+    for i, (name, v, f, _) in enumerate(zoo):
+        R, t = generator_poses(gsd, 8, (0.5, 0.9), seed=700 + i)
+        cases.append((f"zoo128/{name}", attr_case_args(gsd, v, f, R, t, centred(t, 128)), 128))
+    R, t = generator_poses(gsd, 8, (0.3, 0.4), seed=710)
+    cases.append(("zoo256/tower", attr_case_args(gsd, tower_v, tower_f, R, t,
+                                                 centred(t, 256)), 256))
+    R, t = generator_poses(gsd, 4, (0.15, 0.2), seed=711)
+    cases.append(("zoo512/hexprism", attr_case_args(gsd, zoo[9][1], zoo[9][2], R, t,
+                                                    centred(t, 512)), 512))
+    sv, sf = gsd._subdivide(tower_v, tower_f)
+    R, t = generator_poses(gsd, 3, (0.5, 0.7), seed=712)
+    args = attr_case_args(gsd, sv, sf[:777], R, t, centred(t, 96))
+    cases.append(("ragged_90x100_faces_777", args, (90, 100)))
+    cases.append(("shared_attrs", attr_case_args(gsd, tower_v, tower_f, R, t, centred(t, 128),
+                                                 per_pose=False), 128))
+    # the cube reaching from 5 mm behind the camera to 6.5 cm in front of it,
+    # beside the optical axis: the faces that cross z_near are dropped
+    R_near = np.stack([np.eye(3, dtype=np.float32)] * 2)
+    t_near = np.float32([[0.04, 0.0, 0.03], [0.045, -0.01, 0.03]])
+    cases.append(("behind_z_near", attr_case_args(gsd, zoo[0][1], zoo[0][2], R_near, t_near,
+                                                  [[64.0, 0.0], [0.0, 0.0]]), 512))
+    for case, args, hw in cases:
+        h, w = hw if isinstance(hw, tuple) else (hw, hw)
+        d1, a1 = kernels.rasterize_attr(*args, h, w)
+        dr, ar = kernels.rasterize_attr_ref(*args, h, w)
+        torch.cuda.synchronize()
+        hits = int((d1 > 0).sum())
+        bitwise = torch.equal(d1, dr) and torch.equal(a1, ar)
+        log("render_attr", case=case, shape=f"{args[3].shape[0]}x{h}x{w}x{args[1].shape[2]}",
+            attrs_per_pose=args[1].shape[0] > 1, faces=args[2].shape[0], hit_px=hits,
+            unequal_hit_px=int(((d1 > 0) != (dr > 0)).sum()), bitwise_equal=bitwise)
+        if not bitwise or hits == 0 or hits == d1.numel():
+            raise AssertionError(f"render_attr {case}: kernel vs plain not bitwise equal "
+                                 f"({hits} hit pixels, max depth diff "
+                                 f"{float((d1 - dr).abs().max())}, attrs "
+                                 f"{float((a1 - ar).abs().max())})")
+    log("render_attr", check="ok", cases=len(cases), rule="bitwise")
+
+    for label, (z, tile, n_plain) in RENDER_ATTR_TIMED.items():
+        R, t = generator_poses(gsd, 32, z, seed=720 + tile)
+        args = attr_case_args(gsd, tower_v, tower_f, R, t, centred(t, tile))
+        plain = [cuda_times(lambda: kernels.rasterize_attr_ref(*args, tile, tile), n_plain, 1)]
+        kern = [cuda_times(lambda: kernels.rasterize_attr(*args, tile, tile), 20)
+                for _ in range(2)]
+        plain.append(cuda_times(lambda: kernels.rasterize_attr_ref(*args, tile, tile), n_plain, 1))
+        kern, plain = np.concatenate(kern), np.concatenate(plain)
+        host = host_times(lambda: kernels.rasterize_attr(*args, tile, tile), 20)
+        geom, _ = kernels.raster_face_tables(args[0], args[1], *args[2:6])
+        B, V, F, C = 32, len(tower_v), len(tower_f), RENDER_ATTR_CHANNELS
+        pairs = B * tile * tile * F
+        kept = int(kernels.raster_tile_keep(geom, args[6], tile, tile).sum()) * RASTER_TILE_PIXELS
+        n_bytes = 4.0 * (3 * V + B * V * C + 3 * F + 23 * B) + (4.0 + 4.0 * C) * B * tile * tile
+        bound_ms, bound_by = bound(n_bytes, RASTER_INSTR_PER_PAIR * kept)
+        all_ms, _ = bound(n_bytes, RASTER_INSTR_PER_PAIR * pairs)
+        med = float(np.median(kern))
+        log("render_attr_time", shape=label, order="plain,kernel,kernel,plain",
+            kernel_median_ms=f"{med:.4f}", kernel_max_ms=f"{kern.max():.4f}",
+            kernel_n=len(kern), plain_median_ms=f"{np.median(plain):.4f}", plain_n=len(plain),
+            host_synced_call_median_ms=f"{np.median(host):.4f}", host_n=len(host),
+            bytes_bound_ms=f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f}",
+            all_pairs_bound_ms=f"{all_ms:.4f}", culled_pair_share=f"{1.0 - kept / pairs:.4f}",
+            kept_pairs_bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            share_of_bound=f"{bound_ms / med:.3f}", library_ms="none")
+
+
+def count_flips(got: np.ndarray, want: np.ndarray, where: str) -> int:
+    """Pixels where two uint8 images differ; raises where a value differs
+    by more than 1."""
+    diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    if diff.size and diff.max() > 1:
+        raise AssertionError(f"{where}: a value differs by {diff.max()}")
+    return int((diff > 0).reshape(diff.shape[:2] + (-1,)).any(-1).sum())
+
+
+def phase_render_phong_xyz(gsd) -> None:
+    """The renders on the card against the CPU: render_phong_xyz_roi_many
+    (the generator's pass) over every zoo mesh at tile 128, Renderer in
+    rgb+depth and depth modes, and one SceneRenderer scene. The attribute
+    maps are bitwise equal, so uint16 mm depth, f16 xyz, depth maps, masks
+    and boxes must be equal; rgb within 1 grey level, at no more than
+    RENDER_FLIP_SHARE of the hit pixels (the shading's norms and divisions
+    are PyTorch ops on two devices)."""
+    zoo, colors = gsd.mesh_zoo(), gsd._object_colors(10)
+    hits = flips = fitted = 0
+    for i, (name, v, f, _) in enumerate(zoo):
+        R, t = generator_poses(gsd, 40, (0.5, 0.9), seed=730 + i)
+        g = np.random.RandomState(i)
+        kw = dict(colors=np.broadcast_to(colors[i], (len(v), 3)),
+                  light_pos=g.uniform(-2, 2, (40, 3)), ambient=g.uniform(0.35, 0.55, 40),
+                  diffuse=g.uniform(0.6, 1.0, 40), specular=g.uniform(0.1, 0.4, 40))
+        Ks = np.broadcast_to(gsd.K_DEF, (40, 3, 3))
+        (card, fit), (cpu, fit_cpu) = [
+            render_phong_xyz_roi_many(v, f, Ks, R, t, gsd.H_DEF, gsd.W_DEF, tile=128,
+                                      on_misfit="skip", device=dev, **kw) for dev in (DEV, "cpu")]
+        if fit != fit_cpu or len(fit) < 20:
+            raise AssertionError(f"render_phong_xyz {name}: fitted {fit} vs {fit_cpu}")
+        fitted += len(fit)
+        for (d, rgb, xyz, o), (dc, rgbc, xyzc, oc) in zip(card, cpu):
+            if o != oc or not (np.array_equal(d, dc) and np.array_equal(xyz, xyzc)):
+                raise AssertionError(f"render_phong_xyz {name}: depth_mm or xyz card vs CPU")
+            hits += int((dc > 0).sum())
+            flips += count_flips(rgb, rgbc, f"render_phong_xyz {name} rgb")
+    if flips > RENDER_FLIP_SHARE * hits:
+        raise AssertionError(f"render_phong_xyz: {flips} rgb flips of {hits} hit pixels")
+    log("render_phong_xyz", meshes=len(zoo), poses=40 * len(zoo), fitted_128=fitted,
+        depth_mm_and_xyz="equal", hit_px=hits, rgb_flips=flips,
+        flip_share_max=RENDER_FLIP_SHARE, check="ok")
+
+    with tempfile.TemporaryDirectory() as d:
+        ply = str(Path(d) / "obj.ply")
+        save_ply(ply, zoo[6][1], zoo[6][2],
+                 colors=np.random.RandomState(1).randint(0, 255, (len(zoo[6][1]), 3)))
+        R, _ = generator_poses(gsd, 1, (0.6, 0.6), seed=740)
+        for mode in ("rgb+depth", "depth"):
+            outs = []
+            for dev in (DEV, "cpu"):
+                ren = create_renderer(gsd.W_DEF, gsd.H_DEF, mode=mode, device=dev)
+                ren.add_object(7, ply)
+                outs.append([ren.render_object(7, R[0], t, *gsd.K_DEF[[0, 1, 0, 1], [0, 1, 2, 2]])
+                             for t in ([0.02, 0.01, 0.6], [0.0, 0.0, 0.12])])
+            n_flips = n_hits = 0
+            for got, want in zip(*outs):
+                if not np.array_equal(got["depth"], want["depth"]):
+                    raise AssertionError(f"renderer {mode}: depth card vs CPU")
+                n_hits += int((want["depth"] > 0).sum())
+                if "rgb" in want:
+                    n_flips += count_flips(got["rgb"], want["rgb"], f"renderer {mode}")
+            if n_flips > RENDER_FLIP_SHARE * n_hits:
+                raise AssertionError(f"renderer {mode}: {n_flips} rgb flips of {n_hits} hits")
+            log("renderer", mode=mode, poses=2, depth="equal", hit_px=n_hits, rgb_flips=n_flips,
+                check="ok")
+
+    models = [(v * 1000.0, f, np.broadcast_to(colors[i], (len(v), 3)))
+              for i, (_, v, f, _) in enumerate(zoo)]
+    scenes = [SceneRenderer(models, range(1, 11), gsd.W_DEF, gsd.H_DEF, gsd.K_DEF,
+                            rng=np.random.RandomState(5), device=dev).render()
+              for dev in (DEV, "cpu")]
+    (bgr, info, ex), (bgr_c, info_c, ex_c) = scenes
+    same = info == info_c and all(np.array_equal(ex[k], ex_c[k]) for k in ex)
+    n_flips = count_flips(bgr, bgr_c, "scene_renderer")
+    if not same or n_flips > RENDER_FLIP_SHARE * (ex_c["depth"] > 0).sum():
+        raise AssertionError(f"scene_renderer: obj_info / extras equal {same}, {n_flips} flips")
+    log("scene_renderer", objects=len(info), depth_and_masks="equal",
+        hit_px=int((ex_c["depth"] > 0).sum()), bgr_flips=n_flips, check="ok")
+
+
+def gen_done_lines(stdout: str) -> dict:
+    """The generator's "[split] done: ..." lines: {split: (images, stage
+    seconds, B2 launches, chunks)}."""
+    out = {}
+    for m in re.finditer(r"\[(\w+)\] done: (\d+) images, \d+ scenes; host-clock s by stage "
+                         r"(\{.*?\}); B2 launches (\d+) in (\d+) chunks", stdout):
+        out[m[1]] = (int(m[2]), json.loads(m[3]), int(m[4]), int(m[5]))
+    return out
+
+
+def compare_generated(card_dir: Path, cpu_dir: Path, n_images: int) -> dict:
+    """The first n_images of scene 1 written on the card and on the CPU:
+    every file equal (B2 is bitwise equal to its plain version, so depth,
+    masks, xyz crops and the JSON are), but rgb, whose values may differ by
+    1 (the shading's PyTorch ops on two devices). Returns the counts."""
+    with open(card_dir / "scene_gt.json") as f:
+        gt = json.load(f)
+    counts = {"images": 0, "instances": 0, "rgb_flips": 0, "px": 0}
+    for name in ("scene_gt.json", "scene_gt_info.json", "scene_camera.json"):
+        a, b = (json.load(open(d / name)) for d in (card_dir, cpu_dir))
+        if {k: a[k] for k in list(a)[:n_images]} != {k: b[k] for k in list(b)[:n_images]}:
+            raise AssertionError(f"gen_dataset card vs CPU: {name} differs")
+    for im in list(gt)[:n_images]:
+        stem = f"{int(im):06d}"
+        files = [f"depth/{stem}.png"] + [f"{sub}/{stem}_{k:06d}.png" for k in range(len(gt[im]))
+                                          for sub in ("mask", "mask_visib")]
+        for rel in files:
+            if not np.array_equal(read_png(str(card_dir / rel)), read_png(str(cpu_dir / rel))):
+                raise AssertionError(f"gen_dataset card vs CPU: {rel} differs")
+        for k in range(len(gt[im])):
+            a, b = (pickle.load(open(d / f"xyz_crop/{stem}_{k:06d}.pkl", "rb"))
+                    for d in (card_dir, cpu_dir))
+            if a["xyxy"] != b["xyxy"] or not np.array_equal(a["xyz_crop"], b["xyz_crop"]):
+                raise AssertionError(f"gen_dataset card vs CPU: xyz_crop {stem}_{k:06d}")
+        rgb = [read_png(str(d / f"rgb/{stem}.png")) for d in (card_dir, cpu_dir)]
+        counts["rgb_flips"] += count_flips(rgb[0], rgb[1], f"gen_dataset rgb {stem}")
+        counts["px"] += rgb[0].shape[0] * rgb[0].shape[1]
+        counts["images"] += 1
+        counts["instances"] += len(gt[im])
+    if counts["rgb_flips"] > RENDER_FLIP_SHARE * counts["px"]:
+        raise AssertionError(f"gen_dataset card vs CPU: {counts}")
+    return counts
+
+
+def phase_gen_dataset(gsd, root: str, card: str) -> int:
+    """The flagship's synth dataset as a user writes it: the generator's CLI
+    in a subprocess on the card, at the dataset's width (640x480, the full
+    10-mesh zoo, tiles 128/256/512, batch 32) cut to GEN_TRAIN + GEN_TEST
+    images of GEN_PER_SCENE a scene. Gates: exit 0; both splits resolve
+    by name and est_dets.json loads; the train mapper maps GEN_MAPPED
+    records from the written xyz_crop pickles with no B2 launch; train scene
+    1, written again on the CPU from the same seed, agrees file by file
+    (compare_generated, its first GEN_CPU_IMAGES images). Returns B2's
+    launches in the CLI's run."""
+    data_root = Path(root) / "gen"
+    cmd = [sys.executable, "-m", "gdrnet_tpu_torch.tools.gen_scale_dataset", "--root",
+           str(data_root / "synth_smoke"), "--train-images", str(GEN_TRAIN), "--test-images",
+           str(GEN_TEST), "--imgs-per-scene", str(GEN_PER_SCENE), "--seed", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=GEN_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"gen_dataset: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    done = gen_done_lines(proc.stdout)
+    meta, train = resolve("synth_smoke_train", data_root=str(data_root))
+    _, test = resolve("synth_smoke_test", data_root=str(data_root))
+    dets = load_detections(str(data_root / "synth_smoke" / "test_bboxes" / "est_dets.json"))
+    if (set(done) != {"train", "test"} or done["train"][0] != GEN_TRAIN
+            or done["test"][0] != GEN_TEST or not train or not test or not dets
+            or any(d[2] < d[3] for d in done.values())):
+        raise AssertionError(f"gen_dataset: done lines {done}, {len(train)} train and "
+                             f"{len(test)} test records, {len(dets)} detection images")
+    launches = sum(d[2] for d in done.values())
+    chunks = sum(d[3] for d in done.values())
+    stages: dict = defaultdict(float)
+    for d in done.values():
+        for k, sec in d[1].items():
+            stages[k] += sec
+    n_img = GEN_TRAIN + GEN_TEST
+    log("gen_dataset", card=repr(card), size=f"{gsd.W_DEF}x{gsd.H_DEF}", meshes=10,
+        images=n_img, cut_from="2000+400 images, 200 a scene", per_scene=GEN_PER_SCENE,
+        wall_s=f"{wall_s:.2f}", images_per_s=f"{n_img / wall_s:.2f}",
+        stage_s=json.dumps({k: round(v, 3) for k, v in stages.items()}).replace(" ", ""),
+        render_share_of_stages=f"{stages['render'] / sum(stages.values()):.3f}",
+        b2_launches=launches, chunks=chunks, b2_launches_per_chunk=f"{launches / chunks:.1f}",
+        train_records=len(train), test_records=len(test), detection_images=len(dets))
+
+    cfg = merged_config(FLAGSHIP)
+    models = ObjectModels(meta, num_pm_points=cfg.MODEL.CDPN.PNP_NET.NUM_PM_POINTS,
+                          num_fps=cfg.MODEL.CDPN.ROT_HEAD.NUM_REGIONS)
+    mapper = GDRNTrainMapper(cfg, models, device=DEV)
+    before = kernels.rasterize_attr.launches
+    mapped = [mapper(dict(rec), np.random.RandomState(i))
+              for i, rec in enumerate(train[::max(1, len(train) // GEN_MAPPED)][:GEN_MAPPED])]
+    if kernels.rasterize_attr.launches != before or not all(
+            np.all(np.isfinite(m["gt_xyz"])) for m in mapped):
+        raise AssertionError(f"gen_dataset mapper: {kernels.rasterize_attr.launches - before} "
+                             "B2 launches, or non-finite XYZ")
+    log("gen_dataset_mapper", records=len(mapped), xyz_from="pickles",
+        b2_launches=0, check="ok")
+
+    cpu_root = Path(root) / "gen_cpu"
+    t0 = time.perf_counter()
+    gsd.generate_split(str(cpu_root), "train", gsd.mesh_zoo(), gsd._object_colors(10),
+                       gsd.K_DEF, gsd.W_DEF, gsd.H_DEF, GEN_PER_SCENE, seed=1,
+                       images_per_scene=GEN_PER_SCENE, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    counts = compare_generated(data_root / "synth_smoke" / "train" / "000001",
+                               cpu_root / "train" / "000001", GEN_CPU_IMAGES)
+    log("gen_dataset_vs_cpu", scene=1, **counts, cpu_scene_s=f"{cpu_s:.1f}",
+        rule="equal but rgb within 1", flip_share_max=RENDER_FLIP_SHARE, check="ok")
+    return launches
+
+
 def check_rotations(R: np.ndarray, where: str) -> None:
     if not np.all(np.isfinite(R)):
         raise AssertionError(f"{where}: non-finite rotations")
@@ -1561,8 +1892,9 @@ def main() -> int:
     # 7. the flagship's BOP scoring of the served poses (engine/tester.py:315-332),
     # 8. its train step, 9. its training run from a BOP split on disk, 10. its
     # test path over estimated detections with the trained checkpoint, in
-    # process and through the CLI, 11. the learning check, 12. then the
-    # profiled measurements
+    # process and through the CLI, 11. the learning check, 12. the rendering
+    # slice: B2 with 12 channels, the renders on the card against the CPU and
+    # the synth dataset's generator, 13. then the profiled measurements
     with tempfile.TemporaryDirectory() as root:
         split = phase_bop_split(cfg, gsd, requests, root)
         raster_launches, scored = phase_bop_score(cfg, split, R, t, root)
@@ -1576,6 +1908,9 @@ def main() -> int:
         phase_do_test_vs_cpu(cfg32, split, dets, ckpt, root)
         phase_cli(cfg, split, dets, ckpt, root, tested)
         phase_overfit(gsd, root, card)
+        phase_render_attr(gsd)
+        phase_render_phong_xyz(gsd)
+        gen_launches = phase_gen_dataset(gsd, root, card)
         phase_profile(cfg, split, scored, raster_timed, train)
     test_launches = tested[2]
 
@@ -1587,7 +1922,7 @@ def main() -> int:
         {"name": "rasterize_xyz", "route": "cuda",
          "source": "gdrnet_tpu_torch/csrc/rasterize_xyz.cu",
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:140",
-         "launches": raster_launches + loop_launches + test_launches[1],
+         "launches": raster_launches + loop_launches + test_launches[1] + gen_launches,
          **raster_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,25 +1,38 @@
-// Z-buffer rasterizer of object coordinates: depth and XYZ maps of one mesh
-// under B poses, each over an H x W pixel window at an integer origin.
+// Z-buffer rasterizer of per-vertex attributes: depth and C-channel
+// attribute maps of one mesh under B poses, each over an H x W pixel window
+// at an integer origin.
 //
 //   for pose b and pixel (i, j), sample point (x, y) = (j + ox_b, i + oy_b):
 //   the face that passes the edge-function test with the largest
 //   perspective-correct 1/z wins (ties to the lowest face index);
-//   depth[b, i, j] = 1 / best 1/z, xyz[b, i, j] = interpolated (object
-//   coordinate / z) / best 1/z; 0 in both where no face covers the pixel.
+//   depth[b, i, j] = 1 / best 1/z, out[b, i, j, c] = interpolated (attribute
+//   c / z) / best 1/z; 0 in both where no face covers the pixel.
+//
+// The attributes are [Ba, V, C] f32 with Ba = 1 (shared by every pose) or B
+// (one set a pose), 1 <= C <= kMaxChannels. XYZ object coordinates are the
+// case attrs = verts, C = 3; the 12-channel pass of the dataset generator
+// renders (camera normal, camera position, material, XYZ) a pose.
 //
 // Replaces the TPU kernel gdrnet_tpu/ops/pallas_kernels.py:_raster_kernel
-// (launched by rasterize_xyz_pallas). That kernel took [pixel tile, face
-// chunk] blocks on a sequential grid, kept the running best 1/z and its
-// attributes in a VMEM scratch across face chunks, found the first maximum
-// in a chunk with a lane-iota min, since it had no arg-max, and tested every
-// face at every pixel.
+// (launched by rasterize_xyz_pallas), whose outputs are fixed at XYZ, and
+// the XLA z-buffer gdrnet_tpu/ops/rasterizer.py:rasterize_attr, which the
+// JAX package runs for any other attributes. The Pallas kernel took [pixel
+// tile, face chunk] blocks on a sequential grid, kept the running best 1/z
+// and its attributes in a VMEM scratch across face chunks, found the first
+// maximum in a chunk with a lane-iota min, since it had no arg-max, and
+// tested every face at every pixel.
 //
 // What bounds it on an H100: the arithmetic of the (pixel, face) pairs that
 // cannot be skipped. A pair costs about 25 f32 instructions (two edge
 // functions, the third barycentric, the 1/z interpolation, the compares);
 // all pairs of a 128 x 128 window over a 448-face mesh are 7.3e6 per pose,
-// but most faces of a mesh cannot cover most 16 x 16 tiles of a window. The
-// mesh and poses are a few KB; the outputs 16 bytes a pixel.
+// but most faces of a mesh cannot cover most 16 x 16 tiles of a window.
+// The mesh, attributes and poses are a few hundred KB at most; the outputs
+// are 4 + 4 C bytes a pixel (16 for XYZ, 52 for the 12-channel pass), so
+// at C = 12 and a small mesh the stores approach the bytes' bound: a
+// [32, 512^2] call writes 436 MB, 0.13 ms at 3.35 TB/s. Only the epilogue
+// reads attributes (each pixel's winning face's three vertices, C values
+// each, from L2), so C changes no part of the search.
 //
 // What the design does about that, in two launches with no other op between
 // them:
@@ -99,7 +112,7 @@ constexpr int kThreadsX = 8;                     // threads per tile side, 2 x 2
 constexpr int kThreads = kThreadsX * kThreadsX;  // 64
 constexpr int kChunk = kThreads;                 // faces per chunk: one culling test a thread
 constexpr int kWarps = kThreads / 32;
-constexpr int kChannels = 3;                     // attribute channels per vertex (XYZ)
+constexpr int kMaxChannels = 16;                 // attribute channels per vertex, at most
 constexpr int kSetupThreads = 128;
 
 constexpr double kCullGamma = 6.0 * 0x1p-24;     // f32 error of edge() * inv_area, with margin
@@ -243,13 +256,15 @@ __device__ bool may_cover(float4 p, float4 q, const double px[2], const double p
   return !(all_below(w0, e0) || all_below(w1, e1) || all_below(w2, e2));
 }
 
-// geom [B, F, 3] float4 from face_setup_kernel; attrs [V, kChannels]; faces
-// [F, 3]; origins [B, 2] -> depth [B, H, W], out [B, H, W, kChannels]
+// geom [B, F, 3] float4 from face_setup_kernel; attrs [Ba, V, C] (pose b
+// reads attrs + b * attr_stride: 0 when shared, V * C when per pose); faces
+// [F, 3]; origins [B, 2] -> depth [B, H, W], out [B, H, W, C]
 template <typename Index>
 __global__ void __launch_bounds__(kThreads)
 zbuffer_kernel(const float4* __restrict__ geom, const float* __restrict__ attrs,
-               const Index* __restrict__ faces, const float* __restrict__ origins,
-               float* __restrict__ depth, float* __restrict__ out, int nf, int h, int w) {
+               size_t attr_stride, int nc, const Index* __restrict__ faces,
+               const float* __restrict__ origins, float* __restrict__ depth,
+               float* __restrict__ out, int nf, int h, int w) {
   __shared__ __align__(16) float4 stage[2][3 * kChunk];  // this chunk's records, the next's
   __shared__ __align__(16) float4 live[3 * kChunk];      // the chunk's kept faces, in order
   __shared__ int live_face[kChunk];
@@ -370,18 +385,18 @@ zbuffer_kernel(const float4* __restrict__ geom, const float* __restrict__ attrs,
       const int i = i0 + ty + kThreadsX * r, j = j0 + tx + kThreadsX * cc;
       if (i >= h || j >= w) continue;
       const size_t pix = (static_cast<size_t>(b) * h + i) * w + j;
-      float* o = out + kChannels * pix;
+      float* o = out + nc * pix;
       if (best[n] > 0.f) {
         const float safe = fmaxf(best[n], 1e-12f);
         const float bw2 = __fsub_rn(__fsub_rn(1.f, bw0[n]), bw1[n]);
         const Index* fv = faces + 3 * static_cast<size_t>(bface[n]);
         const float4 izf = gb[3 * static_cast<size_t>(bface[n]) + 2];
-        const float* a0 = attrs + kChannels * static_cast<size_t>(fv[0]);
-        const float* a1 = attrs + kChannels * static_cast<size_t>(fv[1]);
-        const float* a2 = attrs + kChannels * static_cast<size_t>(fv[2]);
+        const float* ab = attrs + attr_stride * b;
+        const float* a0 = ab + nc * static_cast<size_t>(fv[0]);
+        const float* a1 = ab + nc * static_cast<size_t>(fv[1]);
+        const float* a2 = ab + nc * static_cast<size_t>(fv[2]);
         depth[pix] = __fdiv_rn(1.f, safe);
-#pragma unroll
-        for (int ch = 0; ch < kChannels; ++ch) {
+        for (int ch = 0; ch < nc; ++ch) {
           // attrs * inv_z per vertex, one rounding, as the plain version
           o[ch] = __fdiv_rn(interp(bw0[n], bw1[n], bw2, __fmul_rn(a0[ch], izf.x),
                                    __fmul_rn(a1[ch], izf.y), __fmul_rn(a2[ch], izf.z)),
@@ -389,25 +404,25 @@ zbuffer_kernel(const float4* __restrict__ geom, const float* __restrict__ attrs,
         }
       } else {
         depth[pix] = 0.f;
-#pragma unroll
-        for (int ch = 0; ch < kChannels; ++ch) o[ch] = 0.f;
+        for (int ch = 0; ch < nc; ++ch) o[ch] = 0.f;
       }
     }
   }
 }
 
 template <typename Index>
-int launch(const float* verts, const Index* faces, const float* K, const float* R,
-           const float* t, const float* origins, float4* geom, float* depth, float* xyz, int b,
-           int nv, int nf, int h, int w, float z_near, cudaStream_t stream) {
+int launch(const float* verts, const float* attrs, size_t attr_stride, int nc,
+           const Index* faces, const float* K, const float* R, const float* t,
+           const float* origins, float4* geom, float* depth, float* out, int b, int nv, int nf,
+           int h, int w, float z_near, cudaStream_t stream) {
   const dim3 setup_grid((nf + kSetupThreads - 1) / kSetupThreads, b);
   face_setup_kernel<Index><<<setup_grid, kSetupThreads, 0, stream>>>(verts, faces, K, R, t, geom,
                                                                        nv, nf, z_near);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, b);
-  zbuffer_kernel<Index><<<grid, kThreads, 0, stream>>>(geom, verts, faces, origins, depth, xyz,
-                                                       nf, h, w);
+  zbuffer_kernel<Index><<<grid, kThreads, 0, stream>>>(geom, attrs, attr_stride, nc, faces,
+                                                       origins, depth, out, nf, h, w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,34 +433,41 @@ extern "C" {
 // Pixels per side of the tiles the z-buffer culls faces for.
 int rasterize_xyz_tile() { return kTile; }
 
+// The most attribute channels a call may take.
+int rasterize_attr_max_channels() { return kMaxChannels; }
+
 // Launches the face setup, then the z-buffer, on `stream`; returns
-// cudaGetLastError() after each launch (0 = ok). verts [nv, 3], faces [nf, 3]
-// (int64 if faces_int64, else int32), K and R [b, 3, 3], t [b, 3], origins
-// [b, 2], geom [b, nf, 12] (scratch), depth [b, h, w], xyz [b, h, w, 3]:
+// cudaGetLastError() after each launch (0 = ok). verts [nv, 3], attrs
+// [b, nv, nc] if attrs_per_pose, else [nv, nc], faces [nf, 3] (int64 if
+// faces_int64, else int32), K and R [b, 3, 3], t [b, 3], origins [b, 2],
+// geom [b, nf, 12] (scratch), depth [b, h, w], out [b, h, w, nc]:
 // contiguous, f32 unless stated, on the current device.
-int rasterize_xyz_launch(const void* verts, const void* faces, int faces_int64, const void* K,
-                         const void* R, const void* t, const void* origins, void* geom,
-                         void* depth, void* xyz, int b, int nv, int nf, int h, int w,
-                         float z_near, void* stream) {
-  if (b < 1 || b > 65535 || nv < 1 || nf < 1 || h < 1 || w < 1 ||
-      (h + kTile - 1) / kTile > 65535) {
+int rasterize_attr_launch(const void* verts, const void* attrs, int attrs_per_pose, int nc,
+                          const void* faces, int faces_int64, const void* K, const void* R,
+                          const void* t, const void* origins, void* geom, void* depth,
+                          void* out, int b, int nv, int nf, int h, int w, float z_near,
+                          void* stream) {
+  if (b < 1 || b > 65535 || nv < 1 || nf < 1 || h < 1 || w < 1 || nc < 1 ||
+      nc > kMaxChannels || (h + kTile - 1) / kTile > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* v = static_cast<const float*>(verts);
+  const auto* a = static_cast<const float*>(attrs);
+  const size_t stride = attrs_per_pose ? static_cast<size_t>(nv) * nc : 0;
   const auto* k = static_cast<const float*>(K);
   const auto* r = static_cast<const float*>(R);
   const auto* tt = static_cast<const float*>(t);
   const auto* o = static_cast<const float*>(origins);
   auto* g = static_cast<float4*>(geom);
   auto* d = static_cast<float*>(depth);
-  auto* x = static_cast<float*>(xyz);
+  auto* x = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (faces_int64) {
-    return launch(v, static_cast<const int64_t*>(faces), k, r, tt, o, g, d, x, b, nv, nf, h, w,
-                  z_near, s);
+    return launch(v, a, stride, nc, static_cast<const int64_t*>(faces), k, r, tt, o, g, d, x, b,
+                  nv, nf, h, w, z_near, s);
   }
-  return launch(v, static_cast<const int32_t*>(faces), k, r, tt, o, g, d, x, b, nv, nf, h, w,
-                z_near, s);
+  return launch(v, a, stride, nc, static_cast<const int32_t*>(faces), k, r, tt, o, g, d, x, b,
+                nv, nf, h, w, z_near, s);
 }
 
 const char* rasterize_xyz_error_string(int code) {

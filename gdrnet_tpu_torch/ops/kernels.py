@@ -5,18 +5,24 @@
 tensor it launches the CUDA kernel in csrc/nn_min_dist.cu; on a CPU tensor it
 runs `nn_min_dist_ref`.
 
-`rasterize_xyz`: the z-buffer depth + object-coordinate render of one mesh
-under B poses over pixel windows (the counterpart of
-gdrnet_tpu/ops/pallas_kernels.py:rasterize_xyz_pallas). On a CUDA tensor it
-launches the CUDA kernels in csrc/rasterize_xyz.cu, which build the per-face
-table on the device and cull faces per pixel tile; on a CPU tensor it runs
-`rasterize_xyz_ref`, whose prologue `raster_face_tables` builds the same
-table in PyTorch. `raster_tile_keep` is the plain version of the kernel's
+`rasterize_attr`: the z-buffer depth + C-channel attribute render of one
+mesh under B poses over pixel windows, with one attribute set shared by
+every pose or one a pose (the counterpart of
+gdrnet_tpu/ops/pallas_kernels.py:rasterize_xyz_pallas, whose outputs are
+XYZ, and of the XLA z-buffer gdrnet_tpu/ops/rasterizer.py:rasterize_attr,
+which the JAX package runs for any other attributes). On a CUDA tensor it
+launches the CUDA kernels in csrc/rasterize_xyz.cu, which build the
+per-face table on the device and cull faces per pixel tile; on a CPU
+tensor it runs `rasterize_attr_ref`, whose prologue `raster_face_tables`
+builds the same table in PyTorch. `rasterize_xyz` is the XYZ render,
+attrs = verts. `raster_tile_keep` is the plain version of the kernel's
 per-tile culling rule.
 
 Each wrapper's `launches` attribute counts its calls that launched the
-wrapper's kernels; loader threads call rasterize_xyz concurrently, so the
-count is bumped under a lock.
+wrapper's kernels: `rasterize_attr.launches` every launch of the z-buffer
+kernels, `rasterize_xyz.launches` those made for rasterize_xyz. Loader
+threads call rasterize_xyz concurrently, so the counts are bumped under a
+lock.
 """
 
 from __future__ import annotations
@@ -138,7 +144,8 @@ def raster_face_tables(verts: torch.Tensor, attrs: torch.Tensor, faces: torch.Te
     (gdrnet_tpu/ops/pallas_kernels.py:244-264), with rasterize_attr's
     projection and validity test (gdrnet_tpu/ops/rasterizer.py:60-89).
 
-    verts [V,3], attrs [V,C], faces [F,3] int, K and R [B,3,3], t [B,3] ->
+    verts [V,3], attrs [V,C] (shared) or [Ba,V,C] (Ba 1 or B: one set a
+    pose), faces [F,3] int, K and R [B,3,3], t [B,3] ->
       geom [B,F,12]: x0 y0 x1 y1 | x2 y2 inv_area valid | iz0 iz1 iz2 0
       attr [B,F,3C]: attr / z at vertex 0, then 1, then 2.
     A face is valid when its doubled screen area exceeds 1e-12 in magnitude
@@ -152,7 +159,7 @@ def raster_face_tables(verts: torch.Tensor, attrs: torch.Tensor, faces: torch.Te
     u = _rows(K, 0, cx, cy, cz) / uw
     v = _rows(K, 1, cx, cy, cz) / uw
     inv_z = 1.0 / cz.clamp_min(z_near)
-    attrs_over_z = attrs[None] * inv_z[..., None]               # [B, V, C]
+    attrs_over_z = attrs * inv_z[..., None]                     # [B, V, C]
 
     f = faces.long()
     i0, i1, i2 = f[:, 0], f[:, 1], f[:, 2]
@@ -227,9 +234,10 @@ def zbuffer_ref(geom: torch.Tensor, attr: torch.Tensor, origins: torch.Tensor,
 
 def rasterize_attr_ref(verts, attrs, faces, K, R, t, origins, height: int, width: int,
                        z_near: float = Z_NEAR) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain z-buffer render of per-vertex attributes attrs [V,C] under B
-    poses: depth [B,H,W] and the perspective-correct attribute map
-    [B,H,W,C] (gdrnet_tpu/ops/rasterizer.py:rasterize_attr, batched)."""
+    """Plain z-buffer render of per-vertex attributes attrs [V,C] (or one
+    set a pose, [B,V,C]) under B poses: depth [B,H,W] and the
+    perspective-correct attribute map [B,H,W,C]
+    (gdrnet_tpu/ops/rasterizer.py:rasterize_attr, batched)."""
     geom, attr = raster_face_tables(verts, attrs, faces, K, R, t, z_near)
     return zbuffer_ref(geom, attr, origins, height, width)
 
@@ -237,7 +245,7 @@ def rasterize_attr_ref(verts, attrs, faces, K, R, t, origins, height: int, width
 def rasterize_xyz_ref(verts, faces, K, R, t, origins, height: int, width: int
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of `rasterize_xyz`: rasterize_attr_ref with attrs = verts."""
-    return rasterize_attr_ref(verts, verts, faces, K, R, t, origins, height, width)
+    return rasterize_attr_ref(verts, verts[None], faces, K, R, t, origins, height, width)
 
 
 # The CUDA kernel's culling rule (csrc/rasterize_xyz.cu, "Culling"): a face is
@@ -249,6 +257,7 @@ def rasterize_xyz_ref(verts, faces, K, R, t, origins, height: int, width: int
 # _CULL_W2 the two roundings of w2 = (1 - w0) - w1 (u (2 + u) < 3u), and
 # _CULL_TINY the subnormal range (2^-150 per rounding).
 RASTER_TILE = 16
+MAX_ATTR_CHANNELS = 16  # csrc/rasterize_xyz.cu kMaxChannels
 _CULL_GAMMA = 6.0 * 2.0 ** -24
 _CULL_W2 = 3.0 * 2.0 ** -24
 _CULL_TINY = 2.0 ** -148
@@ -311,93 +320,122 @@ def raster_tile_keep(geom: torch.Tensor, origins: torch.Tensor, height: int, wid
 @functools.cache
 def _raster_lib() -> ctypes.CDLL:
     lib = csrc.load("rasterize_xyz")
-    lib.rasterize_xyz_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p]
-    lib.rasterize_xyz_launch.restype = ctypes.c_int
+    lib.rasterize_attr_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    lib.rasterize_attr_launch.restype = ctypes.c_int
     lib.rasterize_xyz_tile.argtypes = []
     lib.rasterize_xyz_tile.restype = ctypes.c_int
+    lib.rasterize_attr_max_channels.argtypes = []
+    lib.rasterize_attr_max_channels.restype = ctypes.c_int
     lib.rasterize_xyz_error_string.argtypes = [ctypes.c_int]
     lib.rasterize_xyz_error_string.restype = ctypes.c_char_p
     if lib.rasterize_xyz_tile() != RASTER_TILE:
         raise RuntimeError(f"rasterize_xyz.cu culls {lib.rasterize_xyz_tile()}-pixel tiles, "
                            f"raster_tile_keep {RASTER_TILE}")
+    if lib.rasterize_attr_max_channels() != MAX_ATTR_CHANNELS:
+        raise RuntimeError(f"rasterize_xyz.cu takes {lib.rasterize_attr_max_channels()} "
+                           f"channels at most, rasterize_attr {MAX_ATTR_CHANNELS}")
     return lib
 
 
-def _check_raster_inputs(verts, faces, K, R, t, origins, height, width) -> None:
-    shapes = {"verts": (verts, None), "K": (K, (3, 3)), "R": (R, (3, 3)), "t": (t, (3,)),
-              "origins": (origins, (2,))}
-    for name, (x, tail) in shapes.items():
+def _check_raster_inputs(verts, attrs, faces, K, R, t, origins, height, width) -> None:
+    shapes = {"verts": (verts, None), "attrs": (attrs, None), "K": (K, (3, 3)),
+              "R": (R, (3, 3)), "t": (t, (3,)), "origins": (origins, (2,))}
+    for arg, (x, tail) in shapes.items():
         if x.dtype != torch.float32:
-            raise TypeError(f"rasterize_xyz: {name} must be float32, got {x.dtype}")
+            raise TypeError(f"rasterize_attr: {arg} must be float32, got {x.dtype}")
         if tail is not None and (x.dim() != 1 + len(tail) or tuple(x.shape[1:]) != tail):
-            raise ValueError(f"rasterize_xyz: {name} must be [B, {', '.join(map(str, tail))}], "
+            raise ValueError(f"rasterize_attr: {arg} must be [B, {', '.join(map(str, tail))}], "
                              f"got {tuple(x.shape)}")
         if x.device != verts.device:
-            raise ValueError(f"rasterize_xyz: {name} on {x.device}, verts on {verts.device}")
+            raise ValueError(f"rasterize_attr: {arg} on {x.device}, verts on {verts.device}")
     if verts.dim() != 2 or verts.shape[1] != 3 or verts.shape[0] < 1:
-        raise ValueError(f"rasterize_xyz: verts must be [V, 3], got {tuple(verts.shape)}")
+        raise ValueError(f"rasterize_attr: verts must be [V, 3], got {tuple(verts.shape)}")
     if faces.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"rasterize_xyz: faces must be int32 or int64, got {faces.dtype}")
+        raise TypeError(f"rasterize_attr: faces must be int32 or int64, got {faces.dtype}")
     if faces.dim() != 2 or faces.shape[1] != 3 or faces.shape[0] < 1:
-        raise ValueError(f"rasterize_xyz: faces must be [F, 3], F >= 1, got {tuple(faces.shape)}")
+        raise ValueError(f"rasterize_attr: faces must be [F, 3], F >= 1, got {tuple(faces.shape)}")
     if faces.device != verts.device:
-        raise ValueError(f"rasterize_xyz: faces on {faces.device}, verts on {verts.device}")
+        raise ValueError(f"rasterize_attr: faces on {faces.device}, verts on {verts.device}")
     B = K.shape[0]
     if B < 1 or R.shape[0] != B or t.shape[0] != B or origins.shape[0] != B:
-        raise ValueError("rasterize_xyz: K, R, t and origins need one batch size >= 1, got "
+        raise ValueError("rasterize_attr: K, R, t and origins need one batch size >= 1, got "
                          f"{K.shape[0]}, {R.shape[0]}, {t.shape[0]}, {origins.shape[0]}")
+    if attrs.dim() != 3 or attrs.shape[0] not in (1, B) or attrs.shape[1] != verts.shape[0]:
+        raise ValueError(f"rasterize_attr: attrs must be [1 or B, V, C] with B = {B}, V = "
+                         f"{verts.shape[0]}, got {tuple(attrs.shape)}")
+    if not 1 <= attrs.shape[2] <= MAX_ATTR_CHANNELS:
+        raise ValueError(f"rasterize_attr: {attrs.shape[2]} attribute channels; the kernel takes 1 to "
+                         f"{MAX_ATTR_CHANNELS}")
     if not origins.is_contiguous():
-        raise ValueError("rasterize_xyz: origins must be contiguous")
+        raise ValueError("rasterize_attr: origins must be contiguous")
     if height < 1 or width < 1:
-        raise ValueError(f"rasterize_xyz: empty window {height}x{width}")
+        raise ValueError(f"rasterize_attr: empty window {height}x{width}")
 
 
-def rasterize_xyz(verts: torch.Tensor, faces: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
-                  t: torch.Tensor, origins: torch.Tensor, height: int, width: int
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Depth [B,H,W] and object-coordinate XYZ [B,H,W,3] of the mesh
-    (verts [V,3] f32, faces [F,3] int) under poses K, R [B,3,3], t [B,3],
-    each over the H x W pixel window whose top-left pixel is origins[b]
-    ([B,2] f32, integer valued). 0 where no face covers a pixel.
+def rasterize_attr(verts: torch.Tensor, attrs: torch.Tensor, faces: torch.Tensor,
+                   K: torch.Tensor, R: torch.Tensor, t: torch.Tensor, origins: torch.Tensor,
+                   height: int, width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depth [B,H,W] and attribute maps [B,H,W,C] of the mesh (verts [V,3]
+    f32, faces [F,3] int) under poses K, R [B,3,3], t [B,3], each over the
+    H x W pixel window whose top-left pixel is origins[b] ([B,2] f32,
+    integer valued); attrs [1,V,C] (shared by every pose) or [B,V,C] (one
+    set a pose), f32, 1 <= C <= MAX_ATTR_CHANNELS. 0 where no face covers a
+    pixel.
 
     CUDA tensors go through the CUDA kernels (or raise): two launches, the
     face setup and the z-buffer, with no PyTorch op between them (a face
     index outside [0, V) stops the setup kernel with a device-side fault, as
     PyTorch's own index kernels do). CPU tensors go through
-    `rasterize_xyz_ref`."""
-    _check_raster_inputs(verts, faces, K, R, t, origins, height, width)
+    `rasterize_attr_ref`."""
+    _check_raster_inputs(verts, attrs, faces, K, R, t, origins, height, width)
     if verts.device.type == "cpu":
-        return rasterize_xyz_ref(verts, faces, K, R, t, origins, height, width)
+        return rasterize_attr_ref(verts, attrs, faces, K, R, t, origins, height, width)
     if verts.device.type != "cuda":
-        raise ValueError(f"rasterize_xyz: no kernel for device {verts.device}")
-    B, V, F = K.shape[0], verts.shape[0], faces.shape[0]
+        raise ValueError(f"rasterize_attr: no kernel for device {verts.device}")
+    B, V, F, C = K.shape[0], verts.shape[0], faces.shape[0], attrs.shape[2]
     if B > 65535 or -(-height // RASTER_TILE) > 65535:
-        raise ValueError(f"rasterize_xyz: batch {B} or height {height} exceeds the kernel's "
+        raise ValueError(f"rasterize_attr: batch {B} or height {height} exceeds the kernel's "
                          "grid limit")
     if max(V, F, height, width) >= 2 ** 31:
-        raise ValueError(f"rasterize_xyz: {V} vertices, {F} faces or a {height}x{width} "
+        raise ValueError(f"rasterize_attr: {V} vertices, {F} faces or a {height}x{width} "
                          "window exceed the kernel's 32-bit counts")
     lib = _raster_lib()
-    verts, faces, K, R, t = (x.contiguous() for x in (verts, faces, K, R, t))
+    verts, attrs, faces, K, R, t = (x.contiguous() for x in (verts, attrs, faces, K, R, t))
     dev = verts.device
     geom = torch.empty((B, F, 12), dtype=torch.float32, device=dev)  # the setup's face table
     depth = torch.empty((B, height, width), dtype=torch.float32, device=dev)
-    xyz = torch.empty((B, height, width, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((B, height, width, C), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rasterize_xyz_launch(
-            verts.data_ptr(), faces.data_ptr(), int(faces.dtype == torch.int64), K.data_ptr(),
-            R.data_ptr(), t.data_ptr(), origins.data_ptr(), geom.data_ptr(), depth.data_ptr(),
-            xyz.data_ptr(), B, V, F, height, width, Z_NEAR, stream)
+        rc = lib.rasterize_attr_launch(
+            verts.data_ptr(), attrs.data_ptr(), int(attrs.shape[0] > 1), C, faces.data_ptr(),
+            int(faces.dtype == torch.int64), K.data_ptr(), R.data_ptr(), t.data_ptr(),
+            origins.data_ptr(), geom.data_ptr(), depth.data_ptr(), out.data_ptr(), B, V, F,
+            height, width, Z_NEAR, stream)
     if rc != 0:
-        raise RuntimeError(f"rasterize_xyz kernel launch failed: "
+        raise RuntimeError(f"rasterize_attr kernel launch failed: "
                            f"{lib.rasterize_xyz_error_string(rc).decode()} ({rc})")
-    _count_launch(rasterize_xyz)
-    return depth, xyz
+    _count_launch(rasterize_attr)
+    return depth, out
+
+
+rasterize_attr.launches = 0
+
+
+def rasterize_xyz(verts: torch.Tensor, faces: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
+                  t: torch.Tensor, origins: torch.Tensor, height: int, width: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depth [B,H,W] and object-coordinate XYZ [B,H,W,3] of the mesh:
+    `rasterize_attr` with attrs = verts[None] (the same kernels on a CUDA
+    tensor, `rasterize_xyz_ref` on a CPU tensor)."""
+    out = rasterize_attr(verts, verts[None], faces, K, R, t, origins, height, width)
+    if verts.device.type == "cuda":
+        _count_launch(rasterize_xyz)
+    return out
 
 
 rasterize_xyz.launches = 0

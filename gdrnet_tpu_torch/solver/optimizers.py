@@ -49,10 +49,13 @@ class Ranger(torch.optim.Optimizer):
     `lr` is a float or a schedule (update count -> lr; the first update uses
     lr(0)); a param group's "lr_mult" scales it. The other hyperparameters
     are fixed at construction. Gradient centralisation subtracts from each
-    weight with more than 1 dim (3 with gc_conv_only) its mean over every dim
-    but the output channel: dims 1.. of a conv or linear weight, and dims
-    (0, 2, 3) of the weights listed in `transposed` (a ConvTranspose2d weight
-    is [in, out, kh, kw]), as the JAX package does for its flax kernels.
+    weight with more than 1 dim (3 with gc_conv_only) its mean over dims
+    1.., the original Ranger's rule for every tensor: per output channel of
+    a conv or linear weight, per input channel of a ConvTranspose2d weight
+    ([in, out, kh, kw]). The weights listed in `transposed` are centralised
+    over dims (0, 2, 3) instead, per output channel, as the JAX package
+    centralises its flax kernels (gdrnet_tpu/solver/optimizers.py:49-52);
+    the parity tests against the JAX package pass them.
 
     step(finite=flag) makes the update only where the device flag `flag` and
     every gradient are finite, and otherwise leaves the parameters and every
@@ -213,11 +216,14 @@ class Ranger(torch.optim.Optimizer):
 
 
 def build_optimizer(cfg, model: nn.Module,
-                    lr_schedule: Callable[[int], float] | None = None) -> Ranger:
+                    lr_schedule: Callable[[int], float] | None = None, *,
+                    jax_deconv_gc: bool = False) -> Ranger:
     """SOLVER.OPTIMIZER_CFG -> the optimizer of `model`'s parameters, one
     param group per LR multiplier (MODEL.CDPN.PNP_NET.LR_MULT for pnp_net,
     TRANS_HEAD.LR_MULT for trans_head, 1 elsewhere), with SOLVER.GRAD_CLIP and
-    SOLVER.GRAD_ACCUM_STEPS."""
+    SOLVER.GRAD_ACCUM_STEPS. Gradient centralisation follows the original
+    Ranger; jax_deconv_gc=True centralises the ConvTranspose2d weights per
+    output channel, as the JAX package does (for the parity tests)."""
     oc = dict(cfg.SOLVER.OPTIMIZER_CFG)
     opt_type = oc.get("type", "Ranger").lower()
     if opt_type in _NOT_PORTED:
@@ -240,4 +246,5 @@ def build_optimizer(cfg, model: nn.Module,
         use_gc=oc.get("use_gc", True), gc_conv_only=oc.get("gc_conv_only", False),
         grad_clip=cfg.SOLVER.get("GRAD_CLIP", 0.0),
         accum_steps=int(cfg.SOLVER.get("GRAD_ACCUM_STEPS", 1) or 1),
-        transposed=[m.weight for m in model.modules() if isinstance(m, nn.ConvTranspose2d)])
+        transposed=[m.weight for m in model.modules()
+                    if jax_deconv_gc and isinstance(m, nn.ConvTranspose2d)])

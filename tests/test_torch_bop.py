@@ -26,6 +26,7 @@ from gdrnet_tpu.data import ply as jply
 from gdrnet_tpu.data import ref_meta as jref_meta
 from gdrnet_tpu.eval import bop_score as jbop_score
 from gdrnet_tpu.eval import bop_writer as jbop_writer
+from gdrnet_tpu.eval.pose_matching import match_poses
 from gdrnet_tpu.ops import fps as jfps
 from gdrnet_tpu.ops import symmetry as jsym
 
@@ -217,6 +218,44 @@ def test_match_and_validate_equal_jax(chains, rng):
     with pytest.raises(ValueError, match="unsupported"):
         bop_score.validate_error_types("ad,cus")
     assert bop_score.bop19_average_recall({"ad": {"avg": 0.5}, "re": {"avg": 0.25}}) == 0.375
+
+
+def test_duplicate_gt_pairing_against_the_toolkits_matching(chains):
+    """With N_TOP=1 and two GT instances of one (image, object) key, the
+    port (as the JAX package, bop_score.match_estimates_to_gt) pairs the key's
+    best estimate with its first-listed GT instance; the BOP toolkit's
+    greedy matching (gdrnet_tpu/eval/pose_matching.match_poses) lets it
+    match any GT instance it fits below the threshold. On the fixture, whose
+    first object shows twice in every image, one perfect estimate a key of
+    the SECOND instance: the toolkit's translation recall is 1 at every
+    threshold, the port's 0 for the duplicated object; the objects shown
+    once agree (ROADMAP.md §C)."""
+    _, (records, models) = chains
+    by_key: dict = {}
+    for g in records:
+        by_key.setdefault((g["scene_id"], g["im_id"], g["obj_id"]), []).append(g)
+    results = [{"scene_id": k[0], "im_id": k[1], "obj_id": k[2], "score": 1.0,
+                "R": gts[-1]["R"].astype(np.float64), "t": gts[-1]["t"] * 1000.0, "time": 0.1}
+               for k, gts in by_key.items()]
+    port = bop_score.score_results(results, records, models, error_types="te", n_top=1,
+                                   device="cpu")["te"]
+    ths = (0.02, 0.05, 0.10)
+    tps, targets = {}, {}
+    for est, (key, gts) in zip(results, by_key.items()):
+        name = models.meta.id2obj[key[2]]
+        targets[name] = targets.get(name, 0) + min(1, len(gts))  # calc_localization_scores
+        errs = [{"est_id": 0, "score": est["score"], "errors": {
+            j: [float(np.linalg.norm(est["t"] / 1000.0 - g["t"]))] for j, g in enumerate(gts)}}]
+        hits = [len(match_poses(errs, [th])) for th in ths]
+        tps[name] = [a + b for a, b in zip(tps.get(name, [0, 0, 0]), hits)]
+    toolkit = {n: [tp / targets[n] for tp in tps[n]] for n in tps}
+    dup = {models.meta.id2obj[k[2]] for k, gts in by_key.items() if len(gts) > 1}
+    print("te recalls at 2/5/10 cm, port pairing:", {n: port[n] for n in toolkit},
+          "toolkit matching:", toolkit)
+    assert len(dup) == 1 and len(toolkit) == 2
+    for name in toolkit:
+        assert toolkit[name] == [1.0, 1.0, 1.0]
+        assert port[name] == ([0.0, 0.0, 0.0] if name in dup else [1.0, 1.0, 1.0])
 
 
 def test_written_bop_split_loads_through_jax(tmp_path):

@@ -1,7 +1,8 @@
 """The CUDA kernels of gdrnet_tpu_torch against their plain PyTorch versions:
-nn_min_dist (B1) and rasterize_xyz (B2), and B2 under the train mapper
-(renders on the card equal to the CPU's, from loader-like threads on their
-own streams beside train steps).
+nn_min_dist (B1) and rasterize_xyz (B2, with XYZ and with 12 per-pose
+attribute channels), B2 under the train mapper (renders on the card equal
+to the CPU's, from loader-like threads on their own streams beside train
+steps) and under the dataset generator's phong+XYZ pass.
 
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
 without one. This file imports no JAX, so it also runs where JAX is not
@@ -10,7 +11,6 @@ installed; tests/conftest.py does import JAX, so on such a machine run it as
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
-import importlib.util
 import os.path as osp
 import subprocess
 import sys
@@ -26,9 +26,13 @@ from gdrnet_tpu_torch.ops import kernels
 from gdrnet_tpu_torch.ops.kernels import (
     nn_min_dist,
     nn_min_dist_ref,
+    rasterize_attr,
+    rasterize_attr_ref,
     rasterize_xyz,
     rasterize_xyz_ref,
 )
+from gdrnet_tpu_torch.ops.rasterizer import render_phong_xyz_roi_many, vertex_normals
+from gdrnet_tpu_torch.tools import gen_scale_dataset as gsd
 
 # ragged sizes: one query, one reference point, sizes off any tile
 SHAPES = [(3, 700, 500), (2, 1, 300), (2, 300, 1), (1, 1, 1), (2, 1001, 257),
@@ -62,13 +66,9 @@ K_VGA = np.array([[572.4114, 0, 325.2611], [0, 573.57043, 242.04899], [0, 0, 1]]
 
 
 def _zoo_mesh(index: int = 3, rounds: int = 0):
-    """Mesh `index` of tools/gen_scale_dataset.py:mesh_zoo (3: the tower, 448
+    """Mesh `index` of the synth dataset's mesh_zoo (3: the tower, 448
     faces; 0: the cube), after `rounds` rounds of its _subdivide (x4 faces
     each)."""
-    spec = importlib.util.spec_from_file_location(
-        "gen_scale_dataset", Path(__file__).resolve().parents[1] / "tools/gen_scale_dataset.py")
-    gsd = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(gsd)
     _, v, f, _ = gsd.mesh_zoo()[index]
     for _ in range(rounds):
         v, f = gsd._subdivide(v, f)
@@ -137,6 +137,68 @@ def test_rasterize_xyz_kernel_matches_plain_version(cuda_device, case):
     assert ((depth > 0).sum() == 0) == (case == "behind_camera")
     again = rasterize_xyz(*args, h, w)
     assert torch.equal(depth, again[0]) and torch.equal(xyz, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_pose", [True, False])
+def test_rasterize_attr_12_channels_matches_plain_version(cuda_device, per_pose):
+    """B2 with 12 attribute channels a pose (camera normal, camera position,
+    material, XYZ, as the dataset generator renders them) or one set of 12
+    shared by the 16 poses: bitwise equal to rasterize_attr_ref, and one
+    launch counted."""
+    args, h, w = _raster_inputs("batch16", cuda_device)
+    v, f, K, R, t, origins = (a.cpu().numpy() for a in args)
+    g = np.random.RandomState(12)
+    if per_pose:
+        n = vertex_normals(v, f)
+        attrs = np.concatenate([np.einsum("vk,bjk->bvj", n, R),
+                                np.einsum("vk,bjk->bvj", v, R) + t[:, None],
+                                np.broadcast_to(g.rand(3), (16, len(v), 3)),
+                                np.broadcast_to(v, (16,) + v.shape)], -1)
+    else:
+        attrs = g.randn(1, len(v), 12)
+    a = torch.from_numpy(np.ascontiguousarray(attrs, np.float32)).to(cuda_device)
+    call = [args[0], a, *args[1:]]
+    before = kernels.rasterize_attr.launches
+    depth, out = rasterize_attr(*call, h, w)
+    torch.cuda.synchronize()
+    assert kernels.rasterize_attr.launches == before + 1 and out.shape == (16, h, w, 12)
+    want_depth, want_out = rasterize_attr_ref(*call, h, w)
+    assert (depth > 0).sum() > 1000
+    assert torch.equal(depth, want_depth) and torch.equal(out, want_out)
+
+
+@pytest.mark.cuda
+def test_render_phong_xyz_roi_many_on_the_card_equals_the_cpu(cuda_device):
+    """The generator's pass over 40 poses of the zoo's hexprism (two B2
+    launches at batch 32) at tile 128: uint16 mm depth and f16 XYZ equal
+    (the attribute maps are bitwise equal); uint8 rgb within 1 grey level,
+    at no more than 1 % of the hit pixels (the shading's norms and
+    divisions are PyTorch ops on two devices)."""
+    _, v, f, _ = gsd.mesh_zoo()[9]
+    g = np.random.RandomState(40)
+    q = np.linalg.qr(g.randn(40, 3, 3))[0]
+    R = (q * np.sign(np.linalg.det(q))[:, None, None]).astype(np.float32)
+    c = np.stack([g.uniform(100, 540, 40), g.uniform(100, 380, 40), np.ones(40)], 1)
+    t = (g.uniform(0.5, 0.9, (40, 1)) * c @ np.linalg.inv(gsd.K_DEF).T).astype(np.float32)
+    kw = dict(colors=np.broadcast_to(g.rand(3), (len(v), 3)),
+              light_pos=g.uniform(-2, 2, (40, 3)), ambient=g.uniform(0.35, 0.55, 40),
+              diffuse=g.uniform(0.6, 1.0, 40), specular=g.uniform(0.1, 0.4, 40))
+    Ks = np.broadcast_to(gsd.K_DEF, (40, 3, 3))
+    before = kernels.rasterize_attr.launches
+    card = render_phong_xyz_roi_many(v, f, Ks, R, t, 480, 640, tile=128, device="cuda", **kw)
+    assert kernels.rasterize_attr.launches == before + 2
+    cpu = render_phong_xyz_roi_many(v, f, Ks, R, t, 480, 640, tile=128, device="cpu", **kw)
+    hits = flips = 0
+    for (d, rgb, xyz, o), (dc, rgbc, xyzc, oc) in zip(card, cpu):
+        assert o == oc
+        np.testing.assert_array_equal(d, dc)
+        np.testing.assert_array_equal(xyz, xyzc)
+        diff = np.abs(rgb.astype(int) - rgbc)
+        assert diff.max() <= 1
+        hits += int((dc > 0).sum())
+        flips += int((diff > 0).any(-1).sum())
+    assert hits > 40 * 1000 and flips <= 0.01 * hits
 
 
 @pytest.mark.cuda
@@ -209,10 +271,6 @@ def zoo_train_split(tmp_path_factory):
     from gdrnet_tpu_torch.data.model_store import ObjectModels
     from gdrnet_tpu_torch.data.synthetic import synthetic_roi_batch, write_bop_split
 
-    spec = importlib.util.spec_from_file_location(
-        "gen_scale_dataset", Path(__file__).resolve().parents[1] / "tools/gen_scale_dataset.py")
-    gsd = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(gsd)
     root = tmp_path_factory.mktemp("zoo_cuda")
     p = synthetic_roi_batch(batch_size=16, input_res=8, out_res=4, num_classes=10, seed=4)
     K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)
@@ -324,10 +382,6 @@ def test_do_test_on_the_card_equals_the_cpu(tmp_path):
     from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
 
     repo = Path(__file__).resolve().parents[1]
-    spec = importlib.util.spec_from_file_location("gen_scale_dataset",
-                                                  repo / "tools/gen_scale_dataset.py")
-    gsd = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(gsd)
     K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)
     p = synthetic_roi_batch(batch_size=8, input_res=8, out_res=4, num_classes=10, seed=6)
     t = p["gt_trans"].copy()

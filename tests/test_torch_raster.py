@@ -73,7 +73,7 @@ def test_rasterize_attr_matches_jax(rng, mesh, origin):
         jnp.asarray(K_VGA), jnp.asarray(R), jnp.asarray(t), chunk=512,
         origin=None if origin is None else (jnp.float32(origin[0]), jnp.float32(origin[1])),
         **kw)
-    got = rasterizer.rasterize_attr(v, attrs, f, K_VGA, R, t, origin=origin, **kw)
+    got = rasterizer.rasterize_attr(v, attrs, f, K_VGA, R, t, origin=origin, device="cpu", **kw)
     assert (np.asarray(want[0]) > 0).sum() > 100
     _assert_render_close(*got, *want)
 
@@ -178,7 +178,8 @@ def test_ties_go_to_the_lowest_face_across_chunks():
     attrs = np.concatenate([np.ones((3, 1)), 2 * np.ones((3, 1))]).astype(np.float32)
     f = np.concatenate([[[0, 1, 2]], np.zeros((600, 3), np.int32), [[3, 4, 5]]]).astype(np.int32)
     R, t = np.eye(3, dtype=np.float32), np.array([0, 0, 0.5], np.float32)
-    d, a = rasterizer.rasterize_attr(v, attrs, f, CUBE_K, R, t, height=96, width=128)
+    d, a = rasterizer.rasterize_attr(v, attrs, f, CUBE_K, R, t, height=96, width=128,
+                                     device="cpu")
     hit = d.numpy() > 0
     assert hit.sum() > 100
     np.testing.assert_array_equal(a.numpy()[hit], 1.0)

@@ -264,8 +264,9 @@ def test_entry_point_defaults_to_the_card(entry, tiny_split, tmp_path):
 def test_port_imports_no_jax():
     """Every module of the port (found by walking the package, so new ones
     are covered), then merged_config on the flagship: no JAX, nor the JAX
-    package, cv2 or tabulate, which the card's machine lacks, nor PIL,
-    torchvision or tensorboard, which no required path needs."""
+    package or its tools/ scripts, cv2 or tabulate, which the card's machine
+    lacks, nor PIL, torchvision or tensorboard, which no required path
+    needs."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import gdrnet_tpu_torch\n"
@@ -274,11 +275,13 @@ def test_port_imports_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert 'gdrnet_tpu_torch.ops.kernels' in names and len(names) > 25, names\n"
+        "assert 'gdrnet_tpu_torch.tools.gen_scale_dataset' in names, names\n"
         "from gdrnet_tpu_torch import merged_config\n"
         f"merged_config({FLAGSHIP!r})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gdrnet_tpu', 'cv2',\n"
-        "              'tabulate', 'PIL', 'torchvision', 'tensorboard'))\n"
+        "              'tabulate', 'PIL', 'torchvision', 'tensorboard', 'tools',\n"
+        "              'compute_fps', 'gen_scale_dataset'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -19,6 +19,7 @@ f32, with the small flagship config (tests/torch_parity.py).
 """
 
 import dataclasses
+import functools
 import json
 import os
 import os.path as osp
@@ -264,13 +265,16 @@ def fixture_records(tmp_path_factory):
 def trajectories(fixture_records, reference_pth, tmp_path_factory):
     out = tmp_path_factory.mktemp("traj_out")
     runs = {}
-    for name, do_train, kw in (("jax", jtrainer.do_train, {}),
-                               ("port", trainer.do_train, {"device": "cpu"})):
-        cfg = _train_cfg(str(out / name), reference_pth[0])
-        np.random.seed(5)  # GaussianBlur(1.2*np.random.rand()) draws when the mapper is built
-        state, _, preempted = do_train(cfg, max_iters_override=ITERS, **kw)
-        assert not preempted
-        runs[name] = (state, _losses(cfg.OUTPUT_DIR))
+    with pytest.MonkeyPatch.context() as mp:  # the JAX package's GC rule of the deconv
+        mp.setattr(trainer, "build_optimizer",
+                   functools.partial(trainer.build_optimizer, jax_deconv_gc=True))
+        for name, do_train, kw in (("jax", jtrainer.do_train, {}),
+                                   ("port", trainer.do_train, {"device": "cpu"})):
+            cfg = _train_cfg(str(out / name), reference_pth[0])
+            np.random.seed(5)  # GaussianBlur(1.2*np.random.rand()) draws when the mapper is built
+            state, _, preempted = do_train(cfg, max_iters_override=ITERS, **kw)
+            assert not preempted
+            runs[name] = (state, _losses(cfg.OUTPUT_DIR))
     return runs
 
 
