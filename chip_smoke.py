@@ -24,6 +24,12 @@ resume. Last, the rendering slice: the z-buffer kernel with the 12 per-pose
 attribute channels of the Phong + XYZ pass, the renders on the card against
 the CPU, and the flagship's synth dataset written by the port's generator
 (python -m gdrnet_tpu_torch.tools.gen_scale_dataset) as a user runs it.
+Then serving from images as a user of a trained model runs it: BN folded
+into the convs (utils/fold_bn.py) and int8 (models/quantize.py: im2col and
+torch._int_mm), the predict CLI over the split's images and detections, the
+eval_csv CLI re-scoring its CSV (ADD-S on the nearest-neighbour kernel, VSD
+on the z-buffer kernel), and gen_xyz writing the train split's XYZ ground
+truth with the z-buffer kernel.
 
 Phases, one line each (or one per case): device, kernel builds (both nvcc
 runs at once), nn_min_dist against its plain PyTorch version and cKDTree,
@@ -44,7 +50,16 @@ shapes beside its bounds), [render_phong_xyz] (render_phong_xyz_roi_many,
 Renderer and SceneRenderer on the card against the CPU), [gen_dataset]
 (the generator's CLI on the card: wall s, images/s, its time by stage, B2's
 launches a chunk; the split resolves, maps from its pickles without a
-render, and agrees with the same scene written on the CPU); last, what
+render, and agrees with the same scene written on the CPU); serving from
+images: [fold_bn] (folded f32 forward against unfolded, bf16 crops/s
+folded beside unfolded), [int8] (calibration, every layer's int32
+accumulators against the plain version, int8 against bf16, crops/s of int8
+and int8 + folded, _int_mm alone beside a bf16 matmul), [predict] (the CLI
+in a subprocess, scene 1 in f32 on the card against the CPU, FOLD_BN + INT8
+through its options), [eval_csv] (the CLI, its recalls against
+score_results, B1 and B2 launches, cus / cou_bb_proj card against CPU),
+[gen_xyz] (the CLI over the train split, scene 1 against the CPU, the
+mapper from its pickles), [loader_pkl] (the loader alone with them); last, what
 torch.profiler measures (rasterize_xyz's launches per call and its
 kernels' device time, the device time of a BOP scoring call, the train
 step's busy share, top device operations and Ranger's launches), so that no
@@ -102,14 +117,20 @@ from gdrnet_tpu_torch.engine.checkpoint import CheckpointManager, load_weights
 from gdrnet_tpu_torch.engine.steps import make_predict_step
 from gdrnet_tpu_torch.engine.trainer import build_input_pipeline, build_train_objects, do_train
 from gdrnet_tpu_torch.eval import bop_score
+from gdrnet_tpu_torch.eval import vsd as vsd_mod
 from gdrnet_tpu_torch.eval import pose_errors as PE
 from gdrnet_tpu_torch.eval.bop_writer import load_bop_results, save_bop_results
 from gdrnet_tpu_torch.eval.custom_evaluator import RECALL_KEYS, CustomEvaluator
 from gdrnet_tpu_torch.eval.renderer import create_renderer
+from gdrnet_tpu_torch.models import quantize as Q
 from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
 from gdrnet_tpu_torch.ops import kernels
 from gdrnet_tpu_torch.ops.rasterizer import render_phong_xyz_roi_many, vertex_normals
 from gdrnet_tpu_torch.ops.symmetry import get_closest_rot_batch, identity_padded_sym_arrays
+from gdrnet_tpu_torch.tools import eval_csv as eval_csv_tool
+from gdrnet_tpu_torch.tools import gen_xyz as gen_xyz_tool
+from gdrnet_tpu_torch.tools import predict as predict_tool
+from gdrnet_tpu_torch.utils.fold_bn import conv_bn_pairs, fold_batch_norms
 
 REPO = Path(__file__).resolve().parent
 DEV = "cuda"  # device of the rasterize_xyz, BOP and train phases
@@ -139,6 +160,7 @@ PER_IMAGE, IMAGES_PER_SCENE = 8, 8  # the BOP split: 8 instances an image, 4 sce
 # each kernel's f32 instructions per pair: B1's inner loop 3 sub, 1 mul, 2
 # FMA, 1 min; B2's two edge functions, w2, the 1/z interpolation, the tests
 HBM_BYTES_PER_S, FP32_INSTR_PER_S = 3.35e12, 3.35e13
+INT8_OPS_PER_S, BF16_FLOPS_PER_S = 1.979e15, 9.89e14  # tensor cores, dense
 NN_INSTR_PER_PAIR, RASTER_INSTR_PER_PAIR = 7, 25
 # the train step: the flagship's schedule over its run's length (160 epochs at
 # IMS_PER_BATCH=128, 14,880 updates, SCALE_RUN.md:41); one f32 step on the
@@ -185,6 +207,15 @@ RENDER_ATTR_TIMED = {"32x128x128x12/tower_448": ((0.5, 0.9), 128, 5),
 RENDER_FLIP_SHARE = 0.01
 GEN_TRAIN, GEN_TEST, GEN_PER_SCENE, GEN_MAPPED, GEN_CPU_IMAGES = 64, 32, 32, 16, 4
 GEN_TIMEOUT_S = 300
+# serving from images: the folded f32 forward against the unfolded one on the
+# card within FOLD_POSE_ATOL (tests/test_fold_bn.py); the int8 forward against
+# bf16 within INT8_VS_BF16_DEG and INT8_VS_BF16_TRANS_REL
+# (tests/test_quantize.py:97-113), calibrated on one bucket; the int8
+# accumulators card against CPU for INT8_CHECK_CROPS crops of that bucket;
+# serving timed at SERVE_BATCHES, SERVE_ITERS calls each; the tools' CLIs in
+# subprocesses within TOOL_TIMEOUT_S; cus / cou_bb_proj on SIL_PAIRS pairs
+FOLD_POSE_ATOL, INT8_VS_BF16_DEG, INT8_VS_BF16_TRANS_REL = 2e-4, 1.0, 0.05
+INT8_CHECK_CROPS, SERVE_ITERS, TOOL_TIMEOUT_S, SIL_PAIRS = 2, {64: 20, 1024: 6}, 300, 8
 # device kernels of a train step by kind, from marks in their names
 TRAIN_OP_KINDS = (
     ("conv_and_matmul", ("xmma", "gemm", "conv", "cudnn", "cutlass", "sm90_")),
@@ -556,7 +587,7 @@ def phase_bop_split(cfg, gsd, requests, root: str) -> dict:
     if not all("depth_path" in r for r in records) or len(records) < len(classes) // 2:
         raise AssertionError("bop_split: records without depth, or most instances hidden")
     return {"keys": keys, "classes": classes, "R_gt": R_gt, "t_gt": t_gt,
-            "records": records, "models": models}
+            "records": records, "models": models, "zoo": zoo}
 
 
 def compare_with_plain(cfg, results, split, label: str) -> None:
@@ -648,13 +679,14 @@ def phase_bop_score(cfg, split, R, t, root: str) -> tuple[int, list]:
     return served_launches, scored
 
 
-def phase_profile(cfg, split, scored: list, timed: list, train: tuple) -> None:
+def phase_profile(cfg, split, scored: list, timed: list, train: tuple, serving: dict) -> None:
     """The measurements that need torch.profiler, made last, so that no
     host-bound phase is timed after a profiler session (whether a session
     slows later launches is measured by scripts/probe_torch_zbuffer.py):
     rasterize_xyz's launches and its kernels' device ms per call at the
     timed shapes, then the device ms of one warm score_results call of each
-    CSV, all of it and each kernel's share."""
+    CSV, all of it and each kernel's share, the train step's profile, and
+    each serving variant's (bf16, folded, int8, int8 + folded)."""
     check_raster_launches(timed[0][1], timed[0][2])
     for label, args, hw in timed:
         device = profiled_device_ms(lambda: kernels.rasterize_xyz(*args, hw, hw), 20,
@@ -674,6 +706,7 @@ def phase_profile(cfg, split, scored: list, timed: list, train: tuple) -> None:
                 "rasterize_xyz_ms": f"{prof['face_setup_kernel'] + prof['zbuffer_kernel']:.3f}",
                 "nn_min_dist_ms": f"{prof['nn_min_dist_kernel']:.3f}"}))
     profile_train(*train)
+    profile_serving(serving, cfg)
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -864,23 +897,23 @@ def device_spans(prof) -> list[tuple[str, float, float]]:
             and not getattr(e, "is_user_annotation", False)]
 
 
-def profile_train(state, step, batch, gen, card: str, n_steps: int = 5) -> None:
-    """A profiled run of n_steps train steps: the device's busy share of the
-    host-clock window (profiler on) and the top device operations; then one
-    optimizer step alone, for Ranger's launches and device time."""
+def profiled_window(fn, n_calls: int) -> tuple[float, float, dict, int] | None:
+    """n_calls of fn() under torch.profiler after one unprofiled call: the
+    host-clock window ms, the device's busy ms (the union of its busy
+    intervals), {device op name: us} and the number of device ops; None if
+    the profiler saw no device activity."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    step(state, batch, gen)
+    fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_steps):
-            step(state, batch, gen)
+        for _ in range(n_calls):
+            fn()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted(device_spans(prof), key=lambda s: s[1])
     if not spans:
-        log("train_profile", device_busy="not measured (no device events)")
-        return
+        return None
     busy, end = 0.0, -1.0
     for _, a, b in spans:  # the union of the device's busy intervals
         busy += max(b, end) - max(a, end) if b > end else 0.0
@@ -888,11 +921,23 @@ def profile_train(state, step, batch, gen, card: str, n_steps: int = 5) -> None:
     by_name: dict[str, float] = {}
     for name, a, b in spans:
         by_name[name] = by_name.get(name, 0.0) + (b - a)
+    return window_ms, busy / 1e3, by_name, len(spans)
+
+
+def profile_train(state, step, batch, gen, card: str, n_steps: int = 5) -> None:
+    """A profiled run of n_steps train steps: the device's busy share of the
+    host-clock window (profiler on) and the top device operations; then one
+    optimizer step alone, for Ranger's launches and device time."""
+    got = profiled_window(lambda: step(state, batch, gen), n_steps)
+    if got is None:
+        log("train_profile", device_busy="not measured (no device events)")
+        return
+    window_ms, busy_ms, by_name, n_spans = got
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     log("train_profile", card=repr(card), batch=len(batch["roi_img"]), steps=n_steps,
         window_ms_per_step=f"{window_ms / n_steps:.3f}",
-        device_busy_ms_per_step=f"{busy / 1e3 / n_steps:.3f}",
-        device_busy_share=f"{busy / 1e3 / window_ms:.3f}", device_ops=len(spans) // n_steps)
+        device_busy_ms_per_step=f"{busy_ms / n_steps:.3f}",
+        device_busy_share=f"{busy_ms / window_ms:.3f}", device_ops=n_spans // n_steps)
     print("[train_top_ops] " + json.dumps(
         [{"name": n[:80], "ms_per_step": round(us / 1e3 / n_steps, 4),
           "share": round(us / sum(by_name.values()), 4)} for n, us in top]), flush=True)
@@ -903,7 +948,7 @@ def profile_train(state, step, batch, gen, card: str, n_steps: int = 5) -> None:
     print("[train_device_by_kind] " + json.dumps(
         {k: round(us / 1e3 / n_steps, 3) for k, us in sorted(by_kind.items(),
                                                             key=lambda kv: -kv[1])}), flush=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         state.optimizer.step()
         torch.cuda.synchronize()
     ranger = device_spans(prof)
@@ -911,6 +956,28 @@ def profile_train(state, step, batch, gen, card: str, n_steps: int = 5) -> None:
         launches_per_step=len(ranger) if ranger else "not measured",
         device_ms=f"{sum(b - a for _, a, b in ranger) / 1e3:.3f}" if ranger else "not measured")
 
+
+def profile_serving(predicts: dict, cfg) -> None:
+    """Each serving variant at each SERVE_ITERS batch under the profiler:
+    the host-clock window and the device's busy ms a call, its device ops a
+    call; for int8 also its top device operations, where its time goes."""
+    for bs, batch in serve_batches(cfg).items():
+        n = 5 if bs <= 64 else 2
+        for name, predict in predicts.items():
+            got = profiled_window(lambda: predict(batch), n)
+            if got is None:
+                log("serve_profile", variant=name, batch=bs, device_busy="not measured")
+                continue
+            window_ms, busy_ms, by_name, n_spans = got
+            log("serve_profile", variant=name, batch=bs, calls=n,
+                window_ms_per_call=f"{window_ms / n:.3f}",
+                device_busy_ms_per_call=f"{busy_ms / n:.3f}",
+                device_busy_share=f"{busy_ms / window_ms:.3f}", device_ops_per_call=n_spans // n)
+            if name == "int8":
+                top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+                print("[serve_int8_top_ops] " + json.dumps(
+                    {"batch": bs, "ops": [{"name": k[:70], "ms_per_call": round(us / 1e3 / n, 4)}
+                                          for k, us in top]}), flush=True)
 
 
 def train_split_poses(n: int, K: np.ndarray, width: int, height: int, seed: int):
@@ -977,12 +1044,13 @@ def time_loader(cfg, root: str) -> float:
         it.close()
 
 
-def phase_train_loop(cfg, state_dict: dict, gsd, root: str, card: str) -> int:
+def phase_train_loop(cfg, state_dict: dict, gsd, root: str, card: str) -> tuple[int, float]:
     """The flagship trained by engine/trainer.do_train from a BOP train split
     on disk: (a) every logged loss finite and no step skipped, (b) the
     mapper on the card against the CPU, (c) the state resumed from the
     checkpoint at LOOP_SAVE bitwise equal to the saved one, (d) B2 launched
-    at least once per sample mapped. Returns B2's launches in the loop."""
+    at least once per sample mapped. Returns B2's launches in the loop and
+    the loader's samples/s alone."""
     n = LOOP_SCENES * LOOP_IMAGES * LOOP_PER_IMAGE
     K = gsd.K_DEF.astype(np.float32)
     classes, R, t = train_split_poses(n, K, gsd.W_DEF, gsd.H_DEF, seed=400)
@@ -1052,7 +1120,7 @@ def phase_train_loop(cfg, state_dict: dict, gsd, root: str, card: str) -> int:
         launches_rasterize_xyz=launches, launches_per_step=f"{launches / LOOP_ITERS:.1f}",
         launches_run1=launches_a, wall_s=f"{run_a_s:.1f}+{run_b_s:.1f}",
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", check="ok")
-    return launches
+    return launches, loader_rate
 
 
 def write_detections(split, path: str, seed: int = 5) -> dict:
@@ -1401,7 +1469,7 @@ def overfit_cfg():
     return c
 
 
-def phase_overfit(gsd, root: str, card: str) -> None:
+def phase_overfit(gsd, root: str, card: str) -> tuple:
     """The learning check (tools/validate_overfit.py with the port alone):
     every record of a 2-object split mapped once by GDRNTrainMapper, then
     OVERFIT_STEPS train steps on that one batch on the card, then do_test on
@@ -1412,7 +1480,8 @@ def phase_overfit(gsd, root: str, card: str) -> None:
     the crop's pixels over its visible ones, losses/gdrn_loss.py:85-89, so
     the total cannot fall to OVERFIT_LOSS_RATIO of its first: the JAX
     package's own run stays near 0.24); Avg mean_re below
-    OVERFIT_MAX_RE_DEG."""
+    OVERFIT_MAX_RE_DEG. Returns (config, the last seed's trained model, the
+    mapped batch) for [int8]."""
     meta = overfit_split(gsd, str(Path(root) / "overfit"))
     records = load_bop_scene_dicts(meta, "test", img_type="real")
     c = overfit_cfg()
@@ -1452,7 +1521,9 @@ def phase_overfit(gsd, root: str, card: str) -> None:
                 f"{others[0]} -> {others[-1]}, region CE {region[0]} -> {region[-1]}, mean_re "
                 f"{avg['mean_re']} (gates: {OVERFIT_LOSS_RATIO} x first, lower, "
                 f"< {OVERFIT_MAX_RE_DEG})")
+        trained = state.model
         del state, step, model, opt
+    return c, trained, batch
 
 
 def attr_case_args(gsd, v, f, R, t, origins, per_pose: bool = True) -> list:
@@ -1760,6 +1831,362 @@ def phase_gen_dataset(gsd, root: str, card: str) -> int:
     return launches
 
 
+def serve_times(models: dict, batches: dict) -> dict:
+    """{(name, batch size): crops/s} of each predict step in `models` over
+    `batches`, by CUDA events, in turns (each once forward, then once
+    backward, SERVE_ITERS[bs] calls a turn) so that a drift of the card's
+    clock hits them alike; medians over both turns."""
+    out = {}
+    for bs, batch in batches.items():
+        ms = defaultdict(list)
+        for order in (list(models), list(models)[::-1]):
+            for name in order:
+                ms[name].append(cuda_times(lambda: models[name](batch), SERVE_ITERS[bs]))
+        for name in models:
+            out[name, bs] = bs / float(np.median(np.concatenate(ms[name]))) * 1e3
+    return out
+
+
+def serve_batches(cfg) -> dict:
+    res = cfg.MODEL.CDPN.BACKBONE.INPUT_RES, cfg.MODEL.CDPN.BACKBONE.OUTPUT_RES
+    return {bs: to_device(synthetic_roi_batch(
+        batch_size=bs, input_res=res[0], out_res=res[1],
+        num_classes=cfg.MODEL.CDPN.ROT_HEAD.NUM_CLASSES, seed=7), DEV) for bs in SERVE_ITERS}
+
+
+def phase_fold_bn(cfg, cfg32, weights: str, request: dict) -> dict:
+    """TEST.FOLD_BN on the flagship with [train_loop]'s checkpoint (its BN
+    statistics trained): the folded f32 forward on the card (TF32 off)
+    against the unfolded one within FOLD_POSE_ATOL, then bf16 serving
+    crops/s, folded beside unfolded, at each SERVE_ITERS batch. Returns the
+    crops/s."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m32 = load_weights(build_model(cfg32, device=DEV), weights)
+    batch = to_device(request, DEV)
+    want = make_predict_step(m32)(batch)
+    got = make_predict_step(fold_batch_norms(m32))(batch)
+    rot_err = float((got["rot"] - want["rot"]).abs().max())
+    trans_err = float((got["trans"] - want["trans"]).abs().max())
+    if rot_err > FOLD_POSE_ATOL or trans_err > FOLD_POSE_ATOL:
+        raise AssertionError(f"fold_bn: folded f32 forward differs by rot {rot_err}, "
+                             f"trans {trans_err}")
+    del m32
+    model = load_weights(build_model(cfg, device=DEV), weights)
+    rates = serve_times({"bf16": make_predict_step(model),
+                         "bf16_folded": make_predict_step(fold_batch_norms(model))},
+                        serve_batches(cfg))
+    log("fold_bn", crops=len(request["roi_img"]), vs="unfolded f32 on the card",
+        pairs=len(conv_bn_pairs(model)), rot_max_abs=f"{rot_err:.3e}",
+        trans_max_abs=f"{trans_err:.3e}", atol=FOLD_POSE_ATOL,
+        **{f"crops_per_s_{n}_b{bs}": f"{r:.1f}" for (n, bs), r in rates.items()}, check="ok")
+    return rates
+
+
+def int8_drift(model, batch: dict, scales: dict) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """(rotation degrees, translation relative) of the int8 forward against
+    the model's own forward, per crop, and the int8 outputs."""
+    ref = make_predict_step(model)(batch)
+    q = make_predict_step(model, int8_scales=scales)(batch)
+    cos = ((ref["rot"].float() * q["rot"].float()).sum(dim=(1, 2)) - 1.0) / 2.0
+    t_ref = ref["trans"].double()
+    return (torch.rad2deg(torch.arccos(cos.clamp(-1.0, 1.0))),
+            (q["trans"].double() - t_ref).abs() / t_ref.abs().clamp_min(1e-3), q)
+
+
+def phase_int8(cfg, weights: str, request: dict, overfit: tuple) -> dict:
+    """TEST.INT8 on the flagship (bf16) with [train_loop]'s checkpoint:
+    calibration on one bucket; every quantized layer's int32 accumulators
+    on the card (im2col and torch._int_mm) bitwise equal to the plain
+    version's on the CPU for the same int8 inputs (the bucket's first
+    INT8_CHECK_CROPS crops of each conv, every row of each linear); the
+    int8 forward against bf16: translations within INT8_VS_BF16_TRANS_REL,
+    and on [overfit]'s trained model and crops rotations under
+    INT8_VS_BF16_DEG as well (tests/test_quantize.py:97-113's gates; the
+    flagship's rotation drift is logged: on weights this little trained it
+    is 1-3 degrees in both packages, ROADMAP.md section C); crops/s of int8
+    and int8 + folded beside bf16; the time of _int_mm alone on the largest
+    head conv's product beside torch.matmul in bf16 on the same M, N, K.
+    Returns the four serving variants' predict steps, for the profile."""
+    model = load_weights(build_model(cfg, device=DEV), weights)
+    batch = to_device(request, DEV)
+    t0 = time.perf_counter()
+    scales = Q.calibrate_act_scales(model, [batch])
+    calib_s = time.perf_counter() - t0
+    folded = fold_batch_norms(model)
+    predict_q = make_predict_step(model, int8_scales=scales)
+    predict_qf = make_predict_step(folded, int8_scales=Q.calibrate_act_scales(folded, [batch]))
+
+    seen = []
+    plain_conv, plain_linear = Q.int8_conv2d, Q.int8_linear
+
+    def conv_rec(x_i8, w_i8, *args):
+        out = plain_conv(x_i8, w_i8, *args)
+        k = INT8_CHECK_CROPS
+        seen.append(("conv", x_i8[:k].cpu(), w_i8.cpu(), args, out[:k].cpu()))
+        return out
+
+    def linear_rec(x_i8, w_i8):
+        out = plain_linear(x_i8, w_i8)
+        seen.append(("linear", x_i8.cpu(), w_i8.cpu(), (), out.cpu()))
+        return out
+
+    Q.int8_conv2d, Q.int8_linear = conv_rec, linear_rec
+    Q.int8_matmul.launches = 0
+    try:
+        q_out = predict_q(batch)
+    finally:
+        Q.int8_conv2d, Q.int8_linear = plain_conv, plain_linear
+    gemms = Q.int8_matmul.launches
+    if len(seen) != len(scales) or gemms < len(scales):
+        raise AssertionError(f"int8: {len(seen)} int8 layers ran, {gemms} _int_mm calls, "
+                             f"{len(scales)} calibrated")
+    t0 = time.perf_counter()
+    for kind, x_i8, w_i8, args, card in seen:
+        want = (plain_conv(x_i8, w_i8, *args) if kind == "conv" else plain_linear(x_i8, w_i8))
+        if not torch.equal(card, want):
+            raise AssertionError(f"int8: a {kind} {tuple(w_i8.shape)}: card accumulators differ "
+                                 f"from the plain version by {(card - want).abs().max()}")
+    check_s = time.perf_counter() - t0
+    rot_deg, trans_rel, _ = int8_drift(model, batch, scales)
+    _, o_model, o_batch = overfit
+    o_rot, o_trans, _ = int8_drift(o_model, o_batch, Q.calibrate_act_scales(o_model, [o_batch]))
+    if (trans_rel.max() >= INT8_VS_BF16_TRANS_REL or o_rot.max() >= INT8_VS_BF16_DEG
+            or o_trans.max() >= INT8_VS_BF16_TRANS_REL):
+        raise AssertionError(f"int8 vs bf16: flagship translation {trans_rel.max():.4f} "
+                             f"relative; trained R18 rotation {o_rot.max():.3f} deg, "
+                             f"translation {o_trans.max():.4f}")
+    log("int8", calibrated_on=len(request["roi_img"]), layers=len(scales),
+        convs=sum(k == "conv" for k, *_ in seen), linears=sum(k == "linear" for k, *_ in seen),
+        int_mm_calls=gemms, accumulators="bitwise equal to the plain version",
+        checked_crops=INT8_CHECK_CROPS, calib_s=f"{calib_s:.2f}", plain_check_s=f"{check_s:.1f}",
+        flagship_rot_deg_vs_bf16=f"{rot_deg.median():.3f}/{rot_deg.max():.3f}",
+        flagship_trans_rel_max=f"{trans_rel.max():.3e}",
+        trained_r18_crops=len(o_batch["roi_img"]),
+        trained_r18_rot_deg_vs_bf16=f"{o_rot.median():.4f}/{o_rot.max():.4f}",
+        trained_r18_trans_rel_max=f"{o_trans.max():.3e}",
+        deg_gate=INT8_VS_BF16_DEG, trans_gate=INT8_VS_BF16_TRANS_REL, check="ok")
+    del seen, q_out
+    predicts = {"bf16": make_predict_step(model), "bf16_folded": make_predict_step(folded),
+                "int8": predict_q, "int8_folded": predict_qf}
+    rates = serve_times({k: predicts[k] for k in ("bf16", "int8", "int8_folded")},
+                        serve_batches(cfg))
+    log("int8_time", **{f"crops_per_s_{n}_b{bs}": f"{r:.1f}" for (n, bs), r in rates.items()})
+
+    # the largest head conv's product at B=64: 64 x 64 x 64 rows, K = 256 x 9, N = 256
+    bs = cfg.TEST.ROI_BATCH_SIZE
+    head = cfg.MODEL.CDPN.ROT_HEAD.NUM_FILTERS
+    hw = cfg.MODEL.CDPN.BACKBONE.OUTPUT_RES
+    m, k, n = bs * hw * hw, head * 9, head
+    g = torch.Generator(device=DEV).manual_seed(0)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=DEV, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=g, device=DEV, dtype=torch.int8)
+    ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    int_ms = np.concatenate([cuda_times(lambda: torch._int_mm(a, b.t()), 20) for _ in range(2)])
+    bf_ms = np.concatenate([cuda_times(lambda: torch.matmul(ab, bb.t()), 20) for _ in range(2)])
+    ops, by = 2.0 * m * n * k, m * k + n * k
+    log("int8_gemm", m=m, k=k, n=n, int_mm_ms=f"{np.median(int_ms):.4f}",
+        bf16_matmul_ms=f"{np.median(bf_ms):.4f}",
+        int_mm_tops=f"{ops / np.median(int_ms) / 1e9:.1f}",
+        bf16_tflops=f"{ops / np.median(bf_ms) / 1e9:.1f}",
+        int_mm_bound_ms=f"{max(by / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3:.4f}",
+        bf16_bound_ms=f"{max(2 * by / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S) * 1e3:.4f}")
+    return predicts
+
+
+def scene_dets(dets: dict, path: str, scene_id: int) -> str:
+    """est_dets.json restricted to one scene."""
+    with open(dets["path"]) as f:
+        body = {k: v for k, v in json.load(f).items() if int(k.split("/")[0]) == scene_id}
+    with open(path, "w") as f:
+        json.dump(body, f)
+    return path
+
+
+def run_tool(name: str, args: list) -> tuple[subprocess.CompletedProcess, float]:
+    """`python -m gdrnet_tpu_torch.tools.<name> ...` on the card; raises
+    unless it exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"gdrnet_tpu_torch.tools.{name}"] + args,
+                          cwd=REPO, capture_output=True, text=True, timeout=TOOL_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{name}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    return proc, wall_s
+
+
+def phase_predict(cfg, split, dets: dict, weights: str, root: str) -> str:
+    """The predict CLI over the BOP split's images and est_dets.json with
+    [train_loop]'s checkpoint: a subprocess on the card (exit 0, one CSV
+    row a detection, finite rotations and translations); in process on
+    scene 1 in f32 (TF32 off), the card against the CPU within the gates of
+    [do_test_vs_cpu]; in process with TEST.FOLD_BN=True TEST.INT8=True:
+    the same rows, finite. Returns the subprocess's CSV."""
+    split_dir = Path(split["models"].meta.data_root)
+    data = ["--config-file", FLAGSHIP, "--ckpt", weights, "--dataset", split_dir.name,
+            "--data-root", str(split_dir.parent), "--image-root", str(split_dir / "test")]
+    csv = str(Path(root) / "predict.csv")
+    proc, wall_s = run_tool("predict", data + ["--dets", dets["path"], "--out", csv])
+    rows = load_bop_results(csv)
+    csv_rows_check(rows, "predict")
+    if len(rows) != dets["written"]:
+        raise AssertionError(f"predict: {len(rows)} CSV rows for {dets['written']} detections")
+    bucket_s = np.array(sorted({r["time"] for r in rows}))
+    log("predict", rc=proc.returncode, wall_s=f"{wall_s:.1f}", rows=len(rows),
+        poses_per_s=f"{len(rows) / wall_s:.1f}", buckets=len(bucket_s),
+        bucket_s_mean=f"{bucket_s.mean():.4f}", bucket_s_first=f"{bucket_s.max():.4f}",
+        check="ok")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = data + ["--dets", scene_dets(dets, str(Path(root) / "dets_scene1.json"), 1)]
+    runs = {}
+    for device in (DEV, "cpu"):
+        t0 = time.perf_counter()
+        runs[device] = predict_tool.main(
+            one + ["--out", str(Path(root) / f"predict_{device}.csv"), "PARALLEL.DTYPE=float32"],
+            device=device), time.perf_counter() - t0
+    (card, _), (cpu, cpu_s) = runs[DEV], runs["cpu"]
+    R_c, R_p = (np.stack([r["R"] for r in rs]) for rs in (card, cpu))
+    t_c, t_p = (np.stack([r["t"] for r in rs]) for rs in (card, cpu))
+    rot_err = float(np.abs(R_c - R_p).max())
+    trans_rel = float((np.linalg.norm(t_c - t_p, axis=1) / np.linalg.norm(t_p, axis=1)).max())
+    if [(r["scene_id"], r["im_id"], r["obj_id"]) for r in card] != [
+            (r["scene_id"], r["im_id"], r["obj_id"]) for r in cpu] \
+            or rot_err > DO_TEST_ROT_ATOL or trans_rel > DO_TEST_TRANS_RTOL:
+        raise AssertionError(f"predict_vs_cpu: rows {len(card)} vs {len(cpu)}, rotations "
+                             f"differ by {rot_err}, translations by {trans_rel} relative")
+    log("predict_vs_cpu", scene=1, rows=len(card), dtype="float32",
+        rot_max_abs=f"{rot_err:.3e}", trans_max_rel=f"{trans_rel:.3e}",
+        rot_atol=DO_TEST_ROT_ATOL, trans_rtol=DO_TEST_TRANS_RTOL, cpu_s=f"{cpu_s:.1f}",
+        check="ok")
+
+    t0 = time.perf_counter()
+    q_rows = predict_tool.main(data + ["--dets", dets["path"], "--out",
+                                       str(Path(root) / "predict_int8.csv"),
+                                       "TEST.FOLD_BN=True", "TEST.INT8=True"], device=DEV)
+    q_s = time.perf_counter() - t0
+    csv_rows_check(q_rows, "predict int8+fold")
+    if len(q_rows) != len(rows):
+        raise AssertionError(f"predict int8+fold: {len(q_rows)} rows for {len(rows)}")
+    log("predict_int8_fold", rows=len(q_rows), in_process_s=f"{q_s:.1f}",
+        bucket_s_mean=f"{np.mean(sorted({r['time'] for r in q_rows})):.4f}", check="ok")
+    return csv
+
+
+def phase_eval_csv(cfg, split, csv: str, root: str) -> tuple[int, int]:
+    """The eval_csv CLI over [predict]'s CSV with the flagship's
+    VAL.ERROR_TYPES: a subprocess on the card (exit 0, --out and --latex
+    written), then the same in process with B1's and B2's launches counted,
+    both equal to score_results on the CSV; then cus and cou_bb_proj on
+    SIL_PAIRS pose pairs on the card equal to the CPU. Returns (B1, B2)
+    launches of the in-process run."""
+    split_dir = Path(split["models"].meta.data_root)
+    out = Path(root) / "eval_csv"
+    args = ["--csv", csv, "--dataset", split_dir.name, "--data-root", str(split_dir.parent),
+            "--error-types", cfg.VAL.ERROR_TYPES, "--out", str(out.with_suffix(".json")),
+            "--latex", str(out.with_suffix(".tex"))]
+    proc, wall_s = run_tool("eval_csv", args)
+    with open(out.with_suffix(".json")) as f:
+        from_cli = json.load(f)
+    if not out.with_suffix(".tex").read_text().startswith("\\documentclass"):
+        raise AssertionError("eval_csv: no latex report")
+    kernels.nn_min_dist.launches = 0
+    kernels.rasterize_xyz.launches = 0
+    t0 = time.perf_counter()
+    scores = eval_csv_tool.main(args, device=DEV)
+    in_s = time.perf_counter() - t0
+    launches = kernels.nn_min_dist.launches, kernels.rasterize_xyz.launches
+    meta = split["models"].meta
+    want = bop_score.score_results(load_bop_results(csv), split["records"], ObjectModels(meta),
+                                   cfg.VAL.ERROR_TYPES, image_width=meta.width, device=DEV)
+    as_json = json.loads(json.dumps(scores))
+    if as_json != from_cli or json.loads(json.dumps(want)) != from_cli or min(launches) < 1:
+        raise AssertionError(f"eval_csv: CLI, in-process and score_results recalls differ, or "
+                             f"launches {launches}")
+    ar = bop_score.bop19_average_recall(scores)
+    log("eval_csv", rc=proc.returncode, wall_s=f"{wall_s:.1f}", in_process_s=f"{in_s:.2f}",
+        error_types=cfg.VAL.ERROR_TYPES, ar_bop19=f"{ar:.4f}",
+        recalls="equal to score_results", launches_nn_min_dist=launches[0],
+        launches_rasterize_xyz=launches[1], latex=out.with_suffix(".tex").name,
+        table_lines=len(proc.stdout.splitlines()), check="ok")
+
+    recs = split["records"][:SIL_PAIRS]
+    R_est, t_est = poses_near(np.stack([r["R"] for r in recs]), np.stack([r["t"] for r in recs]),
+                              seed=9)
+    vals = {}
+    for device in (DEV, "cpu"):
+        vals[device] = []
+        for r, Re, te in zip(recs, R_est, t_est):
+            _, v, f, _ = split["zoo"][r["obj_id"] - 1]
+            kw = dict(height=split["models"].meta.height, width=split["models"].meta.width,
+                      device=device)
+            vals[device].append((vsd_mod.cus(Re, te, r["R"], r["t"], r["K"], v, f, **kw),
+                                 vsd_mod.cou_bb_proj(Re, te, r["R"], r["t"], r["K"], v, f, **kw)))
+    if vals[DEV] != vals["cpu"]:
+        raise AssertionError(f"cus / cou_bb_proj card vs CPU: {vals[DEV]} vs {vals['cpu']}")
+    log("silhouette_errors", pairs=len(recs), cus_mean=f"{np.mean([c for c, _ in vals[DEV]]):.4f}",
+        cou_bb_proj_mean=f"{np.mean([b for _, b in vals[DEV]]):.4f}", vs="cpu", equal=True,
+        check="ok")
+    return launches
+
+
+def phase_gen_xyz(cfg, root: str) -> int:
+    """The gen_xyz CLI on the card over [train_loop]'s train split (written
+    without pickles): exit 0 and one pickle an instance; scene 1 written
+    again on the CPU, bitwise equal; then the train mapper maps GEN_MAPPED
+    records from the pickles with no B2 launch. Returns the CLI's B2
+    launches."""
+    loop = Path(root) / "loop"
+    proc, wall_s = run_tool("gen_xyz", ["--dataset", "loop", "--data-root", root,
+                                        "--split", "train"])
+    n = int(re.search(r"generated (\d+) xyz crops; B2 launches (\d+)", proc.stdout)[1])
+    launches = int(re.search(r"B2 launches (\d+)", proc.stdout)[1])
+    render_s = float(re.findall(r"renders with their copy ([\d.]+) s", proc.stdout)[-1])
+    meta, records = resolve("loop_train", data_root=root)
+    pickles = sorted((loop / "train").glob("*/xyz_crop/*.pkl"))
+    n_inst = LOOP_SCENES * LOOP_IMAGES * LOOP_PER_IMAGE
+    if n != n_inst or len(pickles) != n_inst or launches < 1:
+        raise AssertionError(f"gen_xyz: {n} written, {len(pickles)} pickles for {n_inst} "
+                             f"instances, {launches} B2 launches")
+    scene1 = {p.name: p.read_bytes() for p in pickles if p.parent.parent.name == "000001"}
+    t0 = time.perf_counter()
+    gen_xyz_tool.gen_split_xyz(meta, "train", scenes=[1], overwrite=True, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    again = {p.name: p.read_bytes() for p in sorted((loop / "train/000001/xyz_crop").glob("*"))}
+    if again != scene1:
+        raise AssertionError("gen_xyz: scene 1's pickles written on the CPU differ")
+    models = ObjectModels(meta, num_pm_points=cfg.MODEL.CDPN.PNP_NET.NUM_PM_POINTS,
+                          num_fps=cfg.MODEL.CDPN.ROT_HEAD.NUM_REGIONS)
+    mapper = GDRNTrainMapper(cfg, models, device=DEV)
+    before = kernels.rasterize_attr.launches
+    mapped = [mapper(dict(rec), np.random.RandomState(i))
+              for i, rec in enumerate(records[::max(1, len(records) // GEN_MAPPED)][:GEN_MAPPED])]
+    if kernels.rasterize_attr.launches != before or not all(
+            np.all(np.isfinite(m["gt_xyz"])) for m in mapped):
+        raise AssertionError("gen_xyz mapper: B2 launched, or non-finite XYZ")
+    log("gen_xyz", rc=proc.returncode, split="[train_loop]'s train split",
+        size=f"{meta.width}x{meta.height}", crops=n, wall_s=f"{wall_s:.1f}",
+        crops_per_s=f"{n / wall_s:.1f}", b2_launches=launches,
+        render_and_copy_s=f"{render_s:.3f}", scene1_vs_cpu="bitwise equal",
+        scene1_pickles=len(scene1), cpu_scene_s=f"{cpu_s:.1f}", mapped_from_pickles=len(mapped),
+        mapper_b2_launches=0, check="ok")
+    return launches
+
+
+def phase_loader_pkl(root: str, loader_rate: float) -> None:
+    """The train loader alone over [train_loop]'s split, now with gen_xyz's
+    pickles, beside [train_loop]'s figure without them (every sample
+    rendered by B2)."""
+    c = loop_cfg(root, str(Path(root) / "flagship_seed0.pth"))
+    before = kernels.rasterize_attr.launches
+    rate = time_loader(c, root)
+    log("loader_pkl", workers=LOOP_WORKERS, batch=c.SOLVER.IMS_PER_BATCH,
+        batches=LOOP_LOADER_BATCHES, samples_per_s_pickles=f"{rate:.1f}",
+        samples_per_s_renders=f"{loader_rate:.1f}", speedup=f"{rate / loader_rate:.2f}",
+        b2_launches=kernels.rasterize_attr.launches - before)
+
+
 def check_rotations(R: np.ndarray, where: str) -> None:
     if not np.all(np.isfinite(R)):
         raise AssertionError(f"{where}: non-finite rotations")
@@ -1894,35 +2321,44 @@ def main() -> int:
     # test path over estimated detections with the trained checkpoint, in
     # process and through the CLI, 11. the learning check, 12. the rendering
     # slice: B2 with 12 channels, the renders on the card against the CPU and
-    # the synth dataset's generator, 13. then the profiled measurements
+    # the synth dataset's generator, 13. serving from images and the offline
+    # tools: folded BN, int8, predict, eval_csv, gen_xyz, 14. then the
+    # profiled measurements
     with tempfile.TemporaryDirectory() as root:
         split = phase_bop_split(cfg, gsd, requests, root)
         raster_launches, scored = phase_bop_score(cfg, split, R, t, root)
         del model, m32, predict
         phase_train_f32(cfg32, state_dict)
         train = phase_train(cfg, state_dict, card)
-        loop_launches = phase_train_loop(cfg, state_dict, gsd, root, card)
+        loop_launches, loader_rate = phase_train_loop(cfg, state_dict, gsd, root, card)
         ckpt = str(Path(root) / "train_out" / "ckpt")
         dets = write_detections(split, str(Path(root) / "est_dets.json"))
         tested = phase_do_test(cfg, split, dets, ckpt, root, card)
         phase_do_test_vs_cpu(cfg32, split, dets, ckpt, root)
         phase_cli(cfg, split, dets, ckpt, root, tested)
-        phase_overfit(gsd, root, card)
+        overfit = phase_overfit(gsd, root, card)
         phase_render_attr(gsd)
         phase_render_phong_xyz(gsd)
         gen_launches = phase_gen_dataset(gsd, root, card)
-        phase_profile(cfg, split, scored, raster_timed, train)
+        phase_fold_bn(cfg, cfg32, ckpt, requests[0])
+        serving = phase_int8(cfg, ckpt, requests[0], overfit)
+        predicted = phase_predict(cfg, split, dets, ckpt, root)
+        csv_launches = phase_eval_csv(cfg, split, predicted, root)
+        xyz_launches = phase_gen_xyz(cfg, root)
+        phase_loader_pkl(root, loader_rate)
+        phase_profile(cfg, split, scored, raster_timed, train, serving)
     test_launches = tested[2]
 
     print(json.dumps({"kernels": [
         {"name": "nn_min_dist", "route": "cuda",
          "source": "gdrnet_tpu_torch/csrc/nn_min_dist.cu",
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:28",
-         "launches": launches + test_launches[0], **nn_stats},
+         "launches": launches + test_launches[0] + csv_launches[0], **nn_stats},
         {"name": "rasterize_xyz", "route": "cuda",
          "source": "gdrnet_tpu_torch/csrc/rasterize_xyz.cu",
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:140",
-         "launches": raster_launches + loop_launches + test_launches[1] + gen_launches,
+         "launches": raster_launches + loop_launches + test_launches[1] + gen_launches
+         + csv_launches[1] + xyz_launches,
          **raster_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -144,3 +144,13 @@ def get_meta(name: str, data_root: str = "datasets/BOP_DATASETS") -> DatasetMeta
             camera_matrix=YCBV_CAMERA_UW, data_root=osp.join(data_root, "ycbv"),
             sym_objects=SYM_OBJECTS["ycbv"], depth_factor=10000.0)
     raise KeyError(f"Unknown dataset: {name}")
+
+
+def meta_by_name(name: str, data_root: str = "datasets/BOP_DATASETS") -> DatasetMeta:
+    """A dataset directory <data_root>/<name> that holds a meta.json (as the
+    port's generator and data/synthetic.write_bop_split write it), else one
+    of get_meta's names: how the port's tools read --dataset."""
+    root = osp.join(data_root, name)
+    if osp.isfile(osp.join(root, "meta.json")):
+        return meta_from_json(root)
+    return get_meta(name, data_root)

@@ -97,11 +97,18 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
     return train_step
 
 
-def make_predict_step(model: torch.nn.Module, with_maps: bool = False
-                      ) -> Callable[[dict], dict]:
+def make_predict_step(model: torch.nn.Module, with_maps: bool = False,
+                      int8_scales: dict | None = None) -> Callable[[dict], dict]:
     """Returns predict(batch) -> {"rot", "trans"} (plus the mask / coor /
-    region maps with `with_maps`), the test-time forward."""
+    region maps with `with_maps`), the test-time forward. With `int8_scales`
+    (models.quantize.calibrate_act_scales) it runs a quantized copy of the
+    model, made once here, whose calibrated layers take the int8 path
+    (TEST.INT8); `model` itself is left as it was."""
     model.eval()
+    if int8_scales:
+        from gdrnet_tpu_torch.models.quantize import quantize_model
+
+        model = quantize_model(model, int8_scales)
 
     def predict(batch: dict) -> dict:
         with torch.inference_mode(), _autocast(model, batch["roi_img"].device):

@@ -16,8 +16,12 @@ Where the port differs from the JAX package: the model is an nn.Module that
 holds its weights (no separate `variables`); one process scores the whole
 split on one device, so there is no shard gather; the settings the port does
 not run yet raise NotImplementedError naming their ROADMAP.md queue item
-before anything is mapped: TEST.USE_PNP (A9), TEST.FOLD_BN and TEST.INT8
-(A11), more than one process or TEST.LOCAL_DEVICES other than -1 or 1 (A10).
+before anything is mapped: TEST.USE_PNP (A9), more than one process or
+TEST.LOCAL_DEVICES other than -1 or 1 (A10). TEST.FOLD_BN folds the BN
+statistics into a copy of the model before the first bucket
+(utils/fold_bn.py); TEST.INT8 calibrates on the first mapped bucket and
+serves a quantized copy (models/quantize.py); the two compose, as in JAX
+(gdrnet_tpu/engine/tester.py:95-102,113,219-225).
 TEST.DEVICE_PREPROCESS, a TPU placement choice (ROADMAP.md "Do not port"),
 warns and maps on the host.
 """
@@ -44,6 +48,8 @@ from gdrnet_tpu_torch.eval.bop_score import (
 )
 from gdrnet_tpu_torch.eval.bop_writer import save_bop_results
 from gdrnet_tpu_torch.eval.custom_evaluator import CustomEvaluator
+from gdrnet_tpu_torch.models.quantize import calibrate_act_scales
+from gdrnet_tpu_torch.utils.fold_bn import fold_batch_norms
 
 # the batch keys the forward reads; the rest of a mapped bucket stays on the host
 _DEVICE_KEYS = ("roi_img", "roi_classes", "roi_coord_2d", "roi_cams", "roi_centers",
@@ -86,9 +92,6 @@ def check_supported(cfg, logger: logging.Logger | None = None) -> None:
     if test.get("USE_PNP"):
         raise NotImplementedError("TEST.USE_PNP: the PnP refinement is not ported yet "
                                   "(ROADMAP.md A9)")
-    for name in ("FOLD_BN", "INT8"):
-        if test.get(name):
-            raise NotImplementedError(f"TEST.{name} is not ported yet (ROADMAP.md A11)")
     local = int(test.get("LOCAL_DEVICES", -1))
     if local not in (-1, 1):
         raise NotImplementedError(
@@ -158,7 +161,10 @@ def do_test(cfg, model: torch.nn.Module, models, records: list[dict],
 
     bucket = cfg.TEST.ROI_BATCH_SIZE
     mapper = GDRNTestMapper(cfg, models, roi_batch_size=bucket)
+    if cfg.TEST.get("FOLD_BN"):  # inference only; a folded model quantizes too
+        model = fold_batch_norms(model)
     predict = make_predict_step(model)
+    int8 = bool(cfg.TEST.get("INT8"))
     evaluator = CustomEvaluator(
         models.objs, models.points, models.diameters,
         sym_objs=[o for o in cfg.DATASETS.SYM_OBJS if o in models.objs],
@@ -241,7 +247,12 @@ def do_test(cfg, model: torch.nn.Module, models, records: list[dict],
                 raise item
             start, chunk, batch = item
             t0 = time.perf_counter()
-            out = predict(_to_device(batch, device))
+            dev_batch = _to_device(batch, device)
+            if int8:  # calibrate the activation scales on the first bucket
+                predict = make_predict_step(
+                    model, int8_scales=calibrate_act_scales(model, [dev_batch]))
+                int8 = False
+            out = predict(dev_batch)
             rot = out["rot"].float().cpu().numpy()  # the host waits for the bucket here
             trans = out["trans"].float().cpu().numpy()
             if start > 0:  # warmup-excluded timing (gdrn_evaluator.py:545)

@@ -10,6 +10,7 @@ unless `eval_precision`.
 
 from __future__ import annotations
 
+import math
 from collections import defaultdict
 
 import numpy as np
@@ -150,19 +151,86 @@ class CustomEvaluator:
 
     def summarize(self, results: dict | None = None) -> str:
         """Plain-text table of the recalls (%) and mean errors, one column an
-        object and "Avg" last (the layout of tabulate's "plain" format,
-        without the package, which the card's machine lacks)."""
+        object and "Avg" last, as the JAX package prints it with tabulate's
+        "plain" format (`plain_table`)."""
         if results is None:
             results = self.evaluate()
         names = [n for n in results if n != "Avg"] + (["Avg"] if "Avg" in results else [])
         keys = ["ad_2", "ad_5", "ad_10", "rete_2", "rete_5", "rete_10",
                 "proj_2", "proj_5", "proj_10", "mean_re", "mean_te"]
-        rows = [["objects"] + names]
-        for k in keys:
-            rows.append([k] + [f"{100 * results[n][k]:.2f}" if not k.startswith("mean")
-                               else f"{results[n][k]:.4f}" for n in names])
-        widths = [max(len(r[c]) for r in rows) for c in range(len(rows[0]))]
-        return "\n".join(
-            "  ".join(cell.ljust(w) if c == 0 else cell.rjust(w)
-                      for c, (cell, w) in enumerate(zip(row, widths))).rstrip()
-            for row in rows)
+        rows = [[k] + [f"{100 * results[n][k]:.2f}" if not k.startswith("mean")
+                       else f"{results[n][k]:.4f}" for n in names] for k in keys]
+        return plain_table(rows, ["objects"] + names)
+
+
+def _number_kind(s: str):
+    """int, float or None: how tabulate reads a cell's string."""
+    for kind in (int, float):
+        try:
+            v = kind(s)
+        except ValueError:
+            continue
+        if kind is float and (math.isinf(v) or math.isnan(v)) and s.lower() not in (
+                "inf", "-inf", "nan"):
+            return None
+        return kind
+    return None
+
+
+def _after_point(s: str) -> int:
+    """Digits after the decimal point (or the exponent) of a number, -1 for
+    an int or a string: tabulate's _afterpoint."""
+    kind = _number_kind(s)
+    if kind is not float:
+        return -1
+    pos = s.rfind(".")
+    pos = s.lower().rfind("e") if pos < 0 else pos
+    return len(s) - pos - 1 if pos >= 0 else -1
+
+
+def plain_table(rows: list[list], headers: list) -> str:
+    """What tabulate(rows, headers, tablefmt="plain") prints, for string
+    and number cells on one line each, without the package (the GPU
+    machine has none): a column of numbers is reformatted with "g" (an int
+    column as it is) and aligned at the decimal point, any other column is
+    left-aligned; each column is at least its header's width plus 2, the
+    headers take their column's alignment, cells are joined by two spaces
+    and lines stripped on the right."""
+    headers = [str(h) for h in headers]
+    cols = [list(c) for c in zip(*rows)] if rows else [[] for _ in headers]
+    out_cols, aligns = [], []
+    for col in cols:
+        cells = [str(v) for v in col]
+        kinds = {_number_kind(c) for c in cells}
+        if not cells:
+            kind = str
+        elif kinds <= {int}:
+            kind = int
+        elif None in kinds:
+            kind = str
+        else:
+            kind = float
+        if kind is float:
+            cells = [format(float(c), "g") for c in cells]
+        aligns.append("decimal" if kind in (int, float) else "left")
+        out_cols.append(cells)
+    widths = []
+    for j, (cells, align) in enumerate(zip(out_cols, aligns)):
+        minw = len(headers[j]) + 2
+        if align == "decimal":
+            dec = [_after_point(c) for c in cells]
+            most = max(dec, default=-1)
+            cells = [c + " " * (most - d) for c, d in zip(cells, dec)]
+            width = max([len(c) for c in cells] + [minw])
+            cells = [c.rjust(width) for c in cells]
+        else:
+            cells = [c.strip() for c in cells]
+            width = max([len(c) for c in cells] + [minw])
+            cells = [c.ljust(width) for c in cells]
+        out_cols[j] = cells
+        widths.append(width)
+    head = [h.rjust(w) if a == "decimal" else h.ljust(w)
+            for h, w, a in zip(headers, widths, aligns)]
+    lines = ["  ".join(head).rstrip()]
+    lines += ["  ".join(r).rstrip() for r in zip(*out_cols)]
+    return "\n".join(lines)

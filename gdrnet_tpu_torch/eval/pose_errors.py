@@ -90,6 +90,36 @@ def mspd_batch(R_est, t_est, R_gt, t_gt, K, pts, sym_rots, sym_mask) -> torch.Te
     return maxd.masked_fill(~sym_mask, float("inf")).amin(dim=-1)
 
 
+def adi_sym_batch(R_est, t_est, R_gt, t_gt, pts, sym_rots, sym_mask) -> torch.Tensor:
+    """The closest symmetric GT rotation [B, 3, 3] of each estimate, which
+    the evaluator's symmetric-object path scores re and proj against
+    (gdrnet_tpu/eval/pose_errors.py:139-146)."""
+    from gdrnet_tpu_torch.ops.symmetry import get_closest_rot_batch
+
+    return get_closest_rot_batch(R_est, R_gt, sym_rots, sym_mask)
+
+
+def cou_mask_batch(mask_est, mask_gt) -> torch.Tensor:
+    """Complement over union of binary masks [B, H, W] (reference
+    pose_error.py:466-485); an empty union scores 1.0."""
+    me = mask_est.bool().reshape(mask_est.shape[0], -1)
+    mg = mask_gt.bool().reshape(mask_gt.shape[0], -1)
+    inter = (me & mg).sum(dim=-1).float()
+    union = (me | mg).sum(dim=-1).float()
+    return torch.where(union > 0, 1.0 - inter / union.clamp_min(1.0), torch.ones_like(union))
+
+
+def cou_bb_batch(bb_est, bb_gt) -> torch.Tensor:
+    """Complement over union of xywh boxes [B, 4] (reference
+    pose_error.py:534-544 with misc.iou)."""
+    tl = torch.maximum(bb_est[:, :2], bb_gt[:, :2])
+    br = torch.minimum(bb_est[:, :2] + bb_est[:, 2:], bb_gt[:, :2] + bb_gt[:, 2:])
+    wh = br - tl
+    inter = torch.where((wh > 0).all(dim=-1), wh[:, 0] * wh[:, 1], torch.zeros_like(wh[:, 0]))
+    area = bb_est[:, 2] * bb_est[:, 3] + bb_gt[:, 2] * bb_gt[:, 3] - inter
+    return 1.0 - inter / area.clamp_min(1e-12)
+
+
 def vocap_auc(errors: np.ndarray, max_val: float = 0.1) -> float:
     """AUC of the error-recall curve up to max_val (YCB-Video VOCap)."""
     errors = np.sort(np.asarray(errors, np.float64))

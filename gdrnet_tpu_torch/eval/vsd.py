@@ -1,5 +1,6 @@
 """Visible Surface Discrepancy (VSD) on tensors, batched over pairs
-(counterpart of gdrnet_tpu/eval/vsd.py:24-208). Depths render through
+(counterpart of gdrnet_tpu/eval/vsd.py:24-250, with the silhouette
+errors cus and cou_bb_proj). Depths render through
 ops.rasterizer, so on a CUDA `device` every render is a launch of the
 z-buffer kernel (reference lib/pysixd/pose_error.vsd:22-129 renders with
 external C++/GL renderers).
@@ -17,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gdrnet_tpu_torch.eval.pose_errors import cou_bb_batch, cou_mask_batch
 from gdrnet_tpu_torch.ops.rasterizer import (
     paste_window,
     render_xyz_roi_many,
@@ -147,3 +149,41 @@ def vsd(R_est, t_est, R_gt, t_gt, depth_test, K, verts, faces,
                      np.asarray(t_gt)[None], np.asarray(depth_test)[None],
                      np.asarray(K)[None], verts, faces, delta, taus, diameter,
                      normalized_by_diameter, cost_type, device)[0]
+
+
+def _depth_pair(R_est, t_est, R_gt, t_gt, K, verts, faces, height: int, width: int,
+                device) -> torch.Tensor:
+    """Full-frame depths [2, H, W] of the mesh at the estimated and the GT
+    pose, in one render_xyz_windows call (one B2 launch on CUDA)."""
+    Rs = np.stack([np.asarray(R_est, np.float32), np.asarray(R_gt, np.float32)])
+    ts = np.stack([np.asarray(t_est, np.float32).reshape(3),
+                   np.asarray(t_gt, np.float32).reshape(3)])
+    Ks = np.stack([np.asarray(K, np.float32)] * 2)
+    return render_xyz_windows(verts, faces, Ks, Rs, ts, np.zeros((2, 2), np.float32),
+                              height, width, device)[0]
+
+
+def cus(R_est, t_est, R_gt, t_gt, K, verts, faces, height: int = 480, width: int = 640,
+        device="cuda") -> float:
+    """Complement over union of the projected silhouettes (reference
+    pose_error.py:487-532; gdrnet_tpu/eval/vsd.py:211-226)."""
+    d = _depth_pair(R_est, t_est, R_gt, t_gt, K, verts, faces, height, width, device)
+    return float(cou_mask_batch((d[0] > 0)[None], (d[1] > 0)[None])[0])
+
+
+def cou_bb_proj(R_est, t_est, R_gt, t_gt, K, verts, faces, height: int = 480,
+                width: int = 640, device="cuda") -> float:
+    """Complement over union of the projected silhouettes' xywh boxes,
+    unclipped (reference pose_error.py:545-590; gdrnet_tpu/eval/vsd.py:229-250)."""
+    masks = (_depth_pair(R_est, t_est, R_gt, t_gt, K, verts, faces, height, width, device)
+             > 0).cpu().numpy()
+
+    def bb_of(mask):
+        ys, xs = np.nonzero(mask)
+        if len(xs) == 0:
+            return np.zeros(4, np.float32)
+        return np.array([xs.min(), ys.min(), xs.max() - xs.min() + 1,
+                         ys.max() - ys.min() + 1], np.float32)
+
+    return float(cou_bb_batch(torch.from_numpy(bb_of(masks[0]))[None],
+                              torch.from_numpy(bb_of(masks[1]))[None])[0])

@@ -1,0 +1,155 @@
+"""Pose prediction from images and detections to a BOP pose CSV, no GT
+needed (counterpart of tools/predict.py:28-157): the serving entry point.
+
+Any BOP-layout folder of PNG images, a detections JSON (BOP form:
+{"scene/im": [{obj_id, bbox_est xywh, score}]} or a list of rows) and the
+camera intrinsics give one pose a detection. The detections are mapped by
+data/mapper.GDRNTestMapper into buckets of TEST.ROI_BATCH_SIZE crops; each
+bucket is one forward of engine/steps.make_predict_step on `--device`, the
+card unless `--device cpu`. TEST.FOLD_BN=True folds the BN statistics into
+the convs first (utils/fold_bn.py), TEST.INT8=True calibrates on the first
+bucket and serves int8 (models/quantize.py); both are KEY=value options.
+Each CSV row's `time` is its bucket's seconds (mapping and forward).
+
+Not here: TEST.USE_PNP (ROADMAP.md A9) and TEST.LOCAL_DEVICES other than -1
+or 1 (A10) raise; a frame that is only a .jpg raises (the port decodes PNG;
+ROADMAP.md A13).
+
+Usage:
+  python -m gdrnet_tpu_torch.tools.predict --config-file configs/gdrn/lm/a6_cPnP_lm13.py \
+      --ckpt output/.../ckpt --dataset lm --dets dets.json \
+      --image-root datasets/BOP_DATASETS/lm/test --out poses.csv \
+      [--camera-json <scene_camera.json>] [--K fx,fy,cx,cy] [--device cpu] \
+      [TEST.FOLD_BN=True TEST.INT8=True]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os.path as osp
+import time
+
+import numpy as np
+import torch
+
+from gdrnet_tpu_torch.config import base_config, load_config
+from gdrnet_tpu_torch.config.config import Config, apply_opts, merge_dict
+from gdrnet_tpu_torch.data import ref_meta
+from gdrnet_tpu_torch.data.bop import load_detections
+from gdrnet_tpu_torch.data.io import load_json
+from gdrnet_tpu_torch.data.mapper import GDRNTestMapper
+from gdrnet_tpu_torch.data.model_store import ObjectModels
+from gdrnet_tpu_torch.engine.checkpoint import load_weights
+from gdrnet_tpu_torch.engine.steps import make_predict_step
+from gdrnet_tpu_torch.engine.tester import _to_device, check_supported
+from gdrnet_tpu_torch.eval.bop_writer import save_bop_results
+from gdrnet_tpu_torch.models.gdrn import build_model
+from gdrnet_tpu_torch.models.quantize import calibrate_act_scales
+from gdrnet_tpu_torch.utils.fold_bn import fold_batch_norms
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--config-file", required=True)
+    p.add_argument("--ckpt", required=True,
+                   help="a checkpoint directory of the port, or a reference-layout .pth")
+    p.add_argument("--dataset", required=True,
+                   help="dataset for the object metadata: a directory <data-root>/<name> "
+                        "with meta.json, or lm / lmo / ycbv")
+    p.add_argument("--data-root", default="datasets/BOP_DATASETS")
+    p.add_argument("--dets", required=True, help="detections json")
+    p.add_argument("--image-root", required=True,
+                   help="BOP split dir: <root>/<scene:06d>/rgb/<im:06d>.png")
+    p.add_argument("--camera-json", default=None,
+                   help="per-image K; each scene's scene_camera.json under image-root "
+                        "when omitted")
+    p.add_argument("--K", default=None, help="global 'fx,fy,cx,cy' override")
+    p.add_argument("--out", required=True, help="output BOP CSV path")
+    p.add_argument("--device", default=None,
+                   help="where the forward runs: cuda (the default) or cpu")
+    p.add_argument("opts", nargs="*", default=[], help="KEY.PATH=value overrides")
+    return p.parse_args(argv)
+
+
+def _rgb_path(image_root: str, scene_id: int, im_id: int) -> str:
+    path = osp.join(image_root, f"{scene_id:06d}", "rgb", f"{im_id:06d}.png")
+    if not osp.exists(path) and osp.exists(path[:-4] + ".jpg"):
+        raise NotImplementedError(f"{path[:-4]}.jpg: the port decodes PNG only "
+                                  "(ROADMAP.md A13)")
+    return path
+
+
+def main(argv=None, device="cuda") -> list[dict]:
+    """Writes the CSV and returns its rows; `device` unless --device names one."""
+    args = parse_args(argv)
+    device = torch.device(args.device or device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("gdrnet_tpu_torch.tools.predict: no CUDA card is available "
+                           "(torch.cuda.is_available() is false); pass --device cpu")
+    cfg = Config(merge_dict(base_config().to_dict(), load_config(args.config_file).to_dict()))
+    if args.opts:
+        apply_opts(cfg, args.opts)
+    check_supported(cfg)
+
+    meta = ref_meta.meta_by_name(args.dataset, args.data_root)
+    models = ObjectModels(meta, num_pm_points=cfg.MODEL.CDPN.PNP_NET.NUM_PM_POINTS,
+                          num_fps=cfg.MODEL.CDPN.ROT_HEAD.NUM_REGIONS)
+    model = load_weights(build_model(cfg, device=device), args.ckpt)
+    if cfg.TEST.get("FOLD_BN"):
+        model = fold_batch_norms(model)
+    predict = make_predict_step(model)
+    int8 = bool(cfg.TEST.get("INT8"))
+    bucket = int(cfg.TEST.ROI_BATCH_SIZE)
+
+    K_global = None
+    if args.K:
+        fx, fy, cx, cy = (float(v) for v in args.K.split(","))
+        K_global = np.asarray([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
+    cams: dict = {}
+
+    def K_of(scene_id: int, im_id: int) -> np.ndarray:
+        if K_global is not None:
+            return K_global
+        path = args.camera_json or osp.join(args.image_root, f"{scene_id:06d}",
+                                            "scene_camera.json")
+        if path not in cams:
+            cams[path] = load_json(path)
+        return np.asarray(cams[path][str(im_id)]["cam_K"], np.float32).reshape(3, 3)
+
+    dets = load_detections(args.dets, score_thr=0.0, topk_per_obj=100)
+    mapper = GDRNTestMapper(cfg, models, roi_batch_size=bucket)
+    flat = []
+    for (scene_id, im_id), rois in sorted(dets.items()):
+        rgb, K = _rgb_path(args.image_root, scene_id, im_id), K_of(scene_id, im_id)
+        for d in rois:
+            flat.append((rgb, K, dict(d, bbox=d.get("bbox_est", d.get("bbox")),
+                                      bbox_mode="xywh"), scene_id, im_id))
+
+    rows = []
+    for start in range(0, len(flat), bucket):
+        chunk = flat[start:start + bucket]
+        t0 = time.perf_counter()
+        batch = mapper.map_flat([(p, K, d) for p, K, d, _, _ in chunk])
+        dev_batch = _to_device(batch, device)
+        if int8:  # calibrate on the first bucket (models/quantize.py)
+            predict = make_predict_step(
+                model, int8_scales=calibrate_act_scales(model, [dev_batch]))
+            int8 = False
+        out = predict(dev_batch)
+        rot = out["rot"].float().cpu().numpy()  # waits for the bucket
+        trans = out["trans"].float().cpu().numpy()
+        dt = time.perf_counter() - t0
+        for j, (_, _, _, scene_id, im_id) in enumerate(chunk):
+            rows.append({"scene_id": scene_id, "im_id": im_id,
+                         "obj_id": int(batch["obj_ids"][j]),
+                         "score": float(batch["scores"][j]),
+                         "R": rot[j], "t": trans[j] * 1000.0, "time": dt})
+
+    save_bop_results(args.out, rows)
+    print(json.dumps({"n_poses": len(rows), "csv": args.out}), flush=True)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

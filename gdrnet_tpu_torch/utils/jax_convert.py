@@ -1,5 +1,6 @@
-"""JAX package variables -> the port's state_dict, and the JAX package's
-Ranger state -> the port's Ranger state_dict.
+"""JAX package variables -> the port's state_dict, the JAX package's
+Ranger state -> the port's Ranger state_dict, and the JAX package's int8
+activation scales <-> the port's.
 
 The exact inverse of gdrnet_tpu/utils/torch_convert.py:convert_torch_state_dict:
 it takes the `params` and `batch_stats` trees of a gdrnet_tpu GDRN (as numpy
@@ -97,6 +98,23 @@ def _leaves(tree: dict, prefix: tuple[str, ...] = ()):
             yield prefix + (k,), np.asarray(v, np.float32)
 
 
+def _module_key(path: tuple[str, ...], rot_map: dict, pnp_map: dict) -> tuple[str, str]:
+    """A flax module path of the JAX GDRN -> (the port's module name, kind)."""
+    top, rest = path[0], path[1:]
+    if top == "backbone":
+        key, kind = _backbone_key(rest)
+        return f"backbone.{key}", kind
+    if top == "rot_head":
+        idx, kind = rot_map[rest]
+        return f"rot_head_net.features.{idx}", kind
+    if top == "pnp_net":
+        if rest[0] in ("fc1", "fc2", "fc_r", "fc_t"):
+            return f"pnp_net.{rest[0]}", "lin"
+        idx, kind = pnp_map[rest]
+        return f"pnp_net.features.{idx}", kind
+    raise KeyError(f"unmapped path: {'/'.join(path)}")
+
+
 def jax_to_torch(params: dict, batch_stats: dict | None = None,
                  head_num_layers: int = 3, head_norm: str = "BN",
                  pnp_norm: str = "GN", pnp_num_layers: int = 3) -> dict[str, torch.Tensor]:
@@ -110,19 +128,7 @@ def jax_to_torch(params: dict, batch_stats: dict | None = None,
     out: dict[str, torch.Tensor] = {}
 
     def module_key(path: tuple[str, ...]) -> tuple[str, str]:
-        top, rest = path[0], path[1:]
-        if top == "backbone":
-            key, kind = _backbone_key(rest)
-            return f"backbone.{key}", kind
-        if top == "rot_head":
-            idx, kind = rot_map[rest]
-            return f"rot_head_net.features.{idx}", kind
-        if top == "pnp_net":
-            if rest[0] in ("fc1", "fc2", "fc_r", "fc_t"):
-                return f"pnp_net.{rest[0]}", "lin"
-            idx, kind = pnp_map[rest]
-            return f"pnp_net.features.{idx}", kind
-        raise KeyError(f"unmapped path: {'/'.join(path)}")
+        return _module_key(path, rot_map, pnp_map)
 
     param_leaves = list(_leaves(params))
     for path, v in param_leaves:  # fc1's (C, H, W) needs the last conv's width
@@ -152,6 +158,53 @@ def jax_to_torch(params: dict, batch_stats: dict | None = None,
         name = {"mean": "running_mean", "var": "running_var"}[path[-1]]
         out[f"{key}.{name}"] = torch.from_numpy(v.copy())
         out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return out
+
+
+def jax_scales_to_torch(scales: dict[str, float], head_num_layers: int = 3,
+                        head_norm: str = "BN", pnp_norm: str = "GN",
+                        pnp_num_layers: int = 3) -> dict[str, float]:
+    """The JAX package's int8 activation scales ({flax module path, e.g.
+    "backbone/layer1_0/Conv_0": scale}, gdrnet_tpu/models/quantize.py) ->
+    the port's ({module name, e.g. "backbone.layer1.0.conv1": scale},
+    gdrnet_tpu_torch/models/quantize.py)."""
+    rot_map = _rot_head_index(head_num_layers, head_norm)
+    pnp_map = _pnp_index(pnp_num_layers, pnp_norm)
+    return {_module_key(tuple(p.split("/")), rot_map, pnp_map)[0]: s for p, s in scales.items()}
+
+
+def torch_scales_to_jax(scales: dict[str, float], head_num_layers: int = 3,
+                        head_norm: str = "BN", pnp_norm: str = "GN",
+                        pnp_num_layers: int = 3) -> dict[str, float]:
+    """The inverse of jax_scales_to_torch."""
+    names = {f"rot_head_net.features.{i}": "rot_head/" + "/".join(p)
+             for p, (i, _) in _rot_head_index(head_num_layers, head_norm).items()}
+    names.update({f"pnp_net.features.{i}": "pnp_net/" + "/".join(p)
+                  for p, (i, _) in _pnp_index(pnp_num_layers, pnp_norm).items()})
+
+    def backbone(name: str) -> str:
+        parts = name.split(".")[1:]
+        if len(parts) == 1:  # conv1 / bn1
+            return "backbone/" + parts[0]
+        layer, block, *sub = parts
+        sub_name = {"downsample.0": "downsample_conv", "downsample.1": "downsample_bn"}.get(
+            ".".join(sub))
+        if sub_name is None:
+            kind, k = ("Conv", sub[0][4:]) if sub[0].startswith("conv") else ("BatchNorm",
+                                                                            sub[0][2:])
+            sub_name = f"{kind}_{int(k) - 1}"
+        return f"backbone/{layer}_{block}/{sub_name}"
+
+    out = {}
+    for name, s in scales.items():
+        if name.startswith("backbone."):
+            out[backbone(name)] = s
+        elif name in names:
+            out[names[name]] = s
+        elif name.startswith("pnp_net.fc"):
+            out[name.replace(".", "/")] = s
+        else:
+            raise KeyError(f"unmapped module: {name}")
     return out
 
 

@@ -433,3 +433,121 @@ def test_do_test_on_the_card_equals_the_cpu(tmp_path):
         if not name.startswith("_"):
             assert {k: card[name][k] for k in RECALL_KEYS} == {k: cpu[name][k] for k in RECALL_KEYS}
     assert card["_bop"] == cpu["_bop"]
+
+
+# ---------------------------------------------------------------------------
+# serving from images: the int8 product, gen_xyz and predict on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["stem_k147_s2_p3", "head_3x3_256", "downsample_1x1_s2",
+                                  "linear_8192", "linear_rows_5"])
+def test_int8_product_on_the_card_equals_the_plain_version(cuda_device, case):
+    """im2col and torch._int_mm on the card against the float64 product on
+    the CPU, for the same int8 inputs: bitwise (both are exact)."""
+    from gdrnet_tpu_torch.models import quantize as Q
+
+    g = torch.Generator().manual_seed(len(case))
+    if case.startswith("linear"):
+        rows, k, n = (5, 1024, 256) if case == "linear_rows_5" else (64, 8192, 1024)
+        x = torch.randint(-127, 128, (rows, k), generator=g, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+        got = Q.int8_linear(x.to(cuda_device), w.to(cuda_device))
+        want = Q.int8_linear(x, w)
+    else:
+        c, o, k, s, p, hw = {"stem_k147_s2_p3": (3, 64, 7, 2, 3, 64),
+                             "head_3x3_256": (256, 256, 3, 1, 1, 32),
+                             "downsample_1x1_s2": (64, 128, 1, 2, 0, 31)}[case]
+        x = torch.randint(-127, 128, (3, c, hw, hw), generator=g, dtype=torch.int8)
+        w = torch.randint(-127, 128, (o, c, k, k), generator=g, dtype=torch.int8)
+        got = Q.int8_conv2d(x.to(cuda_device), w.to(cuda_device), (s, s), (p, p))
+        want = Q.int8_conv2d(x, w, (s, s), (p, p))
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_gen_xyz_on_the_card_equals_the_cpu(zoo_train_split):
+    """The zoo split's xyz_crop pickles written on the card and on the CPU:
+    bitwise equal (B2 is bitwise equal to its plain version)."""
+    import shutil
+
+    from gdrnet_tpu_torch.tools.gen_xyz import gen_split_xyz
+
+    records, models, _ = zoo_train_split
+    meta = models.meta
+    split = Path(meta.data_root) / "train"
+    written = {}
+    for device in ("cuda", "cpu"):
+        before = kernels.rasterize_attr.launches
+        n = gen_split_xyz(meta, "train", overwrite=True, device=device)
+        launches = kernels.rasterize_attr.launches - before
+        assert (launches > 0) == (device == "cuda")
+        written[device] = {p.relative_to(split): p.read_bytes()
+                           for p in sorted(split.glob("*/xyz_crop/*.pkl"))}
+    for scene in split.glob("*/xyz_crop"):  # leave the split without pickles
+        shutil.rmtree(scene)
+    assert n == len(written["cpu"]) >= len(records)
+    assert written["cuda"] == written["cpu"]
+
+
+@pytest.mark.cuda
+def test_predict_on_the_card_equals_the_cpu(tmp_path):
+    """The predict CLI over a zoo test split in f32 (TF32 off), on the card
+    and on the CPU, from one .pth: rows equal in order, poses within 1e-3."""
+    import json
+
+    from gdrnet_tpu_torch import merged_config
+    from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts
+    from gdrnet_tpu_torch.data.synthetic import synthetic_roi_batch, write_bop_split
+    from gdrnet_tpu_torch.eval.bop_writer import load_bop_results
+    from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
+    from gdrnet_tpu_torch.tools import predict
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    repo = Path(__file__).resolve().parents[1]
+    K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)
+    p = synthetic_roi_batch(batch_size=8, input_res=8, out_res=4, num_classes=10, seed=6)
+    t = p["gt_trans"].copy()
+    t[:, :2] = np.random.RandomState(3).uniform(-0.08, 0.08, (8, 2))
+    t[:, 2] += 0.4
+    meta, _ = write_bop_split(str(tmp_path / "zoo"), gsd.mesh_zoo(), np.arange(8) % 10,
+                              p["gt_ego_rot"], t, K, width=320, height=240, per_image=4,
+                              images_per_scene=2, device="cuda")
+    dets = {}
+    for r in load_bop_scene_dicts(meta, "test"):
+        dets.setdefault(f"{r['scene_id']}/{r['im_id']}", []).append(
+            {"obj_id": int(r["obj_id"]), "bbox_est": [float(v) for v in r["bbox_visib"]],
+             "score": 0.9})
+    (tmp_path / "dets.json").write_text(json.dumps(dets))
+    cfg_path = tmp_path / "cfg.py"
+    cfg_path.write_text(
+        f"_base_ = [{str(repo / 'configs/gdrn/synth/a6_cPnP_synth.py')!r}]\n"
+        "MODEL = dict(CDPN=dict(BACKBONE=dict(NUM_LAYERS=18, INPUT_RES=64, OUTPUT_RES=16),\n"
+        "    ROT_HEAD=dict(NUM_FILTERS=32, NUM_REGIONS=8),\n"
+        "    PNP_NET=dict(PNP_HEAD_CFG=dict(featdim=32), NUM_PM_POINTS=300)))\n"
+        "PARALLEL = dict(DTYPE='float32')\nTEST = dict(ROI_BATCH_SIZE=4)\n")
+    cfg = merged_config(str(cfg_path))
+    torch.save({"model": init_weights(build_model(cfg, device="cpu"),
+                                      torch.Generator().manual_seed(0)).state_dict()},
+               tmp_path / "w.pth")
+    argv = ["--config-file", str(cfg_path), "--ckpt", str(tmp_path / "w.pth"), "--dataset",
+            "zoo", "--data-root", str(tmp_path), "--dets", str(tmp_path / "dets.json"),
+            "--image-root", str(tmp_path / "zoo" / "test")]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in ("cuda", "cpu"):
+            predict.main(argv + ["--out", str(tmp_path / f"{device}.csv")], device=device)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    card, cpu = (load_bop_results(str(tmp_path / f"{d}.csv")) for d in ("cuda", "cpu"))
+    assert len(card) == len(cpu) == sum(len(v) for v in dets.values())
+    assert [(r["scene_id"], r["im_id"], r["obj_id"]) for r in card] == \
+        [(r["scene_id"], r["im_id"], r["obj_id"]) for r in cpu]
+    np.testing.assert_allclose(np.stack([r["R"] for r in card]),
+                               np.stack([r["R"] for r in cpu]), atol=1e-3)
+    t_card, t_cpu = (np.stack([r["t"] for r in rows]) for rows in (card, cpu))
+    assert (np.linalg.norm(t_card - t_cpu, axis=1) / np.linalg.norm(t_cpu, axis=1)).max() < 1e-3

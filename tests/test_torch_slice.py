@@ -11,6 +11,7 @@ errors and the AUC rtol 1e-4.
 import functools
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -239,6 +240,24 @@ def _entry_point_call(entry: str, split: dict, tmp_path):
 
         return train.main(["--config-file", FLAGSHIP, "--eval-only",
                            f"OUTPUT_DIR={str(tmp_path)!r}"])
+    if entry in ("cus", "cou_bb_proj"):
+        return getattr(vsd, entry)(R, t, R, t, K, v, f, 120, 160)
+    data = ["--dataset", split["models"].meta.name,
+            "--data-root", str(Path(split["root"]).parent)]
+    if entry == "predict.main":
+        from gdrnet_tpu_torch.tools import predict
+
+        return predict.main(["--config-file", FLAGSHIP, "--ckpt", str(tmp_path), "--dets",
+                             str(tmp_path / "d.json"), "--image-root", str(tmp_path),
+                             "--out", str(tmp_path / "p.csv")] + data)
+    if entry == "eval_csv.main":
+        from gdrnet_tpu_torch.tools import eval_csv
+
+        return eval_csv.main(["--csv", str(tmp_path / "p.csv")] + data)
+    if entry == "gen_xyz.main":
+        from gdrnet_tpu_torch.tools import gen_xyz
+
+        return gen_xyz.main(data + ["--overwrite"])
     assert entry == "write_bop_split"
     return write_bop_split(str(tmp_path), split["zoo"][:1], np.zeros(1, int), R[None],
                            t[None], K, width=160, height=120, per_image=1,
@@ -248,7 +267,8 @@ def _entry_point_call(entry: str, split: dict, tmp_path):
 ENTRY_POINTS = ["build_model", "CustomEvaluator", "_vsd_errors_by_obj", "score_results",
                 "render_depths_many", "vsd_pairs", "vsd", "render_xyz_windows", "render_xyz",
                 "render_depth", "render_xyz_roi", "render_xyz_roi_many", "write_bop_split",
-                "GDRNTrainMapper", "do_train", "do_test", "train.main"]
+                "GDRNTrainMapper", "do_train", "do_test", "train.main", "cus", "cou_bb_proj",
+                "predict.main", "eval_csv.main", "gen_xyz.main"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -264,9 +284,9 @@ def test_entry_point_defaults_to_the_card(entry, tiny_split, tmp_path):
 def test_port_imports_no_jax():
     """Every module of the port (found by walking the package, so new ones
     are covered), then merged_config on the flagship: no JAX, nor the JAX
-    package or its tools/ scripts, cv2 or tabulate, which the card's machine
-    lacks, nor PIL, torchvision or tensorboard, which no required path
-    needs."""
+    package or its tools/ scripts, cv2, tabulate or matplotlib, which the
+    card's machine lacks, nor PIL, torchvision or tensorboard, which no
+    required path needs."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import gdrnet_tpu_torch\n"
@@ -276,11 +296,15 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "assert 'gdrnet_tpu_torch.ops.kernels' in names and len(names) > 25, names\n"
         "assert 'gdrnet_tpu_torch.tools.gen_scale_dataset' in names, names\n"
+        "for tool in ('predict', 'eval_csv', 'gen_xyz'):\n"
+        "    assert 'gdrnet_tpu_torch.tools.' + tool in names, names\n"
+        "for mod in ('utils.fold_bn', 'models.quantize', 'eval.pose_matching', 'eval.report'):\n"
+        "    assert 'gdrnet_tpu_torch.' + mod in names, names\n"
         "from gdrnet_tpu_torch import merged_config\n"
         f"merged_config({FLAGSHIP!r})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gdrnet_tpu', 'cv2',\n"
-        "              'tabulate', 'PIL', 'torchvision', 'tensorboard', 'tools',\n"
+        "              'tabulate', 'matplotlib', 'PIL', 'torchvision', 'tensorboard', 'tools',\n"
         "              'compute_fps', 'gen_scale_dataset'))\n"
         "assert not bad, bad\n"
     )

@@ -410,8 +410,6 @@ def _no_mapping(monkeypatch):
 
 
 @pytest.mark.parametrize("setting,value,item", [("TEST.USE_PNP", True, "A9"),
-                                                ("TEST.FOLD_BN", True, "A11"),
-                                                ("TEST.INT8", True, "A11"),
                                                 ("TEST.LOCAL_DEVICES", 2, "A10")])
 def test_what_waits_raises_before_mapping(fix, weights, monkeypatch, setting, value, item):
     cfg = _cfg(fix)
