@@ -29,10 +29,17 @@ into the convs (utils/fold_bn.py) and int8 (models/quantize.py: im2col and
 torch._int_mm), the predict CLI over the split's images and detections, the
 eval_csv CLI re-scoring its CSV (ADD-S on the nearest-neighbour kernel, VSD
 on the z-buffer kernel), and gen_xyz writing the train split's XYZ ground
-truth with the z-buffer kernel.
+truth with the z-buffer kernel. Then the LM-O slice: the port's JPEG codec
+(gdrnet_tpu_torch/csrc/jpeg_codec.cpp, host C++ built with g++) against
+the digests cv2 gives, and the LM-O config
+(configs/gdrn/lmo/a6_cPnP_AugAAETrunc_BG0.5_lmo_real_pbr0.1_40e.py) at full
+width trained and tested through python -m gdrnet_tpu_torch.engine.train on
+an LM-O tree this script writes: real LM frames, PBR frames as JPEGs whose
+XYZ the z-buffer kernel renders, VOC_table JPEG backgrounds, and ADD-S of
+eggbox and glue on the nearest-neighbour kernel in do_test.
 
 Phases, one line each (or one per case): device, kernel builds (both nvcc
-runs at once), nn_min_dist against its plain PyTorch version and cKDTree,
+runs and the codec's g++ at once), nn_min_dist against its plain PyTorch version and cKDTree,
 timed beside its bound and torch.cdist; rasterize_xyz against its plain
 version (20 cases), and its time beside its bounds and the share of
 pixel-face pairs it culls; f32 forward on the GPU against the CPU, bf16
@@ -59,7 +66,15 @@ in a subprocess, scene 1 in f32 on the card against the CPU, FOLD_BN + INT8
 through its options), [eval_csv] (the CLI, its recalls against
 score_results, B1 and B2 launches, cus / cou_bb_proj card against CPU),
 [gen_xyz] (the CLI over the train split, scene 1 against the CPU, the
-mapper from its pickles), [loader_pkl] (the loader alone with them); last, what
+mapper from its pickles), [loader_pkl] (the loader alone with them); the
+LM-O slice: [jpeg] (41 cases' stream and image digests against cv2's,
+decode and encode ms of a 640x480 q95 frame, decodes/s on 4 threads),
+[train_lmo_tree] and [train_lmo] (8 PBR samples mapped on the card against
+the CPU, the loader alone, then the CLI in a subprocess: JPEG decodes of
+PBR frames and backgrounds, losses finite with no step skipped, B2 at least
+once a sample, one CSV row a kept detection, B1 in do_test; step and data
+times, data-wait share, ROIs/s, loader samples/s, the share of samples
+whose background was replaced); last, what
 torch.profiler measures (rasterize_xyz's launches per call and its
 kernels' device time, the device time of a BOP scoring call, the train
 step's busy share, top device operations and Ranger's launches), so that no
@@ -97,6 +112,8 @@ from gdrnet_tpu_torch import (
     make_train_step,
     merged_config,
 )
+from gdrnet_tpu_torch.config.config import apply_opts
+from gdrnet_tpu_torch.data import jpeg, jpeg_cases, ref_meta
 from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts, load_detections
 from gdrnet_tpu_torch.data.dataset_factory import resolve
 from gdrnet_tpu_torch.data.io import read_png, write_png
@@ -128,6 +145,7 @@ from gdrnet_tpu_torch.ops import kernels
 from gdrnet_tpu_torch.ops.rasterizer import render_phong_xyz_roi_many, vertex_normals
 from gdrnet_tpu_torch.ops.symmetry import get_closest_rot_batch, identity_padded_sym_arrays
 from gdrnet_tpu_torch.tools import eval_csv as eval_csv_tool
+from gdrnet_tpu_torch.tools.compute_fps import compute_fps_dict
 from gdrnet_tpu_torch.tools import gen_xyz as gen_xyz_tool
 from gdrnet_tpu_torch.tools import predict as predict_tool
 from gdrnet_tpu_torch.utils.fold_bn import conv_bn_pairs, fold_batch_norms
@@ -216,6 +234,28 @@ GEN_TIMEOUT_S = 300
 # subprocesses within TOOL_TIMEOUT_S; cus / cou_bb_proj on SIL_PAIRS pairs
 FOLD_POSE_ATOL, INT8_VS_BF16_DEG, INT8_VS_BF16_TRANS_REL = 2e-4, 1.0, 0.05
 INT8_CHECK_CROPS, SERVE_ITERS, TOOL_TIMEOUT_S, SIL_PAIRS = 2, {64: 20, 1024: 6}, 300, 8
+# the JPEG codec: the case list of data/jpeg_cases.py against cv2's digests,
+# then a 640x480 q95 4:2:0 frame timed JPEG_TIMED times on one thread and
+# JPEG_THREADS threads
+JPEG_TIMED, JPEG_THREADS = 40, 4
+# the LM-O config as a user trains it (configs/gdrn/lmo/a6_..._40e.py, full
+# width, its INPUT and DATASETS blocks as they are) on an LM-O tree written
+# here: the 8 LM-O objects on 8 zoo meshes (eggbox and glue on symmetric
+# ones); lm/test/<obj id> with image_set/<obj>_all.txt of LMO_LM_IMAGES
+# images of one instance each (lmo_train); lmo/train_pbr of LMO_PBR_SCENES x
+# LMO_PBR_IMAGES frames of the 8 objects as q95 JPEGs, no xyz_crop pickles
+# (lmo_pbr_train); lmo/test scene 2 of LMO_TEST_IMAGES images (lmo_test);
+# LMO_VOC_IMAGES VOC_table backgrounds at VOC's sizes, LMO_VOC_NEGATIVE of
+# them off the dining-table list. SOLVER.TOTAL_EPOCHS=LMO_EPOCHS gives
+# LMO_EPOCHS * (8 * LMO_LM_IMAGES // 24) iterations; LMO_MAPPED PBR samples
+# mapped on the card against the CPU
+LMO_CONFIG = str(REPO / "configs/gdrn/lmo/a6_cPnP_AugAAETrunc_BG0.5_lmo_real_pbr0.1_40e.py")
+LMO_MESHES = {1: "cube", 5: "plate", 6: "pyramid", 8: "lblock", 9: "wedge", 10: "brick",
+              11: "hexprism", 12: "octa"}  # LM-O id -> zoo mesh; 10 eggbox, 11 glue
+LMO_LM_IMAGES, LMO_PBR_SCENES, LMO_PBR_IMAGES, LMO_TEST_IMAGES = 12, 2, 8, 8
+LMO_VOC_IMAGES, LMO_VOC_NEGATIVE, LMO_EPOCHS, LMO_MAPPED = 12, 2, 8, 8
+LMO_VOC_SIZES = ((375, 500), (500, 375), (333, 500))  # (h, w)
+LMO_CLI_TIMEOUT_S = 600
 # device kernels of a train step by kind, from marks in their names
 TRAIN_OP_KINDS = (
     ("conv_and_matmul", ("xmma", "gemm", "conv", "cudnn", "cutlass", "sm90_")),
@@ -292,9 +332,9 @@ def to_device(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def phase_build(names=("nn_min_dist", "rasterize_xyz")) -> None:
-    """Build every kernel from the checkout's sources, one nvcc each, all
-    started together."""
+def phase_build(names=("nn_min_dist", "rasterize_xyz", "jpeg_codec")) -> None:
+    """Build every kernel from the checkout's sources, one nvcc each, and the
+    host JPEG codec with g++, all started together."""
     def one(name):
         t0 = time.perf_counter()
         path = csrc.build(name)
@@ -2187,6 +2227,316 @@ def phase_loader_pkl(root: str, loader_rate: float) -> None:
         b2_launches=kernels.rasterize_attr.launches - before)
 
 
+def phase_jpeg() -> None:
+    """The JPEG codec (csrc/jpeg_codec.cpp, built with g++ at first use) on
+    the card's host: every case of data/jpeg_cases.py encoded and decoded,
+    the SHA-256 of each stream and each decoded image against the digests
+    cv2 gives; then a 640x480 q95 4:2:0 frame decoded and encoded on one
+    thread (host-clock ms) and decoded on JPEG_THREADS threads (images/s)."""
+    got = jpeg_cases.port_digests()
+    bad = [k for k, v in jpeg_cases.DIGESTS.items() if got.get(k) != v]
+    if bad or len(got) != len(jpeg_cases.DIGESTS):
+        raise AssertionError(f"jpeg: digests differ from cv2's for {bad}")
+    case = next(c for c in jpeg_cases.CASES if c.name == "640x480_q95_420")
+    frame = jpeg_cases.case_image(case)
+    data = jpeg.encode_jpeg(frame, 95, "420")
+
+    def host_ms(fn) -> np.ndarray:
+        fn()
+        out = []
+        for _ in range(JPEG_TIMED):
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return np.asarray(out)
+
+    dec_ms, enc_ms = host_ms(lambda: jpeg.decode_jpeg(data)), host_ms(lambda: jpeg.encode_jpeg(frame))
+    with ThreadPoolExecutor(JPEG_THREADS) as pool:
+        list(pool.map(lambda _: jpeg.decode_jpeg(data), range(JPEG_THREADS)))
+        t0 = time.perf_counter()
+        list(pool.map(lambda _: jpeg.decode_jpeg(data), range(JPEG_THREADS * JPEG_TIMED)))
+        rate = JPEG_THREADS * JPEG_TIMED / (time.perf_counter() - t0)
+    log("jpeg", cases=len(got), digests="equal to cv2", frame="640x480 q95 4:2:0",
+        stream_bytes=len(data), decode_ms_median=f"{np.median(dec_ms):.3f}",
+        encode_ms_median=f"{np.median(enc_ms):.3f}", timed=JPEG_TIMED,
+        decode_images_per_s_1_thread=f"{1e3 / np.median(dec_ms):.1f}",
+        decode_images_per_s_threads=f"{rate:.1f}", threads=JPEG_THREADS, check="ok")
+
+
+def voc_image(rng, h: int, w: int) -> np.ndarray:
+    """A background frame: blocky colour fields blurred by a box filter, with
+    noise, as BGR uint8."""
+    coarse = rng.randint(0, 256, (h // 25 + 2, w // 25 + 2, 3)).astype(np.float32)
+    img = np.kron(coarse, np.ones((25, 25, 1), np.float32))[:h, :w]
+    img = (img + np.roll(img, 12, 0) + np.roll(img, 12, 1) + np.roll(img, (12, 12), (0, 1))) / 4
+    return np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+
+
+def write_lmo_tree(gsd, root: str) -> dict:
+    """The LM-O layout the reference reads, written with the port's tools
+    (write_bop_split, renders on DEV; compute_fps; encode_jpeg): returns the
+    BOP root, the VOC root and counts."""
+    bop_root = Path(root) / "lmo_data" / "BOP_DATASETS"
+    zoo = {m[0]: m for m in gsd.mesh_zoo()}
+    meshes = [zoo[LMO_MESHES.get(i, "tower")] for i in range(1, 13)]  # ids 2-4, 7 unused
+    lmo_idx = np.array(sorted(LMO_MESHES)) - 1
+    K = gsd.K_DEF.astype(np.float32)
+    W, H = gsd.W_DEF, gsd.H_DEF
+    scratch = Path(root) / "lmo_scratch"
+    # lm/test/<obj id>: one instance an image, and image_set/<obj>_all.txt
+    lm_sets = bop_root / "lm" / "image_set"
+    lm_sets.mkdir(parents=True)
+    for k, oid in enumerate(sorted(LMO_MESHES)):
+        _, R, t = train_split_poses(LMO_LM_IMAGES, K, W, H, seed=500 + k)
+        t[:, :2] *= 0.3  # near the centre of the frame
+        write_bop_split(str(scratch / f"lm{oid}"), meshes, np.full(LMO_LM_IMAGES, oid - 1), R, t,
+                        K, W, H, 1, LMO_LM_IMAGES, device=DEV, split="test")
+        (bop_root / "lm" / "test").mkdir(parents=True, exist_ok=True)
+        (scratch / f"lm{oid}" / "test" / "000001").rename(bop_root / "lm" / "test" / f"{oid:06d}")
+        name = ref_meta.LMO_ID2OBJ[oid]
+        (lm_sets / f"{name}_all.txt").write_text("".join(f"{i}\n" for i in range(LMO_LM_IMAGES)))
+    # lmo/train_pbr (JPEG frames) and lmo/test scene 2, with the models
+    lmo = bop_root / "lmo"
+    n_pbr = LMO_PBR_SCENES * LMO_PBR_IMAGES * 8
+    _, R, t = train_split_poses(n_pbr, K, W, H, seed=600)
+    write_bop_split(str(lmo), meshes, np.tile(lmo_idx, n_pbr // 8), R, t, K, W, H, 8,
+                    LMO_PBR_IMAGES, device=DEV, split="train_pbr")
+    n_jpeg = 0
+    for png in sorted(lmo.glob("train_pbr/*/rgb/*.png")):
+        jpeg.write_jpeg(str(png.with_suffix(".jpg")), read_png(str(png))[..., ::-1], 95)
+        png.unlink()
+        n_jpeg += 1
+    _, R, t = train_split_poses(LMO_TEST_IMAGES * 8, K, W, H, seed=700)
+    write_bop_split(str(lmo), meshes, np.tile(lmo_idx, LMO_TEST_IMAGES), R, t, K, W, H, 8,
+                    LMO_TEST_IMAGES, device=DEV, split="test")
+    (lmo / "test" / "000001").rename(lmo / "test" / "000002")
+    fps = compute_fps_dict(str(lmo / "models"), sorted(LMO_MESHES))
+    with open(lmo / "models" / "fps_points.pkl", "wb") as f:
+        pickle.dump(fps, f)
+    # VOC_table backgrounds beside the BOP root
+    voc = bop_root.parent / "VOCdevkit" / "VOC2012"
+    (voc / "JPEGImages").mkdir(parents=True)
+    (voc / "ImageSets" / "Main").mkdir(parents=True)
+    rng = np.random.RandomState(8)
+    lines = []
+    for i in range(LMO_VOC_IMAGES):
+        h, w = LMO_VOC_SIZES[i % len(LMO_VOC_SIZES)]
+        name = f"2008_{i:06d}"
+        jpeg.write_jpeg(str(voc / "JPEGImages" / f"{name}.jpg"), voc_image(rng, h, w), 90)
+        lines.append(f"{name} {-1 if i < LMO_VOC_NEGATIVE else 1}\n")
+    (voc / "ImageSets" / "Main" / "diningtable_trainval.txt").write_text("".join(lines))
+    return {"bop": str(bop_root), "voc": str(voc), "pbr_jpegs": n_jpeg,
+            "voc_jpegs": LMO_VOC_IMAGES, "voc_table": LMO_VOC_IMAGES - LMO_VOC_NEGATIVE}
+
+
+def lmo_overrides(tree: dict, out: str, dets: str) -> list:
+    """The KEY=value options a user gives the LM-O config on this tree: the
+    BG root, OUTPUT_DIR, the run length, the workers, the detections, and
+    no weights file (the data root is --data-root)."""
+    return [f"INPUT.BG_IMGS_ROOT={tree['voc']!r}", f"OUTPUT_DIR={out!r}",
+            f"SOLVER.TOTAL_EPOCHS={LMO_EPOCHS}", f"DATALOADER.NUM_WORKERS={LOOP_WORKERS}",
+            f"DATASETS.DET_FILES_TEST=({dets!r},)", "MODEL.WEIGHTS=''",
+            "MODEL.CDPN.BACKBONE.PRETRAINED=''"]
+
+
+def train_cli_child(argv: list) -> None:
+    """[train_lmo]'s subprocess: `python -m gdrnet_tpu_torch.engine.train
+    <argv>` run as `python -m` runs it (runpy, as __main__), with counting
+    wrappers around the JPEG decoder (by folder), the train mapper (by
+    img_type), the background replacer, the train step (host clock at each
+    call, its metrics) and the loader (host-clock wait for each batch).
+    Its last line is TRAIN_CLI {json}."""
+    import runpy
+    import threading
+
+    from gdrnet_tpu_torch.data import augment as aug_mod, io as io_mod, mapper as mapper_mod
+    from gdrnet_tpu_torch.engine import trainer as trainer_mod
+
+    lock = threading.Lock()
+    counts: dict = defaultdict(int)
+
+    def bump(key: str) -> None:
+        with lock:
+            counts[key] += 1
+
+    decode = io_mod.decode_jpeg
+
+    def counted_decode(data, flags="color", name="JPEG stream"):
+        bump("decode_pbr" if "/train_pbr/" in name else
+             "decode_bg" if "/JPEGImages/" in name else "decode_other")
+        return decode(data, flags, name)
+
+    call, replace = mapper_mod.GDRNTrainMapper.__call__, aug_mod.BackgroundReplacer.replace
+
+    def counted_call(self, rec, rng):
+        bump(f"samples_{rec.get('img_type', 'real')}")
+        return call(self, rec, rng)
+
+    def counted_replace(self, *args, **kwargs):
+        bump("bg_replaced")
+        return replace(self, *args, **kwargs)
+
+    steps_log, waits = [], []
+    make_step, build_pipeline, train = (trainer_mod.make_train_step,
+                                        trainer_mod.build_input_pipeline, trainer_mod.do_train)
+
+    def timed_make_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def timed(state, batch, gen):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, gen)
+            steps_log.append((t0, metrics))
+            return state, metrics
+        return timed
+
+    class TimedLoader:
+        def __init__(self, loader):
+            self.loader = loader
+
+        def __iter__(self):
+            it = iter(self.loader)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    batch = next(it)
+                    waits.append(time.perf_counter() - t0)
+                    yield batch
+            finally:
+                it.close()
+
+    def timed_pipeline(*args, **kwargs):
+        loader, to_dev = build_pipeline(*args, **kwargs)
+        return TimedLoader(loader), to_dev
+
+    train_out: dict = {}
+
+    def counted_train(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = train(*args, **kwargs)
+        torch.cuda.synchronize()
+        train_out.update(
+            wall_s=time.perf_counter() - t0, b1=kernels.nn_min_dist.launches,
+            b2=kernels.rasterize_xyz.launches, samples=dict(counts),
+            losses=[float(m["total_loss"]) for _, m in steps_log],
+            skips=[float(m.get("nonfinite_skip", 0.0)) for _, m in steps_log],
+            step_starts=[t for t, _ in steps_log], waits=list(waits))
+        return out
+
+    io_mod.decode_jpeg = counted_decode
+    mapper_mod.GDRNTrainMapper.__call__ = counted_call
+    aug_mod.BackgroundReplacer.replace = counted_replace
+    trainer_mod.make_train_step = timed_make_step
+    trainer_mod.build_input_pipeline = timed_pipeline
+    trainer_mod.do_train = counted_train
+    sys.argv = ["gdrnet_tpu_torch.engine.train", *argv]
+    runpy.run_module("gdrnet_tpu_torch.engine.train", run_name="__main__", alter_sys=True)
+    torch.cuda.synchronize()
+    print("TRAIN_CLI " + json.dumps({
+        "train": train_out, "b1_test": kernels.nn_min_dist.launches - train_out["b1"],
+        "b2_test": kernels.rasterize_xyz.launches - train_out["b2"], "counts": dict(counts)}),
+        flush=True)
+
+
+def phase_train_lmo(gsd, root: str, card: str, flagship_loader_rate: float) -> tuple[int, int]:
+    """The LM-O config at full width trained and tested as a user runs it:
+    `python -m gdrnet_tpu_torch.engine.train --config-file <lmo cfg>
+    --data-root <tree>` over an LM-O tree of the zoo meshes (lmo_train PNGs,
+    lmo_pbr_train JPEGs at TRAIN2_RATIO 0.1, VOC_table JPEG backgrounds at
+    CHANGE_BG_PROB 0.5, lmo_test with estimated detections). Gates: the JPEG
+    decoder read PBR frames and backgrounds; every loss finite and no step
+    skipped; B2 launched at least once per sample mapped (no sample has a
+    pickle); LMO_MAPPED PBR samples mapped on the card bitwise equal to the
+    CPU; one CSV row per kept detection with a rotation; B1 launched in
+    do_test. Returns (B1, B2) launches of the CLI's run."""
+    t0 = time.perf_counter()
+    tree = write_lmo_tree(gsd, root)
+    write_s = time.perf_counter() - t0
+    _, test_recs = resolve("lmo_test", tree["bop"])
+    dets = write_detections({"records": test_recs}, str(Path(root) / "lmo_dets.json"))
+    out = str(Path(root) / "lmo_out")
+    opts = lmo_overrides(tree, out, dets["path"])
+    c = merged_config(LMO_CONFIG)
+    apply_opts(c, opts)
+    log("train_lmo_tree", lm_images=8 * LMO_LM_IMAGES, pbr_jpegs=tree["pbr_jpegs"],
+        test_images=LMO_TEST_IMAGES, voc_jpegs=tree["voc_jpegs"], voc_table=tree["voc_table"],
+        detections_kept=dets["kept"], write_s=f"{write_s:.2f}")
+
+    # (a) LMO_MAPPED PBR samples: the card against the CPU, same seeds
+    _, records, records2, models, mapper = build_train_objects(c, tree["bop"], DEV)
+    if not records2 or not all(r["rgb_path"].endswith(".jpg") for r in records2):
+        raise AssertionError(f"train_lmo: {len(records2)} PBR records, not all JPEG frames")
+    np.random.seed(0)
+    on_card = GDRNTrainMapper(c, models, bg_replacer=mapper.bg, device=DEV)
+    np.random.seed(0)
+    on_cpu = GDRNTrainMapper(c, models, bg_replacer=mapper.bg, device="cpu")
+    step = max(1, len(records2) // LMO_MAPPED)
+    for i, rec in enumerate(records2[::step][:LMO_MAPPED]):
+        got, want = on_card(dict(rec), np.random.RandomState(i)), on_cpu(dict(rec),
+                                                                         np.random.RandomState(i))
+        for k in want:
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"train_lmo: PBR record {i} {k} card vs CPU differ")
+    loader_rate = time_loader(c, tree["bop"])
+
+    # (b) the CLI: train, then do_test on lmo_test
+    cmd = [sys.executable, str(REPO / "chip_smoke.py"), "--train-cli-child", "--config-file",
+           LMO_CONFIG, "--data-root", tree["bop"], *opts]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=LMO_CLI_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("TRAIN_CLI ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"train_lmo: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    run = json.loads(lines[-1][len("TRAIN_CLI "):])
+    tr, counts = run["train"], run["counts"]
+    samples = tr["samples"]
+    n_samples = sum(v for k, v in samples.items() if k.startswith("samples_"))
+    n_pbr = samples.get("samples_syn_pbr", 0)
+    losses, skips = np.array(tr["losses"]), np.array(tr["skips"])
+    iters = len(losses)
+    if not (samples.get("decode_pbr", 0) >= n_pbr > 0 and samples.get("decode_bg", 0) > 0):
+        raise AssertionError(f"train_lmo: JPEG decodes {samples} for {n_pbr} PBR samples")
+    if iters != LMO_EPOCHS * (8 * LMO_LM_IMAGES // c.SOLVER.IMS_PER_BATCH) or not np.all(
+            np.isfinite(losses)) or skips.any():
+        raise AssertionError(f"train_lmo: {iters} steps, losses {losses.tolist()}, "
+                             f"skips {skips.tolist()}")
+    if tr["b2"] < n_samples or tr["b1"]:
+        raise AssertionError(f"train_lmo: B2 launched {tr['b2']} times for {n_samples} samples, "
+                             f"B1 {tr['b1']} in training")
+    with open(Path(out) / "results.json") as f:
+        res = json.load(f)
+    rows = load_bop_results(res["_csv_path"])
+    csv_rows_check(rows, "train_lmo")
+    if len(rows) != dets["kept"] or run["b1_test"] < 1:
+        raise AssertionError(f"train_lmo: {len(rows)} CSV rows for {dets['kept']} kept "
+                             f"detections, B1 launched {run['b1_test']} times in do_test")
+    # iteration wall times: from one step's call to the next's; the data
+    # wait: the loader's batches after the first, each fetched in one step
+    starts = np.array(tr["step_starts"])
+    step_ms = np.diff(starts)[1:] * 1e3  # the first step warms every kernel up
+    data_ms = np.array(tr["waits"][2:2 + len(step_ms)]) * 1e3
+    log("train_lmo", card=repr(card), config=Path(LMO_CONFIG).name,
+        batch=c.SOLVER.IMS_PER_BATCH, classes=c.MODEL.CDPN.ROT_HEAD.NUM_CLASSES,
+        workers=LOOP_WORKERS, iterations=iters, losses_finite=True, skipped=int(skips.sum()),
+        total_loss_first=f"{losses[0]:.4f}", total_loss_last=f"{losses[-1]:.4f}",
+        step_ms_median=f"{np.median(step_ms):.1f}", data_ms_median=f"{np.median(data_ms):.1f}",
+        data_share=f"{data_ms.sum() / step_ms.sum():.3f}",
+        rois_per_s=f"{c.SOLVER.IMS_PER_BATCH / np.median(step_ms) * 1e3:.1f}",
+        loader_samples_per_s=f"{loader_rate:.1f}",
+        flagship_loader_samples_per_s=f"{flagship_loader_rate:.1f}",
+        samples=n_samples, pbr_samples=n_pbr, pbr_share=f"{n_pbr / n_samples:.3f}",
+        bg_replaced_share=f"{samples.get('bg_replaced', 0) / n_samples:.3f}",
+        jpeg_decodes_pbr=samples.get("decode_pbr", 0), jpeg_decodes_bg=samples.get("decode_bg", 0),
+        launches_rasterize_xyz_train=tr["b2"], launches_per_sample=f"{tr['b2'] / n_samples:.2f}",
+        pbr_mapped_card_vs_cpu=f"{LMO_MAPPED} bitwise equal", csv_rows=len(rows),
+        launches_nn_min_dist_test=run["b1_test"], launches_rasterize_xyz_test=run["b2_test"],
+        ar_bop19=res.get("_bop_average_recall", "not scored"), train_s=f"{tr['wall_s']:.1f}",
+        cli_wall_s=f"{wall_s:.1f}", check="ok")
+    return run["b1_test"], tr["b2"] + run["b2_test"]
+
+
 def check_rotations(R: np.ndarray, where: str) -> None:
     if not np.all(np.isfinite(R)):
         raise AssertionError(f"{where}: non-finite rotations")
@@ -2346,6 +2696,8 @@ def main() -> int:
         csv_launches = phase_eval_csv(cfg, split, predicted, root)
         xyz_launches = phase_gen_xyz(cfg, root)
         phase_loader_pkl(root, loader_rate)
+        phase_jpeg()
+        lmo_launches = phase_train_lmo(gsd, root, card, loader_rate)
         phase_profile(cfg, split, scored, raster_timed, train, serving)
     test_launches = tested[2]
 
@@ -2353,12 +2705,13 @@ def main() -> int:
         {"name": "nn_min_dist", "route": "cuda",
          "source": "gdrnet_tpu_torch/csrc/nn_min_dist.cu",
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:28",
-         "launches": launches + test_launches[0] + csv_launches[0], **nn_stats},
+         "launches": launches + test_launches[0] + csv_launches[0] + lmo_launches[0],
+         **nn_stats},
         {"name": "rasterize_xyz", "route": "cuda",
          "source": "gdrnet_tpu_torch/csrc/rasterize_xyz.cu",
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:140",
          "launches": raster_launches + loop_launches + test_launches[1] + gen_launches
-         + csv_launches[1] + xyz_launches,
+         + csv_launches[1] + xyz_launches + lmo_launches[1],
          **raster_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -2366,4 +2719,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-cli-child"]:
+        train_cli_child(sys.argv[2:])
+        sys.exit(0)
     sys.exit(main())

@@ -10,13 +10,12 @@ _get_color_augmentor/_color_aug and :320-419 replace_bg/get_bg_image):
     every shipped config uses, evaluated against numpy ops in a restricted
     namespace
   * background replacement with aspect-keeping resize and optional
-    foreground truncation (TRUNCATE_FG), from PNG backgrounds or the
-    gradient fallback
+    foreground truncation (TRUNCATE_FG), from PNG or JPEG backgrounds
+    (data/jpeg.py) or the gradient fallback
 
 Not ported yet (ROADMAP.md A13, each raises NotImplementedError): the
 ROI10D, SSD and albumentations pipelines and the saturation / hue ops, which
-need OpenCV's HSV, LAB and CLAHE; JPEG backgrounds, which need a JPEG
-decoder.
+need OpenCV's HSV, LAB and CLAHE.
 
 Every op takes (img uint8 HWC BGR, rng: np.random.RandomState).
 """
@@ -359,10 +358,9 @@ class BackgroundReplacer:
 
     @staticmethod
     def _read(path: str) -> np.ndarray | None:
-        if not path.lower().endswith(".png"):
-            raise NotImplementedError(
-                f"background {path}: only PNG backgrounds are read; JPEG decoding is not "
-                "ported yet (ROADMAP.md A13)")
+        """The background as cv2.imread reads it, None where cv2 gives None
+        (a missing, unreadable or corrupt file). A JPEG process the port does
+        not decode raises, since cv2 would have read the file."""
         try:
             return load_im(path)
         except (OSError, ValueError):

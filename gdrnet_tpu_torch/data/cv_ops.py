@@ -11,8 +11,8 @@ computes it:
                     for bit.
   resize_nearest    cv2.resize(..., INTER_NEAREST) (augment.py:92); bit for bit.
   resize_linear     cv2.resize(u8, (w, h)) (augment.py:467,471): 11-bit
-                    fixed-point coefficients; within 1 grey level, not bit for
-                    bit (OpenCV's vector and scalar rounding differ).
+                    fixed-point coefficients, the vertical weights unclamped
+                    at the border rows; bit for bit.
   median_blur3      cv2.medianBlur(f32, 3), BORDER_REPLICATE (mapper.py:88).
   laplacian         cv2.Laplacian(f32, CV_32F) with ksize=1, BORDER_REFLECT_101
                     (mapper.py:90).
@@ -139,15 +139,20 @@ def resize_nearest(img: np.ndarray, width: int, height: int) -> np.ndarray:
     return img[ys][:, xs]
 
 
-def _linear_taps(dst: int, src: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+def _linear_taps(dst: int, src: int, clamp: bool) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Source index and 11-bit weights (sum 2048) of each destination index
-    of a linear resize, with OpenCV's half-pixel centres and edge clamps."""
+    of a linear resize, with OpenCV's half-pixel centres. `clamp` is
+    OpenCV's horizontal rule: a tap before the first or past the last source
+    index takes that index whole. Vertically OpenCV keeps the fraction and
+    clamps only the two rows it reads, so a border row of an upscale is
+    row * w0 + row * w1, which rounds apart from row * 2048."""
     f = ((np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(np.float32)
     s = np.floor(f).astype(np.int64)
     f = f - s.astype(np.float32)
-    edge = (s < 0) | (s >= src - 1)
-    f[edge] = 0.0
-    s = np.clip(s, 0, src - 1)
+    if clamp:
+        edge = (s < 0) | (s >= src - 1)
+        f[edge] = 0.0
+        s = np.clip(s, 0, src - 1)
     return s, np.rint((np.float32(1) - f) * 2048).astype(np.int64), np.rint(f * 2048).astype(np.int64)
 
 
@@ -155,12 +160,12 @@ def resize_linear(img: np.ndarray, width: int, height: int) -> np.ndarray:
     """cv2.resize(img, (width, height)) of a uint8 [H,W,C] image (bilinear,
     11-bit fixed point, the vertical rounding of OpenCV's vector path)."""
     h, w = img.shape[:2]
-    sx, ax0, ax1 = _linear_taps(width, w)
-    sy, by0, by1 = _linear_taps(height, h)
+    sx, ax0, ax1 = _linear_taps(width, w, clamp=True)
+    sy, by0, by1 = _linear_taps(height, h, clamp=False)
     src = img.astype(np.int64)
     rows = (src[:, sx] * ax0[None, :, None] + src[:, np.minimum(sx + 1, w - 1)]
             * ax1[None, :, None])
-    r0, r1 = rows[sy] >> 4, rows[np.minimum(sy + 1, h - 1)] >> 4
+    r0, r1 = rows[np.clip(sy, 0, h - 1)] >> 4, rows[np.clip(sy + 1, 0, h - 1)] >> 4
     v = (((r0 * by0[:, None, None]) >> 16) + ((r1 * by1[:, None, None]) >> 16) + 2) >> 2
     return np.clip(v, 0, 255).astype(np.uint8)
 

@@ -16,10 +16,8 @@ LM real splits resolve through `image_set/<obj>_<split>.txt` idx files over
 the test/ scene of the object when that dir exists (the reference's real-LM
 layout, lm_dataset_d2.py:310-392; "all" = train+test union used to train
 LM-O, :364-371); fixtures without image_set fall back to plain split dirs.
-
-The blender / imgn render-folder datasets (lm_blender_*, lm_imgn_*,
-lmo_blender_*) are JPEG renders; they raise NotImplementedError until the
-port decodes JPEG (ROADMAP.md A13).
+The blender / imgn render folders (lm_blender_*, lm_imgn_*, lmo_blender_*)
+live beside the BOP root (data/render_dataset.py).
 """
 
 from __future__ import annotations
@@ -30,12 +28,14 @@ import os.path as _osp
 
 from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts
 from gdrnet_tpu_torch.data.ref_meta import DatasetMeta, get_meta, meta_from_json
+from gdrnet_tpu_torch.data.render_dataset import load_render_folder_dicts
 
 
-def _render_folders_wait(name: str) -> None:
-    raise NotImplementedError(
-        f"{name}: the blender / imgn render folders are JPEG; the port decodes PNG only "
-        "(ROADMAP.md A13)")
+def osp_join_root(data_root: str, sub: str) -> str:
+    """Renders live beside (not inside) BOP_DATASETS (reference layout:
+    datasets/lm_renders_blender vs datasets/BOP_DATASETS/lm)."""
+    parent = _osp.dirname(data_root.rstrip("/")) or "."
+    return _osp.join(parent, sub)
 
 
 _REGISTRY: dict[str, Callable[[], tuple[DatasetMeta, list[dict]]]] = {}
@@ -73,7 +73,20 @@ def resolve(name: str, data_root: str = "datasets/BOP_DATASETS",
     if ds == "lm" and ("blender" in parts or "imgn" in parts):
         # lm_blender_13_train | lm_imgn_13_train_1k_per_obj
         # (reference lm_blender.py:304 / lm_syn_imgn.py)
-        _render_folders_wait(name)
+        meta = get_meta("lm13" if "13" in parts else "lm", data_root)
+        n_per_obj = -1
+        for p in parts:
+            if p.endswith("k") and p[:-1].isdigit():
+                n_per_obj = int(p[:-1]) * 1000
+        kind = "blender" if "blender" in parts else "imgn"
+        sub = ("lm_renders_blender/renders" if kind == "blender"
+               else "lm_imgn/imgn")
+        renders_root = osp_join_root(data_root, sub)
+        recs = load_render_folder_dicts(
+            meta, renders_root, objs=meta.objects, n_per_obj=n_per_obj,
+            img_type="syn_blender" if kind == "blender" else "syn",
+            visib_thr=visib_thr)
+        return meta, recs
     if ds == "lm":
         meta = get_meta("lm13" if "13" in parts else "lm", data_root)
         objs = None
@@ -105,7 +118,11 @@ def resolve(name: str, data_root: str = "datasets/BOP_DATASETS",
         if "blender" in parts:
             # lmo_blender[_<obj>]_train: LM blender renders of the LMO
             # objects (reference lm_blender.py:327 SPLITS)
-            _render_folders_wait(name)
+            renders_root = osp_join_root(data_root, "lm_renders_blender/renders")
+            recs = load_render_folder_dicts(
+                meta, renders_root, objs=objs or meta.objects,
+                img_type="syn_blender", visib_thr=visib_thr)
+            return meta, recs
         if "pbr" in parts:
             split, img_type = "train_pbr", "syn_pbr"
         elif "test" in parts or "bop" in parts:

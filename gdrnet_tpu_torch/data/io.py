@@ -1,13 +1,14 @@
 """Image / depth / json IO (counterpart of gdrnet_tpu/data/io.py).
 
-The JAX module reads and writes PNGs through OpenCV. This one carries its
+The JAX module reads and writes images through OpenCV. This one carries its
 own small PNG codec (zlib + struct + numpy), so the port needs no cv2:
 8- and 16-bit, gray and RGB, non-interlaced; every filter type on read,
-filter 0 on write. `load_im`, `load_depth` and `save_depth` give what the
-JAX module's cv2 calls give on such files: `load_im` returns BGR like
-cv2.IMREAD_COLOR (gray replicated to three channels, 16-bit cut to its high
-byte), `load_depth` takes channel 0 of the BGR image when the file has
-three channels.
+filter 0 on write; JPEGs go through data/jpeg.py. `load_im`, `load_depth`
+and `save_depth` give what the JAX module's cv2 calls give on such files:
+`load_im` picks the codec by the file's signature, as cv2.imread does, and
+returns BGR like cv2.IMREAD_COLOR (gray replicated to three channels, 16-bit
+cut to its high byte), `load_depth` takes channel 0 of the BGR image when
+the file has three channels.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ import struct
 import zlib
 
 import numpy as np
+
+from gdrnet_tpu_torch.data.cv_ops import bgr_to_gray
+from gdrnet_tpu_torch.data.jpeg import JPEG_SIGNATURE, decode_jpeg
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3}  # PNG colour type -> channels: gray, RGB
@@ -94,7 +98,11 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
 def read_png(path: str) -> np.ndarray:
     """PNG -> [H, W] (gray) or [H, W, 3] (RGB, file order) uint8 or uint16."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "PNG stream") -> np.ndarray:
+    """read_png of the file's bytes; `path` labels the errors."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"not a PNG file: {path}")
     pos, header, idat = 8, None, []
@@ -147,13 +155,28 @@ def write_png(path: str, img: np.ndarray) -> None:
                 + chunk(b"IEND", b""))
 
 
-def load_im(path: str, fmt: str = "BGR") -> np.ndarray:
-    """8-bit 3-channel image, BGR (or RGB with fmt="RGB"), as cv2.IMREAD_COLOR."""
-    img = read_png(path)
+def read_image(path: str, flags: str = "color") -> np.ndarray:
+    """A PNG or JPEG file, told apart by its signature as cv2.imread tells
+    them apart: [H, W, 3] BGR uint8 as cv2.IMREAD_COLOR (flags "color") or
+    [H, W] uint8 as cv2.IMREAD_GRAYSCALE (flags "gray")."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(JPEG_SIGNATURE):
+        return decode_jpeg(data, flags, name=path)
+    if not data.startswith(_PNG_SIGNATURE):
+        raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+    img = decode_png(data, path)
     if img.dtype == np.uint16:
         img = (img >> 8).astype(np.uint8)
-    rgb = np.repeat(img[..., None], 3, axis=-1) if img.ndim == 2 else img
-    return rgb if fmt == "RGB" else rgb[..., ::-1]
+    if flags == "gray":
+        return bgr_to_gray(img[..., ::-1]) if img.ndim == 3 else img
+    return np.repeat(img[..., None], 3, axis=-1) if img.ndim == 2 else img[..., ::-1]
+
+
+def load_im(path: str, fmt: str = "BGR") -> np.ndarray:
+    """8-bit 3-channel image, BGR (or RGB with fmt="RGB"), as cv2.IMREAD_COLOR."""
+    img = read_image(path)
+    return img[..., ::-1] if fmt == "RGB" else img
 
 
 def load_depth(path: str, depth_scale: float = 1.0) -> np.ndarray:

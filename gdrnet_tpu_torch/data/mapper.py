@@ -33,7 +33,7 @@ import torch
 
 from gdrnet_tpu_torch.data import cv_ops
 from gdrnet_tpu_torch.data.augment import BackgroundReplacer, build_color_augmentor
-from gdrnet_tpu_torch.data.io import load_im, read_png
+from gdrnet_tpu_torch.data.io import read_image
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.data.ply import load_ply
 from gdrnet_tpu_torch.ops.rasterizer import render_xyz
@@ -125,13 +125,9 @@ def xyz_to_region_np(xyz: np.ndarray, fps_points: np.ndarray) -> np.ndarray:
 
 def read_color_image(path: str, fmt: str = "BGR") -> np.ndarray:
     """8-bit image in channel order `fmt` (INPUT.FORMAT: "BGR", as
-    cv2.IMREAD_COLOR reads a PNG, or "RGB"), as the reference's
+    cv2.IMREAD_COLOR reads a PNG or JPEG, or "RGB"), as the reference's
     read_image_cv2 (core/utils/data_utils.py:6) reads it."""
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(
-            f"{path}: the port decodes PNG only; JPEG decoding is not ported yet "
-            "(ROADMAP.md A13)")
-    img = np.ascontiguousarray(load_im(path))
+    img = np.ascontiguousarray(read_image(path))
     order = fmt.upper()
     if order == "RGB":
         return np.ascontiguousarray(img[..., ::-1])
@@ -142,11 +138,8 @@ def read_color_image(path: str, fmt: str = "BGR") -> np.ndarray:
 
 
 def read_gray_image(path: str) -> np.ndarray:
-    """8-bit gray image, as cv2.IMREAD_GRAYSCALE reads a PNG."""
-    img = read_png(path)
-    if img.dtype == np.uint16:
-        img = (img >> 8).astype(np.uint8)
-    return cv_ops.bgr_to_gray(img[..., ::-1]) if img.ndim == 3 else img
+    """8-bit gray image, as cv2.IMREAD_GRAYSCALE reads a PNG or JPEG."""
+    return read_image(path, "gray")
 
 
 class GDRNTrainMapper:

@@ -9,8 +9,9 @@ training.
 
 The RNG is an explicit np.random.RandomState, drawn in the JAX package's
 order, so one seed gives the same scenes. Backgrounds come from the port's
-BackgroundReplacer: without `bg_root` its gradient fallback; a VOC folder of
-JPEGs raises, since the port decodes no JPEG (ROADMAP.md A13).
+BackgroundReplacer: without `bg_root` its gradient fallback, else the
+folder's PNG or JPEG images (a VOC folder of JPEGs included), decoded by
+data/jpeg.py as cv2.imread decodes them.
 """
 
 from __future__ import annotations

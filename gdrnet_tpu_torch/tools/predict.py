@@ -11,9 +11,10 @@ the convs first (utils/fold_bn.py), TEST.INT8=True calibrates on the first
 bucket and serves int8 (models/quantize.py); both are KEY=value options.
 Each CSV row's `time` is its bucket's seconds (mapping and forward).
 
+A frame is `<scene>/rgb/<im>.png`, else `.jpg` (data/jpeg.py decodes it).
+
 Not here: TEST.USE_PNP (ROADMAP.md A9) and TEST.LOCAL_DEVICES other than -1
-or 1 (A10) raise; a frame that is only a .jpg raises (the port decodes PNG;
-ROADMAP.md A13).
+or 1 (A10) raise.
 
 Usage:
   python -m gdrnet_tpu_torch.tools.predict --config-file configs/gdrn/lm/a6_cPnP_lm13.py \
@@ -60,7 +61,7 @@ def parse_args(argv=None):
     p.add_argument("--data-root", default="datasets/BOP_DATASETS")
     p.add_argument("--dets", required=True, help="detections json")
     p.add_argument("--image-root", required=True,
-                   help="BOP split dir: <root>/<scene:06d>/rgb/<im:06d>.png")
+                   help="BOP split dir: <root>/<scene:06d>/rgb/<im:06d>.png (or .jpg)")
     p.add_argument("--camera-json", default=None,
                    help="per-image K; each scene's scene_camera.json under image-root "
                         "when omitted")
@@ -73,11 +74,9 @@ def parse_args(argv=None):
 
 
 def _rgb_path(image_root: str, scene_id: int, im_id: int) -> str:
+    """The frame's .png, else its .jpg (a BOP PBR split's frames)."""
     path = osp.join(image_root, f"{scene_id:06d}", "rgb", f"{im_id:06d}.png")
-    if not osp.exists(path) and osp.exists(path[:-4] + ".jpg"):
-        raise NotImplementedError(f"{path[:-4]}.jpg: the port decodes PNG only "
-                                  "(ROADMAP.md A13)")
-    return path
+    return path if osp.exists(path) else path[:-4] + ".jpg"
 
 
 def main(argv=None, device="cuda") -> list[dict]:

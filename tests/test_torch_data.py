@@ -4,10 +4,8 @@ numpy-seeded inputs: samplers, dataset resolution, the cv2 stand-ins
 GDRNTrainMapper and the TrainLoader stream, over tests/fixture_bop.py and a
 BOP split that the port writes.
 
-Tolerances: everything is bit for bit, except
-- cv_ops.resize_linear against cv2.resize: within 1 grey level on at least
-  99.5 % of the values equal (OpenCV 5.0's vector and scalar paths round
-  differently; measured 99.96 % equal), off the flagship's path;
+Tolerances: everything is bit for bit (cv_ops.resize_linear against
+cv2.resize included), except
 - the mapper with on-the-fly XYZ renders: the plain rasterizer against the
   JAX package's, hit masks equal and xyz within 1e-5 m (the bound of
   tests/test_torch_raster.py); the region and bin labels that differ are
@@ -155,9 +153,13 @@ def test_resolve_self_describing_split_equals_jax(zoo_split, name):
 
 
 def test_resolve_render_folders_wait_for_jpeg():
+    """The blender / imgn render folders no longer wait for a JPEG decoder:
+    they resolve as the JAX package resolves them (tests/test_torch_jpeg.py
+    holds them to JAX on a fixture of render folders)."""
     for name in ("lm_blender_13_train", "lm_imgn_13_train_1k_per_obj", "lmo_blender_train"):
-        with pytest.raises(NotImplementedError, match="JPEG"):
-            dataset_factory.resolve(name, "/nonexistent/BOP_DATASETS")
+        (jmeta, want), (pmeta, got) = (jfactory.resolve(name, "/nonexistent/BOP_DATASETS"),
+                                       dataset_factory.resolve(name, "/nonexistent/BOP_DATASETS"))
+        assert pmeta.name == jmeta.name and got == want == []
 
 
 # ---------------------------------------------------------------------------
@@ -217,9 +219,7 @@ def test_resizes_median_laplacian_gray_against_cv2(frames):
         w, h = rng.randint(20, 400), rng.randint(20, 300)
         np.testing.assert_array_equal(cv_ops.resize_nearest(grid, w, h),
                                       cv2.resize(grid, (w, h), interpolation=cv2.INTER_NEAREST))
-        got = cv_ops.resize_linear(img, w, h).astype(int)
-        want = cv2.resize(img, (w, h)).astype(int)
-        assert np.abs(got - want).max() <= 1 and (got == want).mean() >= 0.995
+        np.testing.assert_array_equal(cv_ops.resize_linear(img, w, h), cv2.resize(img, (w, h)))
     np.testing.assert_array_equal(cv_ops.median_blur3(xyz), cv2.medianBlur(xyz, 3))
     np.testing.assert_array_equal(cv_ops.laplacian(mask), cv2.Laplacian(mask, cv2.CV_32F))
     np.testing.assert_array_equal(cv_ops.bgr_to_gray(img), cv2.cvtColor(img, cv2.COLOR_BGR2GRAY))
@@ -289,24 +289,23 @@ def test_what_waits_raises():
 
 
 def test_background_replacer_equals_jax(tmp_path, frames):
-    """The gradient fallback and PNG backgrounds (aspect-keeping resize,
-    within 1 grey level of cv2.resize, and TRUNCATE_FG); a JPEG background
-    raises."""
+    """The gradient fallback, PNG and JPEG backgrounds (aspect-keeping
+    resize and TRUNCATE_FG), bit for bit; an unreadable file is cv2's None."""
     img, _, mask = frames
     for i in range(3):
         bg = np.random.RandomState(i).randint(0, 256, (90 + 40 * i, 130, 3)).astype(np.uint8)
         cv2.imwrite(str(tmp_path / f"bg{i}.png"), bg)
+    cv2.imwrite(str(tmp_path / "bg3.jpg"), img)
     for root in ("/nonexistent", str(tmp_path)):
         port, jax_ = augment.BackgroundReplacer(root), jaug.BackgroundReplacer(root)
         assert port.paths == jax_.paths
-        for seed in range(4):
+        for seed in range(6):
             (pi, pm), (ji, jm) = (r.replace(img, mask, np.random.RandomState(seed), truncate_fg=True)
                                   for r in (port, jax_))
             np.testing.assert_array_equal(pm, jm)
-            assert np.abs(pi.astype(int) - ji).max() <= 1
-    cv2.imwrite(str(tmp_path / "bg3.jpg"), img)
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        augment.BackgroundReplacer(str(tmp_path))._read(str(tmp_path / "bg3.jpg"))
+            np.testing.assert_array_equal(pi, ji)
+    (tmp_path / "bad.jpg").write_bytes(b"\xff\xd8\xff\xe0")
+    assert augment.BackgroundReplacer(str(tmp_path))._read(str(tmp_path / "bad.jpg")) is None
 
 
 # ---------------------------------------------------------------------------
@@ -365,11 +364,16 @@ def test_mapper_with_renders_against_jax(fixture_ds):
     assert differ["gt_region"] <= 4 and differ["gt_xyz_bin"] <= 12
 
 
-def test_mapper_jpeg_frame_waits(fixture_ds):
-    _, pm = _mappers(fixture_ds, _mapper_cfg())
-    rec = dict(fixture_ds["port"][1][0], rgb_path="/data/000001.jpg")
-    with pytest.raises(NotImplementedError, match="A13"):
-        pm(rec, np.random.RandomState(0))
+def test_mapper_jpeg_frame_waits(fixture_ds, tmp_path):
+    """A JPEG frame no longer waits: the fixture's first frame written as a
+    q90 JPEG maps bit for bit as the JAX mapper maps it."""
+    jm, pm = _mappers(fixture_ds, _mapper_cfg())
+    jr, pr = fixture_ds["jax"][1][0], fixture_ds["port"][1][0]
+    frame = str(tmp_path / "000001.jpg")
+    cv2.imwrite(frame, cv2.imread(pr["rgb_path"]), [cv2.IMWRITE_JPEG_QUALITY, 90])
+    for seed in (0, 1):
+        _assert_same(pm(dict(pr, rgb_path=frame), np.random.RandomState(seed)),
+                     jm(dict(jr, rgb_path=frame), np.random.RandomState(seed)), f"seed {seed}")
 
 
 def test_train_loader_stream_equals_jax(fixture_ds):

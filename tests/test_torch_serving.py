@@ -493,6 +493,41 @@ def test_predict_cli_matches_jax(fix, weights, tmp_path, monkeypatch, opts):  # 
     assert sorted(times.values(), reverse=True)[0] <= 4 and len(times) == -(-len(rows) // 4)
 
 
+def test_predict_cli_reads_jpeg_frames_as_jax(fix, weights, tmp_path, monkeypatch):  # noqa: F811
+    """The fixture's test split with its frames written as q95 JPEGs (and no
+    PNG): both tools read the .jpg frames, the port through data/jpeg.py,
+    and their CSVs agree as on the PNG frames."""
+    import shutil
+
+    import cv2
+    import gdrnet_tpu.data.ref_meta as jrm
+
+    from gdrnet_tpu_torch.data import jpeg, ref_meta
+
+    meta = fix["jmodels"].meta
+    monkeypatch.setattr(jrm, "get_meta", lambda name, data_root=None: meta)
+    monkeypatch.setattr(ref_meta, "get_meta", lambda name, data_root=None: fix["pmodels"].meta)
+    split = tmp_path / "test"
+    shutil.copytree(osp.join(meta.data_root, "test"), split)
+    n_frames = 0
+    for png in sorted(split.glob("*/rgb/*.png")):
+        img = cv2.imread(str(png), cv2.IMREAD_COLOR)
+        png.with_suffix(".jpg").write_bytes(
+            cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes())
+        png.unlink()
+        n_frames += 1
+    argv = ["--config-file", _predict_cfg_file(tmp_path, ()), "--ckpt", weights[2],
+            "--dataset", "fixture", "--dets", fix["det_path"], "--image-root", str(split)]
+    _jax_predict_tool().main(argv + ["--out", str(tmp_path / "jax.csv")])
+    before = jpeg.calls["decode"]
+    rows = port_predict.main(argv + ["--out", str(tmp_path / "port.csv")], device="cpu")
+    assert jpeg.calls["decode"] - before >= n_frames > 0
+    want = load_bop_results(str(tmp_path / "jax.csv"))
+    got = load_bop_results(str(tmp_path / "port.csv"))
+    assert len(rows) == len(got) == len(want) == len(fix["dets"])
+    _csv_close(got, want)
+
+
 def test_predict_cli_raises_for_what_waits(fix, weights, tmp_path):  # noqa: F811
     argv = ["--config-file", _predict_cfg_file(tmp_path, ("USE_PNP",)), "--ckpt", weights[2],
             "--dataset", "fixture", "--dets", fix["det_path"], "--image-root",
@@ -502,5 +537,5 @@ def test_predict_cli_raises_for_what_waits(fix, weights, tmp_path):  # noqa: F81
     rgb = tmp_path / "000001" / "rgb"
     rgb.mkdir(parents=True)
     (rgb / "000000.jpg").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A13"):
-        port_predict._rgb_path(str(tmp_path), 1, 0)
+    # a frame that is only a .jpg is read as the JAX tool reads it
+    assert port_predict._rgb_path(str(tmp_path), 1, 0) == str(rgb / "000000.jpg")
