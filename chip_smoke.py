@@ -36,7 +36,12 @@ the digests cv2 gives, and the LM-O config
 width trained and tested through python -m gdrnet_tpu_torch.engine.train on
 an LM-O tree this script writes: real LM frames, PBR frames as JPEGs whose
 XYZ the z-buffer kernel renders, VOC_table JPEG backgrounds, and ADD-S of
-eggbox and glue on the nearest-neighbour kernel in do_test.
+eggbox and glue on the nearest-neighbour kernel in do_test. Then every
+GDR-Net variant of MODEL.CDPN at the flagship's width ([variants]), every
+optimizer of the JAX registry ([solvers]), and the LM config at ResNet-50
+with Ranger2020 and precise BN trained and tested through the CLI on the
+train loop's split ([train_variant], run before gen_xyz writes that split's
+pickles, so that its XYZ renders on the z-buffer kernel).
 
 Phases, one line each (or one per case): device, kernel builds (both nvcc
 runs and the codec's g++ at once), nn_min_dist against its plain PyTorch version and cKDTree,
@@ -74,7 +79,12 @@ the CPU, the loader alone, then the CLI in a subprocess: JPEG decodes of
 PBR frames and backgrounds, losses finite with no step skipped, B2 at least
 once a sample, one CSV row a kept detection, B1 in do_test; step and data
 times, data-wait share, ROIs/s, loader samples/s, the share of samples
-whose background was replaced); last, what
+whose background was replaced); [variants] (each variant's f32 forward on
+the card against the CPU, 10 bf16 steps at B=32, its step ms, crops/s and
+peak memory), [solvers] (each optimizer's first f32 update against the
+CPU's, 10 bf16 steps, its ms, a NaN step bitwise), [train_variant] (losses
+finite, precise BN moving every BN statistic, one CSV row a kept
+detection, B2 in training and B1 in do_test); last, what
 torch.profiler measures (rasterize_xyz's launches per call and its
 kernels' device time, the device time of a BOP scoring call, the train
 step's busy share, top device operations and Ranger's launches), so that no
@@ -141,6 +151,7 @@ from gdrnet_tpu_torch.eval.custom_evaluator import RECALL_KEYS, CustomEvaluator
 from gdrnet_tpu_torch.eval.renderer import create_renderer
 from gdrnet_tpu_torch.models import quantize as Q
 from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
+from gdrnet_tpu_torch.solver.optimizers import OPTIMIZER_NAMES
 from gdrnet_tpu_torch.ops import kernels
 from gdrnet_tpu_torch.ops.rasterizer import render_phong_xyz_roi_many, vertex_normals
 from gdrnet_tpu_torch.ops.symmetry import get_closest_rot_batch, identity_padded_sym_arrays
@@ -257,6 +268,52 @@ LMO_VOC_IMAGES, LMO_VOC_NEGATIVE, LMO_EPOCHS, LMO_MAPPED = 12, 2, 8, 8
 LMO_VOC_SIZES = ((375, 500), (500, 375), (333, 500))  # (h, w)
 LMO_CLI_TIMEOUT_S = 600
 # device kernels of a train step by kind, from marks in their names
+# the model variants and the solver zoo: [variants] takes the flagship with one
+# override at a time (the JAX package's build_model switches; the direct and
+# absolute translations train on TRANS_LW, as the centroid loss needs
+# centroid_z; ROT_CONCAT without WITH_2D_COORD, whose 64 px coordinates its
+# 128 px maps cannot take, as in JAX): an f32 forward of VARIANT_F32_CROPS on the
+# card against the CPU (the [forward_f32] gate), VARIANT_STEPS bf16 train
+# steps at VARIANT_BATCH, and crops/s at VARIANT_SERVE; [solvers] runs every
+# optimizer name VARIANT_STEPS steps and holds its first f32 update on the
+# card against the CPU's, from the same gradients, at SOLVER_UPDATE_RTOL of
+# each tensor's largest step (plus the parameter's f32 ulp, as the update is
+# read as after - before);
+# [train_variant] trains the LM config (R50, Ranger2020, precise BN over
+# TV_PRECISE_ITERS batches) through the CLI for TV_EPOCHS epoch of the
+# [train_loop] split, then tests it on the BOP test split
+_DIRECT_T = ["MODEL.CDPN.PNP_NET.CENTROID_LW=0.0", "MODEL.CDPN.PNP_NET.Z_LW=0.0",
+             "MODEL.CDPN.PNP_NET.TRANS_LW=1.0"]
+VARIANTS = {
+    "ego_rot6d": ["MODEL.CDPN.PNP_NET.ROT_TYPE='ego_rot6d'"],
+    "allo_quat": ["MODEL.CDPN.PNP_NET.ROT_TYPE='allo_quat'"],
+    "ego_quat": ["MODEL.CDPN.PNP_NET.ROT_TYPE='ego_quat'"],
+    "allo_log_quat": ["MODEL.CDPN.PNP_NET.ROT_TYPE='allo_log_quat'"],
+    "allo_lie_vec": ["MODEL.CDPN.PNP_NET.ROT_TYPE='allo_lie_vec'"],
+    "centroid_z_abs": ["MODEL.CDPN.PNP_NET.TRANS_TYPE='centroid_z_abs'", *_DIRECT_T],
+    "trans": ["MODEL.CDPN.PNP_NET.TRANS_TYPE='trans'", *_DIRECT_T],
+    "PointPnPNet": ["MODEL.CDPN.PNP_NET.PNP_HEAD_CFG.type='PointPnPNet'"],
+    "SimplePointPnPNet": ["MODEL.CDPN.PNP_NET.PNP_HEAD_CFG.type='SimplePointPnPNet'"],
+    "R_ONLY": ["MODEL.CDPN.PNP_NET.R_ONLY=True", "MODEL.CDPN.TRANS_HEAD.ENABLED=True",
+               "MODEL.CDPN.TRANS_HEAD.FREEZE=False"],
+    "ROT_CONCAT": ["MODEL.CDPN.ROT_HEAD.ROT_CONCAT=True", "MODEL.CDPN.PNP_NET.WITH_2D_COORD=False"],
+    "R50": ["MODEL.CDPN.BACKBONE.NUM_LAYERS=50"],
+    "R101": ["MODEL.CDPN.BACKBONE.NUM_LAYERS=101"],
+    "R152": ["MODEL.CDPN.BACKBONE.NUM_LAYERS=152"],
+    "USE_MTL": ["MODEL.CDPN.USE_MTL=True"],
+    "BACKBONE.FREEZE": ["MODEL.CDPN.BACKBONE.FREEZE=True"],
+}
+VARIANT_F32_CROPS, VARIANT_BATCH, VARIANT_STEPS, VARIANT_SERVE = 4, 32, 10, (64, 1024)
+VARIANT_TIMED = 5
+# the variants that B=1024 does not fit: PointPnPNet's [B, 64, 4096, 128] region
+# product (68.7 GB in bf16), and ROT_CONCAT's last upsample, [B, 320, 128, 128],
+# over the INT_MAX elements that PyTorch's NHWC bilinear upsample takes
+VARIANT_NO_1024 = {"PointPnPNet": "region_product_68.7GB",
+                   "ROT_CONCAT": "upsample_over_INT_MAX_elements"}
+SOLVER_UPDATE_RTOL, SOLVER_F32_BATCH = 1e-4, 4
+LM_CONFIG = str(REPO / "configs/gdrn/lm/a6_cPnP_lm13.py")
+TV_EPOCHS, TV_PRECISE_ITERS, TV_TIMEOUT_S = 1, 10, 600
+
 TRAIN_OP_KINDS = (
     ("conv_and_matmul", ("xmma", "gemm", "conv", "cudnn", "cutlass", "sm90_")),
     ("batch_norm", ("batch_norm",)),
@@ -407,7 +464,7 @@ def phase_forward_f32(cfg32, state_dict: dict, batch: dict) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     outs = []
-    for device in ("cuda", "cpu"):
+    for device in (DEV, "cpu"):
         model = build_model(cfg32, device=device)
         model.load_state_dict(state_dict)
         out = make_predict_step(model)(to_device(batch, device))
@@ -813,8 +870,9 @@ def phase_train_f32(cfg32, state_dict: dict) -> None:
 
 
 def state_tensors(state) -> list[torch.Tensor]:
-    """Every tensor of a train state: the model's state dict, then Ranger's
-    per-parameter state in parameter order, then its shared counters."""
+    """Every tensor of a train state: the model's state dict, then the
+    optimizer's per-parameter state in parameter order, then its shared
+    counters."""
     opt = state.optimizer
     return (list(state.model.state_dict().values())
             + [t for p in opt._params for t in opt.state[p].values()]
@@ -2409,6 +2467,19 @@ def train_cli_child(argv: list) -> None:
         loader, to_dev = build_pipeline(*args, **kwargs)
         return TimedLoader(loader), to_dev
 
+    precise: list = []
+    update_bn_stats = trainer_mod.update_bn_stats
+
+    def recorded_update_bn_stats(model, batches, num_iters, forward):
+        stats = [k for k in model.state_dict() if k.endswith(("running_mean", "running_var"))]
+        before = {k: model.state_dict()[k].clone() for k in stats}
+        n = update_bn_stats(model, batches, num_iters=num_iters, forward=forward)
+        after = model.state_dict()
+        unchanged = [k for k in stats if torch.equal(after[k], before[k])]
+        precise.append({"batches": n, "moved": len(stats) - len(unchanged),
+                        "unchanged": unchanged[:5]})
+        return n
+
     train_out: dict = {}
 
     def counted_train(*args, **kwargs):
@@ -2429,12 +2500,14 @@ def train_cli_child(argv: list) -> None:
     trainer_mod.make_train_step = timed_make_step
     trainer_mod.build_input_pipeline = timed_pipeline
     trainer_mod.do_train = counted_train
+    trainer_mod.update_bn_stats = recorded_update_bn_stats
     sys.argv = ["gdrnet_tpu_torch.engine.train", *argv]
     runpy.run_module("gdrnet_tpu_torch.engine.train", run_name="__main__", alter_sys=True)
     torch.cuda.synchronize()
     print("TRAIN_CLI " + json.dumps({
         "train": train_out, "b1_test": kernels.nn_min_dist.launches - train_out["b1"],
-        "b2_test": kernels.rasterize_xyz.launches - train_out["b2"], "counts": dict(counts)}),
+        "b2_test": kernels.rasterize_xyz.launches - train_out["b2"], "counts": dict(counts),
+        "precise_bn": precise}),
         flush=True)
 
 
@@ -2532,6 +2605,247 @@ def phase_train_lmo(gsd, root: str, card: str, flagship_loader_rate: float) -> t
         launches_rasterize_xyz_train=tr["b2"], launches_per_sample=f"{tr['b2'] / n_samples:.2f}",
         pbr_mapped_card_vs_cpu=f"{LMO_MAPPED} bitwise equal", csv_rows=len(rows),
         launches_nn_min_dist_test=run["b1_test"], launches_rasterize_xyz_test=run["b2_test"],
+        ar_bop19=res.get("_bop_average_recall", "not scored"), train_s=f"{tr['wall_s']:.1f}",
+        cli_wall_s=f"{wall_s:.1f}", check="ok")
+    return run["b1_test"], tr["b2"] + run["b2_test"]
+
+
+def variant_cfg(overrides: list, dtype: str | None = None):
+    c = merged_config(FLAGSHIP)
+    apply_opts(c, overrides)
+    if dtype:
+        c.PARALLEL.DTYPE = dtype
+    return c
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30 if DEV == "cuda" else 0.0
+
+
+def reset_peak() -> None:
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def phase_variants(card: str) -> None:
+    """[variants]: each of VARIANTS from one seeded init_weights state dict:
+    the f32 forward of VARIANT_F32_CROPS crops on the card against the CPU
+    (phase_forward_f32's gate), VARIANT_STEPS bf16 train steps at
+    VARIANT_BATCH on a device-resident batch (every loss finite, nothing
+    skipped, a frozen backbone bitwise as it was; ROT_CONCAT's step raises,
+    as the JAX step fails on its 128 px maps against the 64 px ground
+    truth), the median step ms, bf16 crops/s at VARIANT_SERVE and the peak
+    memory of each."""
+    res = merged_config(FLAGSHIP).MODEL.CDPN.BACKBONE
+    n_cls = merged_config(FLAGSHIP).MODEL.CDPN.ROT_HEAD.NUM_CLASSES
+    small = synthetic_roi_batch(batch_size=VARIANT_F32_CROPS, input_res=res.INPUT_RES,
+                                out_res=res.OUTPUT_RES, num_classes=n_cls, seed=500)
+    serve = {bs: to_device(synthetic_roi_batch(batch_size=bs, input_res=res.INPUT_RES,
+                                               out_res=res.OUTPUT_RES, num_classes=n_cls,
+                                               seed=501), DEV) for bs in VARIANT_SERVE}
+    for name, overrides in VARIANTS.items():
+        t0 = time.perf_counter()
+        c32 = variant_cfg(overrides, "float32")
+        sd = init_weights(build_model(c32, device="cpu"),
+                          torch.Generator().manual_seed(0)).state_dict()
+        phase_forward_f32(c32, sd, small)
+        f32_s = time.perf_counter() - t0
+
+        c = variant_cfg(overrides)
+        c.SOLVER.IMS_PER_BATCH = VARIANT_BATCH
+        reset_peak()
+        state, step = train_setup(c, sd, DEV)
+        batch = to_device(train_batch(c, VARIANT_BATCH, seed=502), DEV)
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        frozen = ({k: v.clone() for k, v in state.model.backbone.state_dict().items()}
+                  if c.MODEL.CDPN.BACKBONE.FREEZE else None)
+        train = {}
+        try:
+            hist = [step(state, batch, gen)[1] for _ in range(VARIANT_STEPS)]
+        except ValueError as e:
+            if not c.MODEL.CDPN.ROT_HEAD.ROT_CONCAT or "ROT_CONCAT" not in str(e):
+                raise
+            train = {"train": "raises_as_the_JAX_step_fails"}
+        if not train:
+            total = torch.stack([h["total_loss"] for h in hist]).float().cpu().numpy()
+            skips = torch.stack([h["nonfinite_skip"] for h in hist]).cpu().numpy()
+            if not np.all(np.isfinite(total)) or skips.any():
+                raise AssertionError(f"variants {name}: losses {total}, skips {skips}")
+            if frozen is not None and not all(
+                    torch.equal(v, state.model.backbone.state_dict()[k])
+                    for k, v in frozen.items()):
+                raise AssertionError(f"variants {name}: the frozen backbone moved")
+            ms = cuda_times(lambda: step(state, batch, gen), VARIANT_TIMED, 1)
+            train = {"loss_first": f"{total[0]:.4f}", "loss_last": f"{total[-1]:.4f}",
+                     "step_ms_b32": f"{np.median(ms):.3f}",
+                     "train_peak_gib": f"{peak_gib():.2f}",
+                     "frozen_backbone_bitwise": frozen is not None or "n/a"}
+        del state, step, batch
+        model = build_model(c, device=DEV)
+        model.load_state_dict(sd)
+        predict = make_predict_step(model)
+        served = {}
+        for bs, data in serve.items():
+            if bs > VARIANT_SERVE[0] and name in VARIANT_NO_1024:
+                served[f"crops_per_s_b{bs}"] = f"not_run_{VARIANT_NO_1024[name]}"
+                continue
+            reset_peak()
+            ms = cuda_times(lambda: predict(data), VARIANT_TIMED, 1)
+            served[f"crops_per_s_b{bs}"] = f"{bs / np.median(ms) * 1e3:.1f}"
+            served[f"serve_peak_gib_b{bs}"] = f"{peak_gib():.2f}"
+        R = predict(serve[VARIANT_SERVE[0]])["rot"].float().cpu().numpy()
+        if not np.all(np.isfinite(R)):
+            raise AssertionError(f"variants {name}: non-finite served rotations")
+        # a quaternion below the decode's 1e-4 floor (untrained, seeded heads)
+        # is not normalised, in the JAX package as here
+        served["served_ortho_err"] = f"{np.abs(R @ np.swapaxes(R, 1, 2) - np.eye(3)).max():.1e}"
+        del model, predict
+        log("variants", card=repr(card), variant=name, forward_f32="ok", **train, **served,
+            wall_s=f"{time.perf_counter() - t0:.1f}", f32_check_s=f"{f32_s:.1f}")
+    del serve
+    reset_peak()
+
+
+def solver_cfg(name: str, dtype: str | None = None):
+    c = merged_config(FLAGSHIP)
+    c.SOLVER.OPTIMIZER_CFG = dict(type=name, lr=c.SOLVER.OPTIMIZER_CFG["lr"])
+    c.SOLVER.IMS_PER_BATCH = VARIANT_BATCH
+    if dtype:
+        c.PARALLEL.DTYPE = dtype
+    return c
+
+
+def phase_solvers(state_dict: dict, card: str) -> None:
+    """[solvers]: every optimizer name of the JAX registry on the flagship:
+    its first f32 update on the card against the CPU's from the same
+    gradients (one f32 step's, made on the card), VARIANT_STEPS bf16 steps at
+    VARIANT_BATCH (losses finite, nothing skipped), the step ms and the
+    optimizer's ms alone, and a step with a NaN in roi_img that leaves the
+    state bitwise as it was."""
+    c32 = solver_cfg("Ranger", "float32")
+    card32, host32 = build_model(c32, device=DEV), build_model(c32, device="cpu")
+    card32.load_state_dict(state_dict)
+    small = to_device(train_batch(c32, SOLVER_F32_BATCH, seed=510), DEV)
+    state, step = train_setup(c32, state_dict, DEV)
+    step(state, small, None)
+    grads = {k: p.grad.detach().clone() for k, p in state.model.named_parameters()}
+    del state, step
+    batch = to_device(train_batch(solver_cfg("Ranger"), VARIANT_BATCH, seed=511), DEV)
+    bad = dict(batch, roi_img=batch["roi_img"].clone())
+    bad["roi_img"][2, 11, 7, 0] = float("nan")
+    for name in OPTIMIZER_NAMES:
+        t0 = time.perf_counter()
+        updates = []
+        for model in (card32, host32):
+            model.load_state_dict(state_dict)
+            before = {k: p.detach().clone() for k, p in model.named_parameters()}
+            opt = build_optimizer(solver_cfg(name, "float32"), model)
+            for k, p in model.named_parameters():
+                p.grad = grads[k].to(p.device)
+            opt.step()
+            updates.append({k: (p.detach() - before[k]).cpu()
+                            for k, p in model.named_parameters()})
+        worst = 0.0
+        for k, want in updates[1].items():
+            got = updates[0][k]
+            scale = float(want.abs().max())
+            # the update is read as after - before: one f32 ulp of the parameter
+            ulp = 2.0 ** -23 * float(state_dict[k].abs().max())
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=SOLVER_UPDATE_RTOL,
+                                       atol=SOLVER_UPDATE_RTOL * scale + ulp,
+                                       err_msg=f"{name} {k}")
+            worst = max(worst, float((got - want).abs().max()) / max(scale, 1e-30))
+
+        c = solver_cfg(name)
+        state, step = train_setup(c, state_dict, DEV)
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        hist = [step(state, batch, gen)[1] for _ in range(VARIANT_STEPS)]
+        total = torch.stack([h["total_loss"] for h in hist]).float().cpu().numpy()
+        skips = torch.stack([h["nonfinite_skip"] for h in hist]).cpu().numpy()
+        if not np.all(np.isfinite(total)) or skips.any():
+            raise AssertionError(f"solvers {name}: losses {total}, skips {skips}")
+        step_ms = cuda_times(lambda: step(state, batch, gen), VARIANT_TIMED, 1)
+        opt_ms = cuda_times(lambda: state.optimizer.step(), 10, 2)
+        before = train_snapshot(state)
+        _, m_bad = step(state, bad, gen)
+        if float(m_bad["nonfinite_skip"]) != 1.0 or not all(
+                torch.equal(a, b) for a, b in zip(before, train_snapshot(state))):
+            raise AssertionError(f"solvers {name}: the NaN step changed the state")
+        log("solvers", card=repr(card), optimizer=name, first_update_f32_vs_cpu="ok",
+            worst_rel_diff=f"{worst:.2e}", loss_first=f"{total[0]:.4f}",
+            loss_last=f"{total[-1]:.4f}", step_ms_b32=f"{np.median(step_ms):.3f}",
+            optimizer_ms=f"{np.median(opt_ms):.3f}", state_tensors=len(before),
+            nan_step_bitwise_unchanged=True, wall_s=f"{time.perf_counter() - t0:.1f}")
+        del state, step, before
+    del card32, host32, batch, bad, grads
+    reset_peak()
+
+
+def tv_overrides(root: str, dets: str, out: str) -> list:
+    """The LM config as a researcher retargets it to the smoke's splits: the
+    [train_loop] split to train on (no VOC backgrounds: CHANGE_BG_PROB 0, as
+    the flagship on it), the BOP test split (a link `bop` to it under the
+    data root) with its detections, the zoo's 10 classes and symmetric
+    objects; ResNet-50, Ranger2020 and precise BN."""
+    c = merged_config(FLAGSHIP)
+    return [f"OUTPUT_DIR={out!r}", "DATASETS.TRAIN=('loop_train',)",
+            "DATASETS.TEST=('bop_test',)", f"DATASETS.DET_FILES_TEST=({dets!r},)",
+            f"DATASETS.SYM_OBJS={list(c.DATASETS.SYM_OBJS)!r}",
+            f"MODEL.CDPN.ROT_HEAD.NUM_CLASSES={c.MODEL.CDPN.ROT_HEAD.NUM_CLASSES}",
+            "INPUT.CHANGE_BG_PROB=0.0", f"SOLVER.TOTAL_EPOCHS={TV_EPOCHS}",
+            f"DATALOADER.NUM_WORKERS={LOOP_WORKERS}", "MODEL.WEIGHTS=''",
+            "MODEL.CDPN.BACKBONE.PRETRAINED=''", "MODEL.CDPN.BACKBONE.NUM_LAYERS=50",
+            "SOLVER.OPTIMIZER_CFG.type='Ranger2020'",
+            "TEST.PRECISE_BN.ENABLED=True", f"TEST.PRECISE_BN.NUM_ITER={TV_PRECISE_ITERS}"]
+
+
+def phase_train_variant(root: str, dets: dict, card: str) -> tuple[int, int]:
+    """[train_variant]: `python -m gdrnet_tpu_torch.engine.train` with the LM
+    config (tv_overrides) in a subprocess: every loss finite, nothing
+    skipped, precise BN over TV_PRECISE_ITERS batches moving every BN
+    statistic, one CSV row per kept detection, B2 launched in training (the
+    split has no pickles) and B1 in do_test. Returns (B1, B2) launches."""
+    link = Path(root) / "bop"
+    if not link.exists():
+        link.symlink_to(Path(root), target_is_directory=True)
+    out = str(Path(root) / "tv_out")
+    opts = tv_overrides(root, dets["path"], out)
+    cmd = [sys.executable, str(REPO / "chip_smoke.py"), "--train-cli-child", "--config-file",
+           LM_CONFIG, "--data-root", root, *opts]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=TV_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("TRAIN_CLI ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"train_variant: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    run = json.loads(lines[-1][len("TRAIN_CLI "):])
+    tr, pbn = run["train"], run["precise_bn"]
+    losses, skips = np.array(tr["losses"]), np.array(tr["skips"])
+    if not len(losses) or not np.all(np.isfinite(losses)) or skips.any():
+        raise AssertionError(f"train_variant: losses {losses.tolist()}, skips {skips.tolist()}")
+    if len(pbn) != 1 or pbn[0]["batches"] != TV_PRECISE_ITERS or pbn[0]["unchanged"]:
+        raise AssertionError(f"train_variant: precise BN {pbn}")
+    with open(Path(out) / "results.json") as f:
+        res = json.load(f)
+    rows = load_bop_results(res["_csv_path"])
+    csv_rows_check(rows, "train_variant")
+    if len(rows) != dets["kept"] or run["b1_test"] < 1 or tr["b2"] < 1 or tr["b1"]:
+        raise AssertionError(f"train_variant: {len(rows)} CSV rows for {dets['kept']} kept, "
+                             f"B1 {run['b1_test']} in do_test, B2 {tr['b2']} in training")
+    starts = np.array(tr["step_starts"])
+    step_ms = np.diff(starts)[1:] * 1e3  # as [train_lmo]: call to call, the first left out
+    data_ms = np.array(tr["waits"][2:2 + len(step_ms)]) * 1e3
+    bs = merged_config(LM_CONFIG).SOLVER.IMS_PER_BATCH
+    log("train_variant", card=repr(card), config=Path(LM_CONFIG).name, backbone="R50", batch=bs,
+        optimizer="Ranger2020", iterations=len(losses), losses_finite=True, skipped=0,
+        total_loss_first=f"{losses[0]:.4f}", total_loss_last=f"{losses[-1]:.4f}",
+        step_ms_median=f"{np.median(step_ms):.1f}", data_ms_median=f"{np.median(data_ms):.1f}",
+        data_share=f"{data_ms.sum() / step_ms.sum():.3f}",
+        rois_per_s=f"{bs / np.median(step_ms) * 1e3:.1f}", precise_bn_batches=pbn[0]["batches"],
+        precise_bn_stats_moved=pbn[0]["moved"], csv_rows=len(rows),
+        launches_rasterize_xyz_train=tr["b2"], launches_nn_min_dist_test=run["b1_test"],
+        launches_rasterize_xyz_test=run["b2_test"],
         ar_bop19=res.get("_bop_average_recall", "not scored"), train_s=f"{tr['wall_s']:.1f}",
         cli_wall_s=f"{wall_s:.1f}", check="ok")
     return run["b1_test"], tr["b2"] + run["b2_test"]
@@ -2686,6 +3000,8 @@ def main() -> int:
         tested = phase_do_test(cfg, split, dets, ckpt, root, card)
         phase_do_test_vs_cpu(cfg32, split, dets, ckpt, root)
         phase_cli(cfg, split, dets, ckpt, root, tested)
+        # before [gen_xyz] writes the train split's pickles: its XYZ renders on B2
+        tv_launches = phase_train_variant(root, dets, card)
         overfit = phase_overfit(gsd, root, card)
         phase_render_attr(gsd)
         phase_render_phong_xyz(gsd)
@@ -2698,6 +3014,8 @@ def main() -> int:
         phase_loader_pkl(root, loader_rate)
         phase_jpeg()
         lmo_launches = phase_train_lmo(gsd, root, card, loader_rate)
+        phase_variants(card)
+        phase_solvers(state_dict, card)
         phase_profile(cfg, split, scored, raster_timed, train, serving)
     test_launches = tested[2]
 
@@ -2705,13 +3023,14 @@ def main() -> int:
         {"name": "nn_min_dist", "route": "cuda",
          "source": "gdrnet_tpu_torch/csrc/nn_min_dist.cu",
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:28",
-         "launches": launches + test_launches[0] + csv_launches[0] + lmo_launches[0],
+         "launches": launches + test_launches[0] + csv_launches[0] + lmo_launches[0]
+         + tv_launches[0],
          **nn_stats},
         {"name": "rasterize_xyz", "route": "cuda",
          "source": "gdrnet_tpu_torch/csrc/rasterize_xyz.cu",
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:140",
          "launches": raster_launches + loop_launches + test_launches[1] + gen_launches
-         + csv_launches[1] + xyz_launches + lmo_launches[1],
+         + csv_launches[1] + xyz_launches + lmo_launches[1] + tv_launches[1],
          **raster_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

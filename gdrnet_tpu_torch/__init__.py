@@ -11,10 +11,11 @@ raise.
 Layout:
   config/    the config system and defaults (a copy of gdrnet_tpu/config)
   ops/       rotation / pose / symmetry math on tensors, and the CUDA kernels' wrappers
-  models/    nn.Modules: ResNet backbone, geometry head, ConvPnPNet (with DropBlock), GDRN
-  engine/    the train state, the train step and the predict step
+  models/    nn.Modules: ResNet-18..152, geometry and translation heads, ConvPnPNet
+             (with DropBlock), the point PnP heads, GDRN with every variant
+  engine/    the train state, the train and predict steps, precise BN, the trainer
   losses/    the GDR-Net losses (xyz, mask, region, point matching, pose)
-  solver/    Ranger and the learning-rate schedules
+  solver/    the optimizer zoo (Ranger and the JAX registry's others), the LR schedules
   eval/      pose errors and the in-process evaluator
   data/      synthetic ROI batches (numpy)
   utils/     weight and Ranger-state conversion from the JAX package

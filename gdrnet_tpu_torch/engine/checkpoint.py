@@ -3,9 +3,9 @@
 
 Reference: MyCheckpointer + PeriodicCheckpointer (core/utils/my_checkpoint.py
 :9-54, engine.py:191-212). A checkpoint is ckpt/model_{iter:07d}.pth holding
-{"model": state_dict, "optimizer": Ranger's state_dict, "iteration": it},
+{"model": state_dict, "optimizer": the optimizer's state_dict, "iteration": it},
 where `it` is the iteration training resumes at, and ckpt/last_checkpoint
-names the newest file. The LR schedule is a function of Ranger's update
+names the newest file. The LR schedule is a function of the optimizer's update
 count, which is in the optimizer state, so the state is complete. The
 MAX_TO_KEEP newest checkpoints are kept.
 
@@ -124,10 +124,11 @@ def load_model_weights(path: str) -> dict:
 
 def _load_into(model: torch.nn.Module, sd: dict, what: str) -> None:
     """Load `sd` into `model`, which must cover every key of sd with the
-    same shape; keys the model has and sd lacks may only be BN batch counts.
-    The reference's MTL log_vars are skipped."""
-    sd = {k: v for k, v in sd.items() if not k.startswith("log_var")}
+    same shape; keys the model has and sd lacks may only be BN batch counts
+    or MTL log-variances (which stay at their init). The MTL log-variances of
+    sd load where the model has them (USE_MTL) and are skipped elsewhere."""
     own = model.state_dict()
+    sd = {k: v for k, v in sd.items() if not k.startswith("log_var") or k in own}
     unknown = sorted(set(sd) - set(own))
     if unknown:
         raise KeyError(f"{what}: keys not in the model: {unknown[:5]} ({len(unknown)})")
@@ -135,7 +136,8 @@ def _load_into(model: torch.nn.Module, sd: dict, what: str) -> None:
     if bad:
         raise ValueError(f"{what}: shape mismatch at {bad[:5]}: model "
                          f"{[tuple(own[k].shape) for k in bad[:5]]}")
-    missing = [k for k in set(own) - set(sd) if not k.endswith("num_batches_tracked")]
+    missing = [k for k in set(own) - set(sd)
+               if not k.endswith("num_batches_tracked") and not k.startswith("log_var")]
     if missing:
         raise KeyError(f"{what}: model keys missing: {sorted(missing)[:5]} ({len(missing)})")
     model.load_state_dict(sd, strict=False)

@@ -9,6 +9,12 @@ memory while the previous step runs, engine/steps.make_train_step takes the
 step, and the loop checkpoints, writes console / metrics.json lines, calls
 eval_fn every TEST.EVAL_PERIOD epochs, checkpoints and returns on
 SIGTERM / SIGINT, and stops on a persistent non-finite loss (engine.py:271).
+With TEST.PRECISE_BN it recomputes the BN statistics over NUM_ITER train
+batches (engine/precise_bn.py) before each periodic eval, as the JAX package
+does, and once after the last iteration, so that the final checkpoint and
+the test that follows read them (detectron2's PreciseBN hook runs at the
+final iteration too; the JAX package's do_train leaves the final statistics
+as their running average).
 
 The JAX package's device-resident pool and device preprocessing
 (TRAIN.DEVICE_RESIDENT_POOL, POOL_REFRESH, INPUT.DEVICE_PREPROCESS) are TPU
@@ -33,7 +39,8 @@ from gdrnet_tpu_torch.data.loader import TrainLoader
 from gdrnet_tpu_torch.data.mapper import GDRNTrainMapper
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.engine.checkpoint import CheckpointManager, init_model_weights
-from gdrnet_tpu_torch.engine.steps import make_train_step
+from gdrnet_tpu_torch.engine.precise_bn import update_bn_stats
+from gdrnet_tpu_torch.engine.steps import _autocast, _model_kwargs, make_train_step
 from gdrnet_tpu_torch.engine.train_state import create_train_state
 from gdrnet_tpu_torch.engine.writers import ConsoleWriter, EventLog, JsonWriter, setup_logger
 from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
@@ -48,8 +55,6 @@ _TPU_PLACEMENT = (("TRAIN", "DEVICE_RESIDENT_POOL"), ("TRAIN", "POOL_REFRESH"),
 def check_supported(cfg, logger=None) -> None:
     """Raise for what the port's trainer does not do yet; warn once for the
     TPU placement settings, which it does not need."""
-    if cfg.TEST.PRECISE_BN.ENABLED:
-        raise NotImplementedError("TEST.PRECISE_BN is not ported yet (ROADMAP.md A12)")
     if cfg.TRAIN.VIS_IMG:
         raise NotImplementedError("TRAIN.VIS_IMG is not ported yet (ROADMAP.md A7)")
     mesh = tuple(cfg.PARALLEL.get("MESH_SHAPE", (-1,)))
@@ -112,6 +117,22 @@ def build_input_pipeline(cfg, records, records2, mapper, seed: int, device="cuda
                 for k, v in batch.items()}
 
     return loader, to_device
+
+
+def precise_bn(cfg, model, loader_iter, to_device, seed: int, logger) -> int:
+    """TEST.PRECISE_BN: the BN statistics averaged over NUM_ITER batches of
+    the train loader (DropBlock draws from a generator of its own)."""
+    device = next(model.parameters()).device
+    generator = torch.Generator(device=device).manual_seed(dropblock_seed(seed, 2 ** 30))
+
+    def forward(model, batch):
+        with _autocast(model, device):
+            model(batch["roi_img"], **_model_kwargs(batch), generator=generator)
+
+    n = update_bn_stats(model, (to_device(next(loader_iter)) for _ in iter(int, 1)),
+                        num_iters=cfg.TEST.PRECISE_BN.NUM_ITER, forward=forward)
+    logger.info(f"precise BN: statistics averaged over {n} batches")
+    return n
 
 
 def dropblock_seed(seed: int, it: int) -> int:
@@ -287,9 +308,13 @@ def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir,
             if ckpt_every and (it + 1) % ckpt_every == 0:
                 ckpt.save(state, it + 1)
             if eval_every and (it + 1) % eval_every == 0 and eval_fn is not None:
+                if cfg.TEST.PRECISE_BN.ENABLED:
+                    precise_bn(cfg, model, loader_iter, to_device, seed, logger)
                 eval_fn(cfg, state, models)
         if prof is not None:  # the window ran past the end of training
             stop_profiler()
+        if cfg.TEST.PRECISE_BN.ENABLED:
+            precise_bn(cfg, model, loader_iter, to_device, seed, logger)
         ckpt.save(state, total_iters)
         return state, models, False
     finally:

@@ -3,6 +3,9 @@ gdrnet_tpu/losses/gdrn_loss.py).
 
 Gating and weights come from the MODEL.CDPN config subtree. Maps are
 channels-last, as GDRN.forward returns them. Call it in f32 (autocast off).
+With MODEL.CDPN.USE_MTL each term L whose name is one of the model's
+log-variances lv becomes L exp(-lv) + log(1 + exp(lv)) (the reference's
+uncertainty weighting).
 """
 
 from __future__ import annotations
@@ -30,10 +33,6 @@ def gdrn_loss(cfg, out: dict, batch: dict) -> dict[str, torch.Tensor]:
     [B,K], roi_extents [B,3]."""
     net_cfg = cfg.MODEL.CDPN
     rh, pnp = net_cfg.ROT_HEAD, net_cfg.PNP_NET
-    if net_cfg.USE_MTL:
-        raise NotImplementedError(
-            "MTL loss weighting needs the log_vars of a GDRN variant the port does not "
-            "have yet (ROADMAP A12)")
     loss_dict: dict[str, torch.Tensor] = {}
 
     gt_masks = {
@@ -47,6 +46,12 @@ def gdrn_loss(cfg, out: dict, batch: dict) -> dict[str, torch.Tensor]:
     out_rot, out_trans, pred_t_ = out["rot"], out["trans"], out["pred_t_"]
 
     if not rh.FREEZE:
+        if tuple(coors[0].shape[1:3]) != tuple(batch["gt_mask_visib"].shape[1:3]):
+            raise ValueError(
+                f"gdrn_loss: the head's maps are {tuple(coors[0].shape[1:3])} and the ground "
+                f"truth is {tuple(batch['gt_mask_visib'].shape[1:3])}: ROT_CONCAT doubles the "
+                "maps, so its geometry losses cannot be taken (the JAX package's train step "
+                "fails on the same shapes)")
         # xyz loss, masked and normalised by the mask's pixel count
         gt_mask_xyz = gt_masks[rh.XYZ_LOSS_MASK_GT]  # [B,H,W]
         denom = gt_mask_xyz.sum().clamp_min(1.0)
@@ -143,4 +148,11 @@ def gdrn_loss(cfg, out: dict, batch: dict) -> dict[str, torch.Tensor]:
         gt_bind = (batch["gt_ego_rot"] * batch["gt_trans"][:, :, None]).sum(1)
         loss_dict["loss_bind"] = _SIMPLE[pnp.BIND_LOSS_TYPE](pred_bind, gt_bind) * pnp.BIND_LW
 
+    if net_cfg.USE_MTL and "log_vars" in out:
+        log_vars = out["log_vars"]
+        for k in list(loss_dict):
+            lv = log_vars.get(k.replace("loss_", ""))
+            if lv is not None:
+                lv = lv[0]
+                loss_dict[k] = loss_dict[k] * torch.exp(-lv) + torch.log1p(torch.exp(lv))
     return loss_dict

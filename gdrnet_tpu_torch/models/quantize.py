@@ -13,13 +13,16 @@ Every calibrated Conv2d / Linear of a quantized copy of the model runs as:
 Symmetric, so no zero-point terms; the int32 sum is exact, and the only
 error is the 8-bit rounding of the inputs and the weights.
 
-Which layers: the convs under `backbone` and `rot_head_net` and the linears
-under `backbone`, `rot_head_net` and `pnp_net` (here pnp_net.fc1 and fc2),
-but never the head's f32 out conv (the last of rot_head_net.features, the
-JAX package's `out_conv`) nor the pose regressors fc_r / fc_t; ConvPnPNet's
-convs read the decoded coordinate maps and stay off, and the head's
-ConvTranspose2d is not an nn.Conv in the JAX package, so neither quantizes
-it.
+Which layers, as the JAX package's recipe (quantize.py:60-66): the convs
+under `backbone` and `rot_head_net` and the linears under `backbone`,
+`rot_head_net`, `pnp_net` and `trans_head_net` (pnp_net.fc1 and fc2,
+TransHeadNet's fc1 and fc2), but never the head's f32 out conv (the last of
+rot_head_net.features, the JAX package's `out_conv`), the pose regressors
+fc_r / fc_t / fc_pose and TransHeadNet's fc3 (JAX's `fc_out`), nor the point
+heads' MLP layers (linears named conv1-3, conv_topk, conv_sp), which read
+the decoded coordinate maps as ConvPnPNet's convs do, which stay off too;
+the head's ConvTranspose2d is not an nn.Conv in the JAX package, so neither
+quantizes it.
 
 The int8 product, by device: on CUDA, im2col of the int8 input in NHWC (a
 strided view, copied) and `torch._int_mm` (cuBLASLt's int8 tensor-core
@@ -45,24 +48,26 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 DEFAULT_CONV_PREFIXES = ("backbone", "rot_head_net")
-DEFAULT_LINEAR_PREFIXES = ("backbone", "rot_head_net", "pnp_net")
-DEFAULT_EXCLUDE_NAMES = ("fc_r", "fc_t")
+DEFAULT_LINEAR_PREFIXES = ("backbone", "rot_head_net", "pnp_net", "trans_head_net")
+DEFAULT_EXCLUDE_NAMES = ("fc_r", "fc_t", "fc_pose")
+LINEAR_EXTRA_EXCLUDE_NAMES = ("conv1", "conv2", "conv3", "conv_topk", "conv_sp")
 IM2COL_BYTES = 1 << 30      # the int8 im2col of one chunk of the batch
 _MIN_ROWS = 32              # _int_mm takes more than 16 rows
 
 
 def quantizable_layers(model: nn.Module) -> dict[str, nn.Module]:
     """{name: module} of the layers the int8 recipe covers (module docstring)."""
-    out_conv = None
-    if hasattr(model, "rot_head_net"):
-        out_conv = model.rot_head_net.features[-1]
+    never = {"rot_head_net.features." + str(len(model.rot_head_net.features) - 1),
+             "trans_head_net.fc3"} if hasattr(model, "rot_head_net") else set()
     layers = {}
     for name, m in model.named_modules():
-        if m is out_conv or any(s in DEFAULT_EXCLUDE_NAMES for s in name.split(".")):
+        parts = name.split(".")
+        if name in never or any(s in DEFAULT_EXCLUDE_NAMES for s in parts):
             continue
         if isinstance(m, nn.Conv2d) and name.startswith(DEFAULT_CONV_PREFIXES):
             layers[name] = m
-        elif isinstance(m, nn.Linear) and name.startswith(DEFAULT_LINEAR_PREFIXES):
+        elif (isinstance(m, nn.Linear) and name.startswith(DEFAULT_LINEAR_PREFIXES)
+              and parts[-1] not in LINEAR_EXTRA_EXCLUDE_NAMES):
             layers[name] = m
     return layers
 

@@ -1,21 +1,47 @@
-"""Ranger and build_optimizer (counterpart of gdrnet_tpu/solver/optimizers.py).
+"""The optimizer zoo and build_optimizer (counterpart of
+gdrnet_tpu/solver/optimizers.py).
 
-Ranger does the arithmetic of the JAX package's `ranger()`, in its order:
-gradient centralisation, RAdam (rectified when the variance estimate is
-tractable, bias-corrected momentum before), decoupled weight decay, -lr, all
-inside Lookahead (every k updates: slow += alpha (fast - slow); fast = slow).
-`build_optimizer` adds what the JAX one wraps around it: a global-norm clip
-(SOLVER.GRAD_CLIP), gradient accumulation with optax.MultiSteps' semantics
-(SOLVER.GRAD_ACCUM_STEPS) and per-module LR multipliers.
+Each optimizer does the arithmetic of the JAX package's optax chain of the
+same name, in its order and with its defaults (not torch.optim's):
+
+  ranger       GC, RAdam (SMA threshold 5), decoupled weight decay, -lr, in
+               Lookahead (every k updates: slow += alpha (fast - slow);
+               fast = slow)
+  radam        RAdam (b 0.9 / 0.999, eps 1e-8, SMA threshold 4), decay, -lr
+  ralamb       RAdam (b 0.95 / 0.999, eps 1e-5), decay, the per-tensor trust
+               ratio clip(|p|, 0, 10) / (|u| + 1e-8), -lr; over9000 /
+               rangerlars is ralamb in Lookahead
+  ranger2020   RAdam with the weight decay added before the rectified step
+               size and GC on the gradient (gc_loc) or on the step, in
+               Lookahead
+  adam         Adam; with weight decay, coupled L2 added before the moments
+  adamw        Adam, then decoupled decay (default 1e-4)
+  adabelief    optax's scale_by_belief (eps 1e-16 outside the root, 1e-16
+               inside), decay; rangeradabelief is the same
+  adamp, sgdp  Adam / momentum, then the update projected off the parameter
+               where it is scale-invariant (cos < delta / sqrt(dim)), decay
+               scaled by wd_ratio there
+  sgd          coupled decay, momentum (optax.trace), -lr; no GC
+  sgd_gc(c)    GC (conv weights only for sgd_gcc), coupled decay, momentum
+  rmsprop(_tf) eps inside the root (the TF semantics), -lr, then momentum
+               on the scaled step
+
+`TableOptimizer` holds what they share, built once: the gradients copied to
+one flat buffer, SOLVER.GRAD_ACCUM_STEPS with optax.MultiSteps' semantics (a
+running mean of k gradients, one update on the k-th), SOLVER.GRAD_CLIP
+(a global-norm clip), gradient centralisation, one param group per LR
+multiplier, Lookahead, and the update count that the LR schedule reads.
 
 A step never waits for the device. The update count lives on the device,
 because a step whose gradients are not finite must leave it (and every other
 piece of state) unchanged. The per-update scalars (the learning rate from the
-schedule, RAdam's rectification, Lookahead's sync) are therefore tabulated on
-the host, in f64 from Python update counts as the reference computes them,
-and the step reads its row at the device count. Every gradient-wide operation
-works on one flat copy of the gradients; the rest is torch._foreach_* over
-the parameter list.
+schedule, bias corrections, RAdam's rectification, Lookahead's sync, the
+moment decays) are therefore tabulated on the host in f64 from Python update
+counts, and the step reads its row at the device count; on a skipped step it
+reads the optimizer's identity row instead, whose decays are 1 and whose
+increments, learning rates and syncs are 0, and the zeroed gradients then
+leave the state as it was. The rest is torch._foreach_* over the parameter
+list.
 """
 
 from __future__ import annotations
@@ -23,13 +49,9 @@ from __future__ import annotations
 import math
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 import torch.nn as nn
-
-# the JAX package's optimizer zoo; only Ranger is ported so far
-_NOT_PORTED = ("radam", "adabelief", "rangeradabelief", "adam", "adamw", "sgd", "sgd_gc",
-               "sgd_gcc", "rmsprop", "rmsprop_tf", "adamp", "sgdp", "ralamb", "over9000",
-               "rangerlars", "ranger2020")
 
 
 def radam_step_scalars(t: int, b1: float, b2: float, sma_threshold: float
@@ -43,19 +65,26 @@ def radam_step_scalars(t: int, b1: float, b2: float, sma_threshold: float
     return rect, 1.0 / one_m_b1t, sma > sma_threshold
 
 
-class Ranger(torch.optim.Optimizer):
-    """Ranger over f32 parameters on one device.
+def bias_correction(b: float, t: int) -> float:
+    """1 - b^t as optax computes it in f32 from an f32 b (its value differs
+    from the f64 one by up to 1.3e-5 relative at t = 1 for b = 0.999)."""
+    return float(np.float32(1.0) - np.float32(float(np.float32(b)) ** t))
+
+
+class TableOptimizer(torch.optim.Optimizer):
+    """The machinery the zoo shares, over f32 parameters on one device.
 
     `lr` is a float or a schedule (update count -> lr; the first update uses
-    lr(0)); a param group's "lr_mult" scales it. The other hyperparameters
-    are fixed at construction. Gradient centralisation subtracts from each
-    weight with more than 1 dim (3 with gc_conv_only) its mean over dims
-    1.., the original Ranger's rule for every tensor: per output channel of
-    a conv or linear weight, per input channel of a ConvTranspose2d weight
-    ([in, out, kh, kw]). The weights listed in `transposed` are centralised
-    over dims (0, 2, 3) instead, per output channel, as the JAX package
-    centralises its flax kernels (gdrnet_tpu/solver/optimizers.py:49-52);
-    the parity tests against the JAX package pass them.
+    lr(0)); a param group's "lr_mult" scales it. A subclass names its
+    per-parameter state (STATE: name -> initial value, "zeros" or
+    "params"), its per-update scalars (_scalars(t) and IDENTITY, the same
+    length) and its update (_update(s, grads, params) -> the step before
+    -lr; it updates its state in place). `gc` centralises each gradient with
+    more than 1 dim ("all") or 3 ("conv") over dims 1.., the original rule
+    (per output channel of a conv or linear, per input channel of a
+    ConvTranspose2d [in, out, kh, kw]); the tensors in `transposed` over
+    dims (0, 2, 3), per output channel as the JAX package centralises flax
+    kernels (the parity tests pass them). `lookahead` is (alpha, k) or None.
 
     step(finite=flag) makes the update only where the device flag `flag` and
     every gradient are finite, and otherwise leaves the parameters and every
@@ -64,23 +93,22 @@ class Ranger(torch.optim.Optimizer):
     gradients and the k-th makes one update (optax.MultiSteps)."""
 
     TABLE_CHUNK = 1024
+    STATE: dict[str, str] = {}
+    IDENTITY: list[float] = []
 
-    def __init__(self, params: Iterable, lr: float | Callable[[int], float] = 1e-3,
-                 betas: tuple[float, float] = (0.95, 0.999), eps: float = 1e-5,
-                 weight_decay: float = 0.0, alpha: float = 0.5, k: int = 6,
-                 use_gc: bool = True, gc_conv_only: bool = False,
-                 sma_threshold: float = 5.0, grad_clip: float = 0.0, accum_steps: int = 1,
-                 transposed: Iterable[torch.Tensor] = ()):
+    def __init__(self, params: Iterable, lr: float | Callable[[int], float] = 1e-3, *,
+                 grad_clip: float = 0.0, accum_steps: int = 1, gc: str | None = None,
+                 transposed: Iterable[torch.Tensor] = (),
+                 lookahead: tuple[float, int] | None = None):
         super().__init__(params, dict(lr_mult=1.0))
         self.lr = lr
-        self.b1, self.b2 = betas
-        self.eps, self.weight_decay, self.alpha, self.k = eps, weight_decay, alpha, k
-        self.sma_threshold, self.grad_clip = sma_threshold, grad_clip
+        self.grad_clip = grad_clip
         self.accum_steps = max(int(accum_steps), 1)
+        self.lookahead = lookahead
         self._params = [p for g in self.param_groups for p in g["params"]]
         self._device = self._params[0].device
         if any(p.device != self._device or p.dtype != torch.float32 for p in self._params):
-            raise ValueError("Ranger: every parameter must be f32 on one device")
+            raise ValueError(f"{type(self).__name__}: every parameter must be f32 on one device")
         self._group_slices, start = [], 0
         for g in self.param_groups:
             self._group_slices.append(slice(start, start + len(g["params"])))
@@ -93,27 +121,42 @@ class Ranger(torch.optim.Optimizer):
         self._work_views = self._grad_views if self._work is self._grad else [
             v.view_as(p) for v, p in zip(self._work.split(numels), self._params)]
         transposed_ids = {id(p) for p in transposed}
-        min_dim = 3 if gc_conv_only else 1
-        self._gc = [] if not use_gc else [
-            (v, (0, 2, 3) if id(p) in transposed_ids else tuple(range(1, p.dim())))
-            for v, p in zip(self._work_views, self._params) if p.dim() > min_dim]
-        # per-update scalars: decay1, decay2, use_rect, 1 - use_rect, step
-        # coefficient, alpha * sync, sync, then -lr * lr_mult of each group;
-        # the identity row leaves every piece of state as it is
+        min_dim = {"all": 1, "conv": 3}.get(gc or "", None)
+        # (index, dims) of each tensor that gradient centralisation touches
+        self._gc_dims = [] if min_dim is None else [
+            (i, (0, 2, 3) if id(p) in transposed_ids else tuple(range(1, p.dim())))
+            for i, p in enumerate(self._params) if p.dim() > min_dim]
+        self._n_scalars = len(self.IDENTITY) + (2 if lookahead else 0)
         n_groups = len(self.param_groups)
-        self._identity = torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0] + [0.0] * n_groups,
-                                      device=self._device)
-        self._table = torch.empty(0, 7 + n_groups, device=self._device)
+        self._identity = torch.tensor(
+            list(self.IDENTITY) + [0.0] * (self._n_scalars - len(self.IDENTITY) + n_groups),
+            device=self._device)
+        self._table = torch.empty(0, self._n_scalars + n_groups, device=self._device)
         self._calls = 0  # step() calls: an upper bound of the device update count
+
+    # -- the subclass's part -------------------------------------------------
+
+    def _scalars(self, t: int) -> list[float]:
+        raise NotImplementedError
+
+    def _update(self, s: torch.Tensor, grads: list, params: list) -> list:
+        raise NotImplementedError
+
+    def _after_lr(self, s: torch.Tensor, update: list) -> list:
+        """The step after -lr (rmsprop's momentum); the identity here."""
+        return update
+
+    # -- shared --------------------------------------------------------------
 
     def _row(self, count: int) -> list[float]:
         t = count + 1
-        rect, plain, use = radam_step_scalars(t, self.b1, self.b2, self.sma_threshold)
-        sync = t % self.k == 0
+        row = self._scalars(t)
+        if self.lookahead:
+            alpha, k = self.lookahead
+            sync = t % k == 0
+            row += [alpha if sync else 0.0, float(sync)]
         lr = self.lr(count) if callable(self.lr) else self.lr
-        return [self.b1, self.b2, float(use), 1.0 - use, rect if use else plain,
-                self.alpha if sync else 0.0, float(sync)] + \
-            [-lr * g["lr_mult"] for g in self.param_groups]
+        return row + [-lr * g["lr_mult"] for g in self.param_groups]
 
     def _extend_table(self) -> None:
         n = len(self._table)
@@ -126,10 +169,11 @@ class Ranger(torch.optim.Optimizer):
         self._table = torch.cat([self._table, rows.to(self._device, non_blocking=True)])
 
     def _init_state(self) -> dict:
+        names = dict(self.STATE, **({"slow": "params"} if self.lookahead else {}))
         for p in self._params:
             if p not in self.state:
-                self.state[p] = {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p),
-                                 "slow": p.detach().clone()}
+                self.state[p] = {n: p.detach().clone() if init == "params" else torch.zeros_like(p)
+                                 for n, init in names.items()}
         if "shared" not in self.state:
             zero = torch.zeros((), dtype=torch.long, device=self._device)
             self.state["shared"] = {"count": zero, "mini_step": zero.clone()}
@@ -143,6 +187,16 @@ class Ranger(torch.optim.Optimizer):
         if shared:  # the counters and accumulator are not a parameter's state: move them here
             self.state["shared"] = {k: v.to(self._device) for k, v in shared.items()}
             self._calls = max(self._calls, int(shared["count"]))
+
+    def _states(self, name: str) -> list[torch.Tensor]:
+        return [self.state[p][name] for p in self._params]
+
+    def _centralize(self, tensors: list[torch.Tensor]) -> None:
+        """Gradient centralisation of `tensors` (one a parameter), in place."""
+        if self._gc_dims:
+            views = [tensors[i] for i, _ in self._gc_dims]
+            torch._foreach_sub_(views, [tensors[i].mean(d, keepdim=True)
+                                        for i, d in self._gc_dims])
 
     @torch.no_grad()
     def step(self, finite: torch.Tensor | None = None) -> torch.Tensor:
@@ -173,78 +227,372 @@ class Ranger(torch.optim.Optimizer):
         if self.grad_clip > 0:  # optax.clip_by_global_norm
             norm = torch.linalg.vector_norm(work)
             work.mul_(torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm))
-        if self._gc:
-            views = [v for v, _ in self._gc]
-            torch._foreach_sub_(views, [v.mean(dims, keepdim=True) for v, dims in self._gc])
+        self._centralize_grads()
 
         self._extend_table()
         row = self._table.index_select(0, shared["count"].view(1))[0]
         s = torch.where(commit, row, self._identity)
-        decay1, decay2, use, not_use, coef, alpha_sync, sync = s[:7]
-        params, grads = self._params, self._work_views
-        mu = [self.state[p]["mu"] for p in params]
-        nu = [self.state[p]["nu"] for p in params]
-        slow = [self.state[p]["slow"] for p in params]
-
-        torch._foreach_mul_(mu, decay1)
-        torch._foreach_add_(mu, grads, alpha=1 - self.b1)
-        torch._foreach_mul_(nu, decay2)
-        torch._foreach_addcmul_(nu, grads, grads, value=1 - self.b2)
-        # rectified: coef * mu / (sqrt(nu) + eps); momentum: coef * mu
-        denom = torch._foreach_sqrt(nu)
-        torch._foreach_add_(denom, self.eps)
-        torch._foreach_mul_(denom, use)
-        torch._foreach_add_(denom, not_use)
-        update = torch._foreach_div(mu, denom)
-        torch._foreach_mul_(update, coef)
-        if self.weight_decay > 0:
-            torch._foreach_add_(update, params, alpha=self.weight_decay)
+        params = self._params
+        update = self._update(s, self._work_views, params)
+        lr_col = self._n_scalars
         for gi, sl in enumerate(self._group_slices):
-            torch._foreach_mul_(update[sl], s[7 + gi])
+            torch._foreach_mul_(update[sl], s[lr_col + gi])
+        update = self._after_lr(s, update)
         torch._foreach_add_(params, update)  # the fast weights
-        # Lookahead: slow += alpha (fast - slow), then fast = slow, on a sync
-        diff = torch._foreach_sub(params, slow)
-        torch._foreach_mul_(diff, alpha_sync)
-        torch._foreach_add_(slow, diff)
-        diff = torch._foreach_sub(slow, params)
-        torch._foreach_mul_(diff, sync)
-        torch._foreach_add_(params, diff)
+        if self.lookahead:  # slow += alpha (fast - slow), then fast = slow, on a sync
+            alpha_sync, sync = s[lr_col - 2], s[lr_col - 1]
+            slow = self._states("slow")
+            diff = torch._foreach_sub(params, slow)
+            torch._foreach_mul_(diff, alpha_sync)
+            torch._foreach_add_(slow, diff)
+            diff = torch._foreach_sub(slow, params)
+            torch._foreach_mul_(diff, sync)
+            torch._foreach_add_(params, diff)
 
         shared["count"].add_(commit.long())
         self._calls += 1
         return ok
 
+    def _centralize_grads(self) -> None:
+        self._centralize(self._work_views)
+
+
+def _trust_ratio(update: list, params: list) -> None:
+    """LAMB's per-tensor clip(|p|, 0, 10) / (|u| + 1e-8), 1 where either
+    norm is 0, in place."""
+    pn = torch._foreach_norm(params)
+    un = torch._foreach_norm(update)
+    for u, a, b in zip(update, pn, un):
+        a = a.clamp(0.0, 10.0)
+        u.mul_(torch.where((a > 0) & (b > 0), a / (b + 1e-8), 1.0))
+
+
+def _project(update: list, params: list, delta: float, wd_ratio: float,
+             weight_decay: float) -> list:
+    """AdamP / SGDP: where the update is nearly orthogonal to the parameter
+    (|cos| < delta / sqrt(dim)), drop its radial part and scale the decay by
+    wd_ratio."""
+    out = []
+    for u, p in zip(update, params):
+        pn = p / (torch.linalg.vector_norm(p) + 1e-12)
+        dot = (pn * u).sum()
+        cos = dot.abs() / (torch.linalg.vector_norm(u) + 1e-12)
+        small = cos < delta / math.sqrt(p.numel())
+        v = torch.where(small, u - dot * pn, u)
+        if weight_decay > 0:
+            v = v + weight_decay * torch.where(small, wd_ratio, 1.0) * p
+        out.append(v)
+    return out
+
+
+class RAdam(TableOptimizer):
+    """RAdam and the optimizers built on it (Ranger, ralamb, over9000,
+    Ranger2020): rectified coef * mu / (sqrt(nu) + eps) when the variance
+    estimate is tractable (SMA above the threshold), bias-corrected momentum
+    coef * mu before. weight_decay adds wd * p after the step
+    (decay_in_step: before the step size, Ranger2020's order);
+    gc_on_update centralises that step instead of the gradient (Ranger2020's
+    gc_loc=False); trust_ratio scales each tensor's step by LAMB's ratio."""
+
+    STATE = {"mu": "zeros", "nu": "zeros"}
+    IDENTITY = [1.0, 1.0, 1.0, 0.0, 0.0]  # decay1, decay2, use_rect, 1 - use_rect, coef
+
+    def __init__(self, params: Iterable, lr: float | Callable[[int], float] = 1e-3,
+                 betas: tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, sma_threshold: float = 5.0,
+                 decay_in_step: bool = False, gc_on_update: bool = False,
+                 trust_ratio: bool = False, **shared):
+        super().__init__(params, lr, **shared)
+        self.b1, self.b2 = betas
+        self.eps, self.weight_decay, self.sma_threshold = eps, weight_decay, sma_threshold
+        self.decay_in_step, self.gc_on_update = decay_in_step, gc_on_update
+        self.trust_ratio = trust_ratio
+
+    def _scalars(self, t: int) -> list[float]:
+        rect, plain, use = radam_step_scalars(t, self.b1, self.b2, self.sma_threshold)
+        return [self.b1, self.b2, float(use), 1.0 - use, rect if use else plain]
+
+    def _centralize_grads(self) -> None:
+        if not self.gc_on_update:
+            super()._centralize_grads()
+
+    def _update(self, s, grads, params):
+        decay1, decay2, use, not_use, coef = s[:5]
+        mu, nu = self._states("mu"), self._states("nu")
+        torch._foreach_mul_(mu, decay1)
+        torch._foreach_add_(mu, grads, alpha=1 - self.b1)
+        torch._foreach_mul_(nu, decay2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - self.b2)
+        # rectified: mu / (sqrt(nu) + eps); momentum: mu
+        denom = torch._foreach_sqrt(nu)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_mul_(denom, use)
+        torch._foreach_add_(denom, not_use)
+        update = torch._foreach_div(mu, denom)
+        if self.decay_in_step:
+            if self.weight_decay > 0:
+                torch._foreach_add_(update, params, alpha=self.weight_decay)
+            if self.gc_on_update:
+                self._centralize(update)
+            torch._foreach_mul_(update, coef)
+        else:
+            torch._foreach_mul_(update, coef)
+            if self.weight_decay > 0:
+                torch._foreach_add_(update, params, alpha=self.weight_decay)
+        if self.trust_ratio:
+            _trust_ratio(update, params)
+        return update
+
+
+class Ranger(RAdam):
+    """Ranger: GC, RAdam (b 0.95 / 0.999, eps 1e-5, SMA threshold 5),
+    decoupled weight decay and -lr, in Lookahead (alpha 0.5, k 6)."""
+
+    def __init__(self, params: Iterable, lr: float | Callable[[int], float] = 1e-3,
+                 betas: tuple[float, float] = (0.95, 0.999), eps: float = 1e-5,
+                 weight_decay: float = 0.0, alpha: float = 0.5, k: int = 6,
+                 use_gc: bool = True, gc_conv_only: bool = False,
+                 sma_threshold: float = 5.0, grad_clip: float = 0.0, accum_steps: int = 1,
+                 transposed: Iterable[torch.Tensor] = ()):
+        super().__init__(params, lr, betas=betas, eps=eps, weight_decay=weight_decay,
+                         sma_threshold=sma_threshold, grad_clip=grad_clip,
+                         accum_steps=accum_steps, transposed=transposed,
+                         gc=("conv" if gc_conv_only else "all") if use_gc else None,
+                         lookahead=(alpha, k))
+
+
+class Adam(TableOptimizer):
+    """optax's scale_by_adam: mu, nu, then (mu / bc1) / (sqrt(nu / bc2) +
+    eps). decay: "coupled" adds wd * p to the gradient first (adam with
+    weight decay), "decoupled" adds it to the step (adamw), "project" is
+    AdamP's projection with its decay."""
+
+    STATE = {"mu": "zeros", "nu": "zeros"}
+    # decay1, 1 - decay1, decay2, 1 - decay2, 1 - b1^t, 1 - b2^t, coupled wd
+    IDENTITY = [1.0, 0.0, 1.0, 0.0, 1.0, 1.0, 0.0]
+
+    def __init__(self, params: Iterable, lr: float | Callable[[int], float] = 1e-3,
+                 betas: tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, decay: str = "coupled", delta: float = 0.1,
+                 wd_ratio: float = 0.1, **shared):
+        super().__init__(params, lr, **shared)
+        self.b1, self.b2 = betas
+        self.eps, self.weight_decay, self.decay = eps, weight_decay, decay
+        self.delta, self.wd_ratio = delta, wd_ratio
+
+    def _scalars(self, t: int) -> list[float]:
+        coupled = self.weight_decay if self.decay == "coupled" else 0.0
+        return [self.b1, 1 - self.b1, self.b2, 1 - self.b2, bias_correction(self.b1, t),
+                bias_correction(self.b2, t), coupled]
+
+    def _update(self, s, grads, params):
+        d1, c1, d2, c2, bc1, bc2, coupled = s[:7]
+        if self.decay == "coupled" and self.weight_decay > 0:
+            grads = torch._foreach_add(grads, torch._foreach_mul(params, coupled))
+        mu, nu = self._states("mu"), self._states("nu")
+        torch._foreach_mul_(mu, d1)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, c1))
+        torch._foreach_mul_(nu, d2)
+        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), c2))
+        denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        torch._foreach_add_(denom, self.eps)
+        update = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+        if self.decay == "project":
+            return _project(update, params, self.delta, self.wd_ratio, self.weight_decay)
+        if self.decay == "decoupled" and self.weight_decay > 0:
+            torch._foreach_add_(update, params, alpha=self.weight_decay)
+        return update
+
+
+class AdaBelief(TableOptimizer):
+    """optax's scale_by_belief: mu; s = (1 - b2) (g - mu)^2 + b2 s + eps_root;
+    (mu / bc1) / (sqrt(s / bc2) + eps); then decoupled decay."""
+
+    STATE = {"mu": "zeros", "nu": "zeros"}
+    # decay1, 1 - decay1, decay2, 1 - decay2, eps_root, 1 - b1^t, 1 - b2^t
+    IDENTITY = [1.0, 0.0, 1.0, 0.0, 0.0, 1.0, 1.0]
+
+    def __init__(self, params: Iterable, lr: float | Callable[[int], float] = 1e-3,
+                 betas: tuple[float, float] = (0.9, 0.999), eps: float = 1e-16,
+                 eps_root: float = 1e-16, weight_decay: float = 0.0, **shared):
+        super().__init__(params, lr, **shared)
+        self.b1, self.b2 = betas
+        self.eps, self.eps_root, self.weight_decay = eps, eps_root, weight_decay
+
+    def _scalars(self, t: int) -> list[float]:
+        return [self.b1, 1 - self.b1, self.b2, 1 - self.b2, self.eps_root,
+                bias_correction(self.b1, t), bias_correction(self.b2, t)]
+
+    def _update(self, s, grads, params):
+        d1, c1, d2, c2, eps_root, bc1, bc2 = s[:7]
+        mu, nu = self._states("mu"), self._states("nu")
+        torch._foreach_mul_(mu, d1)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, c1))
+        err = torch._foreach_sub(grads, mu)
+        torch._foreach_mul_(nu, d2)
+        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(err, err), c2))
+        torch._foreach_add_(nu, eps_root)
+        denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        torch._foreach_add_(denom, self.eps)
+        update = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+        if self.weight_decay > 0:
+            torch._foreach_add_(update, params, alpha=self.weight_decay)
+        return update
+
+
+class SGD(TableOptimizer):
+    """SGD: coupled decay (g + wd p), momentum as optax.trace (t = g + m t;
+    nesterov: g + m t), -lr; project=True is SGDP (momentum first, then
+    the projection with its decay)."""
+
+    IDENTITY = [0.0, 1.0]  # coupled wd, momentum
+
+    def __init__(self, params: Iterable, lr: float | Callable[[int], float] = 1e-3,
+                 momentum: float = 0.9, nesterov: bool = False, weight_decay: float = 0.0,
+                 project: bool = False, delta: float = 0.1, wd_ratio: float = 0.1,
+                 **shared):
+        self.STATE = {"trace": "zeros"} if momentum > 0 else {}
+        super().__init__(params, lr, **shared)
+        self.momentum, self.nesterov, self.weight_decay = momentum, nesterov, weight_decay
+        self.project, self.delta, self.wd_ratio = project, delta, wd_ratio
+
+    def _scalars(self, t: int) -> list[float]:
+        return [0.0 if self.project else self.weight_decay, self.momentum]
+
+    def _update(self, s, grads, params):
+        coupled, momentum = s[:2]
+        if self.weight_decay > 0 and not self.project:
+            grads = torch._foreach_add(grads, torch._foreach_mul(params, coupled))
+        if self.momentum > 0:
+            trace = self._states("trace")
+            torch._foreach_mul_(trace, momentum)
+            torch._foreach_add_(trace, grads)
+            update = (torch._foreach_add(grads, torch._foreach_mul(trace, momentum))
+                      if self.nesterov else [t.clone() for t in trace])
+        else:
+            update = [g.clone() for g in grads]
+        if self.project:
+            return _project(update, params, self.delta, self.wd_ratio, self.weight_decay)
+        return update
+
+
+class RMSprop(TableOptimizer):
+    """optax.rmsprop: nu = (1 - a) g^2 + a nu; g / sqrt(nu + eps) (eps inside
+    the root, the TF semantics); -lr; then momentum on the scaled step
+    (optax.trace after the learning rate)."""
+
+    STATE = {"nu": "zeros", "trace": "zeros"}
+    IDENTITY = [1.0, 0.0, 1.0, 0.0]  # decay, 1 - decay, momentum, commit
+
+    def __init__(self, params: Iterable, lr: float | Callable[[int], float] = 1e-3,
+                 alpha: float = 0.99, momentum: float = 0.0, eps: float = 1e-8, **shared):
+        super().__init__(params, lr, **shared)
+        self.alpha, self.momentum, self.eps = alpha, momentum, eps
+
+    def _scalars(self, t: int) -> list[float]:
+        return [self.alpha, 1 - self.alpha, self.momentum, 1.0]
+
+    def _update(self, s, grads, params):
+        decay, c, _, _ = s[:4]
+        nu = self._states("nu")
+        torch._foreach_mul_(nu, decay)
+        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), c))
+        return torch._foreach_mul(grads, torch._foreach_rsqrt(torch._foreach_add(nu, self.eps)))
+
+    def _after_lr(self, s, update):
+        momentum, commit = s[2], s[3]
+        trace = self._states("trace")
+        torch._foreach_mul_(trace, momentum)
+        torch._foreach_add_(trace, update)
+        return torch._foreach_mul(trace, commit)
+
+
+def _betas(oc: dict, default: tuple[float, float]) -> tuple[float, float]:
+    b = oc.get("betas", default)
+    return (b[0], b[1])
+
+
+def _gc(oc: dict, conv_only: bool | None = None) -> str | None:
+    if not oc.get("use_gc", True):
+        return None
+    conv = oc.get("gc_conv_only", False) if conv_only is None else conv_only
+    return "conv" if conv else "all"
+
+
+# name -> (SOLVER.OPTIMIZER_CFG, lr, shared kwargs) -> optimizer, each with the
+# JAX registry's defaults and the keys its builder reads
+_BUILDERS: dict[str, Callable] = {
+    "ranger": lambda ps, oc, lr, kw: Ranger(
+        ps, lr, betas=_betas(oc, (0.95, 0.999)), weight_decay=oc.get("weight_decay", 0.0),
+        use_gc=oc.get("use_gc", True), gc_conv_only=oc.get("gc_conv_only", False), **kw),
+    "radam": lambda ps, oc, lr, kw: RAdam(
+        ps, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=oc.get("weight_decay", 0.0),
+        sma_threshold=4.0, **kw),
+    "adabelief": lambda ps, oc, lr, kw: AdaBelief(
+        ps, lr, weight_decay=oc.get("weight_decay", 0.0), **kw),
+    "adam": lambda ps, oc, lr, kw: Adam(
+        ps, lr, weight_decay=oc.get("weight_decay", 0.0), decay="coupled", **kw),
+    "adamw": lambda ps, oc, lr, kw: Adam(
+        ps, lr, weight_decay=oc.get("weight_decay", 1e-4), decay="decoupled", **kw),
+    "sgd": lambda ps, oc, lr, kw: SGD(
+        ps, lr, momentum=oc.get("momentum", 0.9), nesterov=oc.get("nesterov", False),
+        weight_decay=oc.get("weight_decay", 0.0), **kw),
+    "sgd_gc": lambda ps, oc, lr, kw: SGD(
+        ps, lr, momentum=oc.get("momentum", 0.9), nesterov=oc.get("nesterov", False),
+        weight_decay=oc.get("weight_decay", 0.0),
+        gc="conv" if oc.get("type", "SGD_GC").lower() == "sgd_gcc" else "all", **kw),
+    "rmsprop": lambda ps, oc, lr, kw: RMSprop(
+        ps, lr, alpha=oc.get("alpha", 0.99), momentum=oc.get("momentum", 0.0),
+        eps=oc.get("eps", 1e-8), **kw),
+    "adamp": lambda ps, oc, lr, kw: Adam(
+        ps, lr, weight_decay=oc.get("weight_decay", 0.0), decay="project",
+        delta=oc.get("delta", 0.1), wd_ratio=oc.get("wd_ratio", 0.1), **kw),
+    "sgdp": lambda ps, oc, lr, kw: SGD(
+        ps, lr, momentum=oc.get("momentum", 0.9), nesterov=oc.get("nesterov", False),
+        weight_decay=oc.get("weight_decay", 0.0), project=True, **kw),
+    "ralamb": lambda ps, oc, lr, kw: RAdam(
+        ps, lr, betas=(0.95, 0.999), eps=1e-5, weight_decay=oc.get("weight_decay", 0.0),
+        trust_ratio=True, **kw),
+    "over9000": lambda ps, oc, lr, kw: RAdam(
+        ps, lr, betas=(0.95, 0.999), eps=1e-5, weight_decay=oc.get("weight_decay", 0.0),
+        trust_ratio=True, lookahead=(0.5, 6), **kw),
+    "ranger2020": lambda ps, oc, lr, kw: RAdam(
+        ps, lr, betas=(0.95, 0.999), eps=1e-5, weight_decay=oc.get("weight_decay", 0.0),
+        decay_in_step=True, gc_on_update=not oc.get("gc_loc", True), gc=_gc(oc),
+        lookahead=(0.5, 6), **kw),
+}
+_ALIASES = {"rangeradabelief": "adabelief", "sgd_gcc": "sgd_gc", "rmsprop_tf": "rmsprop",
+            "rangerlars": "over9000"}
+OPTIMIZER_NAMES = tuple(sorted(set(_BUILDERS) | set(_ALIASES)))
+
 
 def build_optimizer(cfg, model: nn.Module,
                     lr_schedule: Callable[[int], float] | None = None, *,
-                    jax_deconv_gc: bool = False) -> Ranger:
-    """SOLVER.OPTIMIZER_CFG -> the optimizer of `model`'s parameters, one
-    param group per LR multiplier (MODEL.CDPN.PNP_NET.LR_MULT for pnp_net,
-    TRANS_HEAD.LR_MULT for trans_head, 1 elsewhere), with SOLVER.GRAD_CLIP and
-    SOLVER.GRAD_ACCUM_STEPS. Gradient centralisation follows the original
-    Ranger; jax_deconv_gc=True centralises the ConvTranspose2d weights per
-    output channel, as the JAX package does (for the parity tests)."""
+                    jax_deconv_gc: bool = False) -> TableOptimizer:
+    """SOLVER.OPTIMIZER_CFG (type: any of OPTIMIZER_NAMES, case-insensitive)
+    -> the optimizer of `model`'s parameters, one param group per LR
+    multiplier (MODEL.CDPN.PNP_NET.LR_MULT for pnp_net, TRANS_HEAD.LR_MULT
+    for trans_head_net, 1 elsewhere, the MTL log-variances too), with
+    SOLVER.GRAD_CLIP and SOLVER.GRAD_ACCUM_STEPS. Gradient centralisation
+    follows the original rule; jax_deconv_gc=True centralises the
+    ConvTranspose2d weights per output channel, as the JAX package does (for
+    the parity tests)."""
     oc = dict(cfg.SOLVER.OPTIMIZER_CFG)
     opt_type = oc.get("type", "Ranger").lower()
-    if opt_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {oc['type']!r} is not ported yet (ROADMAP A5); only Ranger is")
-    if opt_type != "ranger":
-        raise ValueError(f"Unknown optimizer type: {oc.get('type')}")
+    name = _ALIASES.get(opt_type, opt_type)
+    if name not in _BUILDERS:
+        raise ValueError(f"Unknown optimizer type: {oc.get('type')}; one of {OPTIMIZER_NAMES}")
 
     net_cfg = cfg.MODEL.CDPN
     mults = {"pnp_net": net_cfg.PNP_NET.get("LR_MULT", 1.0),
-             "trans_head": net_cfg.TRANS_HEAD.get("LR_MULT", 1.0)}
+             "trans_head_net": net_cfg.TRANS_HEAD.get("LR_MULT", 1.0)}
     groups: dict[float, list] = {}
-    for name, p in model.named_parameters():
-        groups.setdefault(float(mults.get(name.split(".")[0], 1.0)), []).append(p)
-    betas = oc.get("betas", (0.95, 0.999))
-    return Ranger(
-        [{"params": ps, "lr_mult": m} for m, ps in groups.items()],
-        lr=lr_schedule if lr_schedule is not None else oc.get("lr", 1e-4),
-        betas=(betas[0], betas[1]), weight_decay=oc.get("weight_decay", 0.0),
-        use_gc=oc.get("use_gc", True), gc_conv_only=oc.get("gc_conv_only", False),
-        grad_clip=cfg.SOLVER.get("GRAD_CLIP", 0.0),
-        accum_steps=int(cfg.SOLVER.get("GRAD_ACCUM_STEPS", 1) or 1),
-        transposed=[m.weight for m in model.modules()
-                    if jax_deconv_gc and isinstance(m, nn.ConvTranspose2d)])
+    for pname, p in model.named_parameters():
+        groups.setdefault(float(mults.get(pname.split(".")[0], 1.0)), []).append(p)
+    shared = dict(grad_clip=cfg.SOLVER.get("GRAD_CLIP", 0.0),
+                  accum_steps=int(cfg.SOLVER.get("GRAD_ACCUM_STEPS", 1) or 1),
+                  transposed=[m.weight for m in model.modules()
+                              if jax_deconv_gc and isinstance(m, nn.ConvTranspose2d)])
+    lr = lr_schedule if lr_schedule is not None else oc.get("lr", 1e-4)
+    return _BUILDERS[name]([{"params": ps, "lr_mult": m} for m, ps in groups.items()],
+                           oc, lr, shared)

@@ -10,9 +10,19 @@ reference's key layout, which the port's modules use:
   conv   kernel [kh,kw,in,out] -> weight [out,in,kh,kw]   (transpose 3,2,0,1)
   convT  kernel [kh,kw,in,out] -> weight [in,out,kh,kw]   (transpose 2,3,0,1)
   linear kernel [in,out]       -> weight [out,in]
-  pnp_net.fc1: flax flattens (H, W, C), the port flattens (C, H, W)
+  pnp_net.fc1 (ConvPnPNet) and trans_head_net.fc1: flax flattens (H, W, C),
+         the port flattens (C, H, W)
   BN     scale/bias, mean/var  -> weight/bias, running_mean/running_var
   GN     scale/bias            -> weight/bias
+
+Module names: backbone blocks' Conv_k / BatchNorm_k -> convK+1 / bnK+1 (the
+Bottleneck's conv3 / bn3 too); rot_head -> rot_head_net.features.<i> (with
+ROT_CONCAT every round has an upsample slot, which the converter reads off
+conv0_a's input width); trans_head/conv<i> -> trans_head_net.features.<3i>
+(and <3i+1> for its BN), fc1 / fc2 / fc_out -> fc1 / fc2 / fc3, as the JAX
+package's torch_convert reads the reference; the point heads' Dense layers
+keep their names (pnp_net.conv1, ..., pnp_net.fc_pose); the MTL
+log-variances log_var_<name> keep theirs.
 """
 
 from __future__ import annotations
@@ -42,17 +52,19 @@ def _lin_w_to_chw(k, c: int):
     return k.T.reshape(out, h, h, c).transpose(0, 3, 1, 2).reshape(out, -1)
 
 
-def _rot_head_index(num_layers: int, norm: str) -> dict[tuple[str, ...], tuple[int, str]]:
+def _rot_head_index(num_layers: int, norm: str, concat: bool = False
+                    ) -> dict[tuple[str, ...], tuple[int, str]]:
     """flax path under rot_head -> (features index, kind), the reference's
     ModuleList order: deconv, norm, relu, then per round [upsample] + 2x
-    (conv, norm, relu), then the out conv."""
+    (conv, norm, relu), then the out conv; with concat, every round has its
+    upsample."""
     inner = "BatchNorm_0" if norm == "BN" else "GroupNorm_0"
     kind = "bn" if norm == "BN" else "gn"
     m = {("deconv",): (0, "convT"),
          ("deconv_bn" if norm == "BN" else "deconv_gn",): (1, kind)}
     idx = 3
     for i in range(num_layers):
-        if i >= 1:
+        if i >= 1 or concat:
             idx += 1
         for half in ("a", "b"):
             m[(f"conv{i}_{half}", "Conv_0")] = (idx, "conv")
@@ -98,6 +110,9 @@ def _leaves(tree: dict, prefix: tuple[str, ...] = ()):
             yield prefix + (k,), np.asarray(v, np.float32)
 
 
+_TRANS_FC = {"fc1": "fc1", "fc2": "fc2", "fc_out": "fc3"}
+
+
 def _module_key(path: tuple[str, ...], rot_map: dict, pnp_map: dict) -> tuple[str, str]:
     """A flax module path of the JAX GDRN -> (the port's module name, kind)."""
     top, rest = path[0], path[1:]
@@ -108,11 +123,27 @@ def _module_key(path: tuple[str, ...], rot_map: dict, pnp_map: dict) -> tuple[st
         idx, kind = rot_map[rest]
         return f"rot_head_net.features.{idx}", kind
     if top == "pnp_net":
-        if rest[0] in ("fc1", "fc2", "fc_r", "fc_t"):
+        if len(rest) == 1:  # a Dense: ConvPnPNet's fcs, every layer of the point heads
             return f"pnp_net.{rest[0]}", "lin"
         idx, kind = pnp_map[rest]
         return f"pnp_net.features.{idx}", kind
+    if top == "trans_head":
+        if len(rest) == 1:
+            return f"trans_head_net.{_TRANS_FC[rest[0]]}", "lin"
+        i = int(rest[0][4:])  # conv<i>
+        if rest[1] == "Conv_0":
+            return f"trans_head_net.features.{3 * i}", "conv"
+        return f"trans_head_net.features.{3 * i + 1}", "bn"
     raise KeyError(f"unmapped path: {'/'.join(path)}")
+
+
+def _is_concat_head(params: dict) -> bool:
+    """ROT_CONCAT: the first round's conv reads more than the deconv gives."""
+    head = params.get("rot_head", {})
+    try:
+        return head["conv0_a"]["Conv_0"]["kernel"].shape[2] != head["deconv"]["kernel"].shape[3]
+    except KeyError:
+        return False
 
 
 def jax_to_torch(params: dict, batch_stats: dict | None = None,
@@ -122,19 +153,23 @@ def jax_to_torch(params: dict, batch_stats: dict | None = None,
 
     Every leaf must map to a key; an unknown path raises. BatchNorm layers
     also get `num_batches_tracked` = 0, so the result loads with strict=True."""
-    rot_map = _rot_head_index(head_num_layers, head_norm)
+    rot_map = _rot_head_index(head_num_layers, head_norm, _is_concat_head(params))
     pnp_map = _pnp_index(pnp_num_layers, pnp_norm)
-    pnp_featdim = None
+    conv_width = {}  # a flattening fc1's (C, H, W) needs the width of the convs before it
     out: dict[str, torch.Tensor] = {}
 
     def module_key(path: tuple[str, ...]) -> tuple[str, str]:
         return _module_key(path, rot_map, pnp_map)
 
     param_leaves = list(_leaves(params))
-    for path, v in param_leaves:  # fc1's (C, H, W) needs the last conv's width
-        if path[0] == "pnp_net" and path[-1] == "kernel" and v.ndim == 4:
-            pnp_featdim = v.shape[-1]
     for path, v in param_leaves:
+        if path[0] in ("pnp_net", "trans_head") and path[-1] == "kernel" and v.ndim == 4:
+            conv_width[f"{'pnp_net' if path[0] == 'pnp_net' else 'trans_head_net'}.fc1"] = \
+                v.shape[-1]
+    for path, v in param_leaves:
+        if len(path) == 1 and path[0].startswith("log_var_"):  # the MTL log-variances
+            out[path[0]] = torch.from_numpy(v.copy())
+            continue
         key, kind = module_key(path[:-1])
         field = path[-1]
         if field == "kernel":
@@ -142,8 +177,8 @@ def jax_to_torch(params: dict, batch_stats: dict | None = None,
                 w = _conv_w(v)
             elif kind == "convT":
                 w = _convT_w(v)
-            elif key == "pnp_net.fc1":
-                w = _lin_w_to_chw(v, pnp_featdim)
+            elif key in conv_width:
+                w = _lin_w_to_chw(v, conv_width[key])
             else:
                 w = _lin_w(v)
             out[f"{key}.weight"] = torch.from_numpy(np.ascontiguousarray(w))
@@ -163,22 +198,23 @@ def jax_to_torch(params: dict, batch_stats: dict | None = None,
 
 def jax_scales_to_torch(scales: dict[str, float], head_num_layers: int = 3,
                         head_norm: str = "BN", pnp_norm: str = "GN",
-                        pnp_num_layers: int = 3) -> dict[str, float]:
+                        pnp_num_layers: int = 3, rot_concat: bool = False) -> dict[str, float]:
     """The JAX package's int8 activation scales ({flax module path, e.g.
     "backbone/layer1_0/Conv_0": scale}, gdrnet_tpu/models/quantize.py) ->
     the port's ({module name, e.g. "backbone.layer1.0.conv1": scale},
     gdrnet_tpu_torch/models/quantize.py)."""
-    rot_map = _rot_head_index(head_num_layers, head_norm)
+    rot_map = _rot_head_index(head_num_layers, head_norm, rot_concat)
     pnp_map = _pnp_index(pnp_num_layers, pnp_norm)
     return {_module_key(tuple(p.split("/")), rot_map, pnp_map)[0]: s for p, s in scales.items()}
 
 
 def torch_scales_to_jax(scales: dict[str, float], head_num_layers: int = 3,
                         head_norm: str = "BN", pnp_norm: str = "GN",
-                        pnp_num_layers: int = 3) -> dict[str, float]:
+                        pnp_num_layers: int = 3, rot_concat: bool = False) -> dict[str, float]:
     """The inverse of jax_scales_to_torch."""
     names = {f"rot_head_net.features.{i}": "rot_head/" + "/".join(p)
-             for p, (i, _) in _rot_head_index(head_num_layers, head_norm).items()}
+             for p, (i, _) in _rot_head_index(head_num_layers, head_norm, rot_concat).items()}
+    names.update({f"trans_head_net.{t}": f"trans_head/{j}" for j, t in _TRANS_FC.items()})
     names.update({f"pnp_net.features.{i}": "pnp_net/" + "/".join(p)
                   for p, (i, _) in _pnp_index(pnp_num_layers, pnp_norm).items()})
 
@@ -201,7 +237,7 @@ def torch_scales_to_jax(scales: dict[str, float], head_num_layers: int = 3,
             out[backbone(name)] = s
         elif name in names:
             out[names[name]] = s
-        elif name.startswith("pnp_net.fc"):
+        elif name.startswith("pnp_net.") and name.count(".") == 1:  # a Dense of the PnP head
             out[name.replace(".", "/")] = s
         else:
             raise KeyError(f"unmapped module: {name}")

@@ -551,3 +551,74 @@ def test_predict_on_the_card_equals_the_cpu(tmp_path):
                                np.stack([r["R"] for r in cpu]), atol=1e-3)
     t_card, t_cpu = (np.stack([r["t"] for r in rows]) for rows in (card, cpu))
     assert (np.linalg.norm(t_card - t_cpu, axis=1) / np.linalg.norm(t_cpu, axis=1)).max() < 1e-3
+
+
+def _small_variant_cfg(*overrides: str):
+    from gdrnet_tpu_torch import merged_config
+    from gdrnet_tpu_torch.config.config import apply_opts
+
+    cfg = merged_config(str(Path(__file__).resolve().parents[1]
+                            / "configs/gdrn/synth/a6_cPnP_synth.py"))
+    apply_opts(cfg, ["MODEL.CDPN.BACKBONE.INPUT_RES=64", "MODEL.CDPN.BACKBONE.OUTPUT_RES=16",
+                     "MODEL.CDPN.ROT_HEAD.NUM_FILTERS=32", "MODEL.CDPN.ROT_HEAD.NUM_REGIONS=8",
+                     "PARALLEL.DTYPE='float32'", *overrides])
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overrides", [
+    ("MODEL.CDPN.BACKBONE.NUM_LAYERS=50", "MODEL.CDPN.PNP_NET.R_ONLY=True",
+     "MODEL.CDPN.PNP_NET.ROT_TYPE='allo_lie_vec'"),
+    ("MODEL.CDPN.PNP_NET.PNP_HEAD_CFG.type='PointPnPNet'",
+     "MODEL.CDPN.PNP_NET.ROT_TYPE='ego_quat'")])
+def test_variant_forward_on_the_card_equals_the_cpu(cuda_device, overrides):
+    """A variant's f32 forward (TF32 off) on the card against the CPU, from
+    one seeded init: the [forward_f32] gate of chip_smoke.py."""
+    from gdrnet_tpu_torch.data.synthetic import synthetic_roi_batch
+    from gdrnet_tpu_torch.engine.steps import make_predict_step
+    from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _small_variant_cfg(*overrides)
+    sd = init_weights(build_model(cfg, device="cpu"), torch.Generator().manual_seed(0)).state_dict()
+    batch = synthetic_roi_batch(batch_size=4, input_res=64, out_res=16, num_classes=10, seed=3)
+    outs = []
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device)
+        model.load_state_dict(sd)
+        out = make_predict_step(model)({k: torch.from_numpy(v).to(device)
+                                        for k, v in batch.items()})
+        outs.append({k: v.cpu().numpy() for k, v in out.items()})
+    np.testing.assert_allclose(outs[0]["rot"], outs[1]["rot"], atol=1e-3)
+    np.testing.assert_allclose(outs[0]["trans"], outs[1]["trans"], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["AdamP", "Ranger2020", "RMSprop"])
+def test_zoo_update_on_the_card_equals_the_cpu(cuda_device, name):
+    """One update of a zoo optimizer from the same gradients on the card and
+    on the CPU, rtol 1e-4 of each tensor's largest step (plus one f32 ulp of
+    the parameter)."""
+    from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
+    from gdrnet_tpu_torch.solver.optimizers import build_optimizer
+
+    cfg = _small_variant_cfg()
+    cfg.SOLVER.OPTIMIZER_CFG = dict(type=name, lr=1e-3, weight_decay=0.01)
+    sd = init_weights(build_model(cfg, device="cpu"), torch.Generator().manual_seed(0)).state_dict()
+    g = torch.Generator().manual_seed(1)
+    updates = []
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device)
+        model.load_state_dict(sd)
+        g.manual_seed(1)
+        for p in model.parameters():
+            p.grad = torch.randn(p.shape, generator=g).to(device)
+        before = {k: p.detach().clone() for k, p in model.named_parameters()}
+        build_optimizer(cfg, model).step()
+        updates.append({k: (p.detach() - before[k]).cpu() for k, p in model.named_parameters()})
+    for k, want in updates[1].items():
+        scale = float(want.abs().max())
+        ulp = 2.0 ** -23 * float(sd[k].abs().max())  # the update is read as after - before
+        np.testing.assert_allclose(updates[0][k].numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4 * scale + ulp, err_msg=k)

@@ -281,13 +281,6 @@ def test_gdrn_loss_matches_jax(case, roi_batch):
                          "loss_PM_R", "loss_centroid", "loss_z"}
 
 
-def test_gdrn_loss_mtl_raises(roi_batch):
-    cfg = loss_case({"MODEL.CDPN.USE_MTL": True})
-    out = {k: torch.from_numpy(v) for k, v in random_outputs(cfg, roi_batch, 0).items()}
-    with pytest.raises(NotImplementedError, match="A12"):
-        gdrn_loss(cfg, out, {k: torch.from_numpy(v) for k, v in roi_batch.items()})
-
-
 # ---------------------------------------------------------------------------
 # solver/schedulers.py
 # ---------------------------------------------------------------------------

@@ -121,13 +121,6 @@ def test_pose_from_centroid_z_matches_jax(rng, is_allo):
     _close(got_t.numpy(), want_t, rtol=1e-6, atol=1e-7)
 
 
-def test_pose_from_centroid_z_quaternion_not_ported():
-    with pytest.raises(NotImplementedError, match="A12"):
-        pose.pose_from_centroid_z(torch.zeros(2, 4), *[torch.zeros(2, 2)] * 2,
-                                  torch.zeros(2, 3, 3), torch.zeros(2, 2), torch.ones(2),
-                                  torch.ones(2, 2))
-
-
 @pytest.mark.parametrize("k", [None, 1, 5])
 def test_identity_padded_sym_arrays_equal_jax(rng, k):
     srots = None if k is None else _rotations(rng, k)
@@ -155,19 +148,6 @@ def test_get_mask_prob_matches_jax(rng, mask_loss_type, ch):
     want = jgdrn.get_mask_prob(jnp.asarray(logits), mask_loss_type)
     got = gdrn.get_mask_prob(T(nchw(logits)), mask_loss_type)
     _close(nchw(want), got.numpy(), rtol=1e-6, atol=1e-6)
-
-
-def test_decode_rot_other_types_not_ported():
-    with pytest.raises(NotImplementedError, match="A12"):
-        gdrn.decode_rot(torch.zeros(2, 4), "allo_quat")
-    cfg = small_flagship_cfg()
-    cfg.MODEL.CDPN.PNP_NET.ROT_TYPE = "allo_quat"
-    with pytest.raises(NotImplementedError, match="A12"):
-        gdrn.build_model(cfg, device="cpu")
-    cfg = small_flagship_cfg()
-    cfg.MODEL.CDPN.PNP_NET.PNP_HEAD_CFG.type = "PointPnPNet"
-    with pytest.raises(NotImplementedError, match="A12"):
-        gdrn.build_model(cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------

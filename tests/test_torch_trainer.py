@@ -365,11 +365,104 @@ def test_pool_settings_warn_and_train(fixture_records, reference_pth, tmp_path, 
         assert name in warned[0]
 
 
-@pytest.mark.parametrize("setting,item", [("TEST.PRECISE_BN.ENABLED", "A12"),
-                                          ("TRAIN.VIS_IMG", "A7"),
+@pytest.mark.parametrize("setting,item", [("TRAIN.VIS_IMG", "A7"),
                                           ("PARALLEL.MESH_SHAPE", "A10")])
 def test_what_waits_raises(setting, item, tmp_path):
     cfg = _train_cfg(str(tmp_path), "")
     cfg.set_path(setting, (8,) if setting == "PARALLEL.MESH_SHAPE" else True)
     with pytest.raises(NotImplementedError, match=item):
         trainer.do_train(cfg, max_iters_override=1, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# precise BN
+# ---------------------------------------------------------------------------
+
+
+def test_precise_bn_matches_jax():
+    """engine/precise_bn.update_bn_stats against JAX's on the same 3 batches
+    of the small flagship: running_mean at rtol 1e-4 / atol 1e-5 (JAX
+    recovers each batch's mean from its EMA update, (new - 0.9 old) / 0.1, a
+    few ulp of the old value per batch); running_var as JAX's times n / (n - 1),
+    torch averaging the unbiased batch variances and flax the biased ones (n:
+    the layer's B*H*W). A frozen backbone keeps its statistics: bitwise in the
+    port (its BatchNorms stay in eval mode), within the rounding of that
+    recovery in JAX."""
+    from gdrnet_tpu.engine.precise_bn import update_bn_stats as jax_update_bn_stats
+    from gdrnet_tpu.engine.steps import _model_kwargs as jax_model_kwargs
+
+    from gdrnet_tpu_torch.engine.precise_bn import update_bn_stats
+    from torch_parity import load_port
+
+    cfg = small_flagship_cfg()
+    cfg.MODEL.CDPN.BACKBONE.FREEZE = True
+    batches = [_batch(seed=40 + i, bs=3) for i in range(3)]
+    jm = jax_build_model(cfg)
+    jb = {k: jax.numpy.asarray(v) for k, v in batches[0].items()}
+    params, stats = randomize(init_shapes(jm, jb["roi_img"], **jax_model_kwargs(jb)), seed=41)
+    variables = jax_update_bn_stats(
+        jm, {"params": params, "batch_stats": stats},
+        [{k: jax.numpy.asarray(v) for k, v in b.items()} for b in batches], num_iters=3,
+        model_kwargs_fn=jax_model_kwargs)
+    want = jax_to_torch(params, jax.tree.map(np.asarray, variables["batch_stats"]))
+
+    model = load_port(build_model(cfg, device="cpu"), params, stats)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    n_per_bn = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, torch.nn.BatchNorm2d):
+            mod.register_forward_pre_hook(
+                lambda mod, args, name=name: n_per_bn.__setitem__(
+                    name, args[0].shape[0] * args[0].shape[2] * args[0].shape[3]))
+    tb = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
+    n = update_bn_stats(model, tb, num_iters=5, forward=lambda m, b: m(
+        b["roi_img"], **{k: b[k] for k in ("roi_classes", "roi_coord_2d", "roi_cams",
+                                           "roi_centers", "roi_whs", "roi_extents",
+                                           "resize_ratios")}))
+    assert n == 3 and not model.training
+    got = model.state_dict()
+    moved = 0
+    for k, w in want.items():
+        if not k.endswith(("running_mean", "running_var")):
+            assert torch.equal(got[k], before[k]), k
+            continue
+        if k.startswith("backbone."):
+            assert torch.equal(got[k], before[k]), k
+            np.testing.assert_allclose(w.numpy(), before[k].numpy(), rtol=1e-5, atol=1e-7,
+                                       err_msg=k)
+            continue
+        if k.endswith("running_var"):
+            nn_ = n_per_bn[k[: -len(".running_var")]]
+            w = w * nn_ / (nn_ - 1)
+        np.testing.assert_allclose(got[k].numpy(), w.numpy(), rtol=1e-4, atol=1e-5, err_msg=k)
+        moved += not torch.equal(got[k], before[k])
+    assert moved >= 10
+    assert all(m.momentum == 0.1 for m in model.modules()
+               if isinstance(m, torch.nn.BatchNorm2d))
+
+
+def test_do_train_with_precise_bn(fixture_records, reference_pth, tmp_path, monkeypatch):
+    """TEST.PRECISE_BN in do_train: after the last iteration the statistics
+    are averaged over NUM_ITER loader batches; the pass moves every BN
+    statistic and no parameter, and the checkpoint holds its statistics."""
+    seen = []
+    real = trainer.update_bn_stats
+
+    def spy(model, batches, num_iters, forward):
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        n = real(model, batches, num_iters=num_iters, forward=forward)
+        seen.append((n, before, {k: v.clone() for k, v in model.state_dict().items()}))
+        return n
+
+    monkeypatch.setattr(trainer, "update_bn_stats", spy)
+    cfg = _train_cfg(str(tmp_path / "pbn"), reference_pth[0])
+    cfg.TEST.PRECISE_BN.ENABLED = True
+    cfg.TEST.PRECISE_BN.NUM_ITER = 2
+    trainer.do_train(cfg, max_iters_override=2, device="cpu")
+    assert len(seen) == 1 and seen[0][0] == 2
+    _, before, after = seen[0]
+    stats = [k for k in after if k.endswith(("running_mean", "running_var"))]
+    assert stats and all(not torch.equal(after[k], before[k]) for k in stats)
+    assert all(torch.equal(after[k], before[k]) for k in after if k not in stats)
+    saved = checkpoint.load_model_weights(osp.join(cfg.OUTPUT_DIR, "ckpt"))
+    assert all(torch.equal(saved[k], after[k]) for k in stats)

@@ -86,7 +86,8 @@ def load_port(module: torch.nn.Module, params: dict, stats: dict, prefix: str = 
         params, stats = {prefix: params}, {prefix: stats} if stats else {}
     sd = jax_to_torch(params, stats, **convert_kwargs)
     if prefix:
-        port_prefix = {"rot_head": "rot_head_net"}.get(prefix, prefix) + "."
+        port_prefix = {"rot_head": "rot_head_net", "trans_head": "trans_head_net"}.get(
+            prefix, prefix) + "."
         sd = {k[len(port_prefix):]: v for k, v in sd.items()}
     module.load_state_dict(sd, strict=True)
     return module.eval()
