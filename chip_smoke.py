@@ -41,7 +41,13 @@ GDR-Net variant of MODEL.CDPN at the flagship's width ([variants]), every
 optimizer of the JAX registry ([solvers]), and the LM config at ResNet-50
 with Ranger2020 and precise BN trained and tested through the CLI on the
 train loop's split ([train_variant], run before gen_xyz writes that split's
-pickles, so that its XYZ renders on the z-buffer kernel).
+pickles, so that its XYZ renders on the z-buffer kernel). Then the PnP slice
+([pnp]): the device PnP program (gdrnet_tpu_torch/ops/device_pnp.py,
+batched torch) in each TEST.PNP_TYPE mode on the card against the CPU,
+bench_pnp's ROIs/s of the host loop and of each mode, do_test with
+TEST.USE_PNP on the device and on the host path (ADD-S on the
+nearest-neighbour kernel, VSD on the z-buffer kernel), and training with
+TRAIN.VIS_IMG.
 
 Phases, one line each (or one per case): device, kernel builds (both nvcc
 runs and the codec's g++ at once), nn_min_dist against its plain PyTorch version and cKDTree,
@@ -84,7 +90,12 @@ the card against the CPU, 10 bf16 steps at B=32, its step ms, crops/s and
 peak memory), [solvers] (each optimizer's first f32 update against the
 CPU's, 10 bf16 steps, its ms, a NaN step bitwise), [train_variant] (losses
 finite, precise BN moving every BN statistic, one CSV row a kept
-detection, B2 in training and B1 in do_test); last, what
+detection, B2 in training and B1 in do_test); [pnp] (card against CPU with
+the same minimal sets within 0.05 degrees and 5e-4 m, at least 95 % of 64
+ROIs within 1 degree and 1 cm of the truth, in each mode), [pnp_bench]
+(ROIs/s and peak memory), [do_test_pnp] (finite rows with rotations, one a
+kept detection, finite recalls, B1 in each run), [vis_img] (finite losses;
+with tensorboard, five panels an iteration); last, what
 torch.profiler measures (rasterize_xyz's launches per call and its
 kernels' device time, the device time of a BOP scoring call, the train
 step's busy share, top device operations and Ranger's launches), so that no
@@ -135,6 +146,7 @@ from gdrnet_tpu_torch.data.synthetic import (
     edge_on_poses,
     poses_near,
     sliver_mesh,
+    synthetic_decoded_maps,
     synthetic_object_models,
     synthetic_roi_batch,
     write_bop_split,
@@ -143,7 +155,7 @@ from gdrnet_tpu_torch.engine import build_test_items, do_test, steps
 from gdrnet_tpu_torch.engine.checkpoint import CheckpointManager, load_weights
 from gdrnet_tpu_torch.engine.steps import make_predict_step
 from gdrnet_tpu_torch.engine.trainer import build_input_pipeline, build_train_objects, do_train
-from gdrnet_tpu_torch.eval import bop_score
+from gdrnet_tpu_torch.eval import bop_score, cv_pnp
 from gdrnet_tpu_torch.eval import vsd as vsd_mod
 from gdrnet_tpu_torch.eval import pose_errors as PE
 from gdrnet_tpu_torch.eval.bop_writer import load_bop_results, save_bop_results
@@ -152,9 +164,10 @@ from gdrnet_tpu_torch.eval.renderer import create_renderer
 from gdrnet_tpu_torch.models import quantize as Q
 from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
 from gdrnet_tpu_torch.solver.optimizers import OPTIMIZER_NAMES
-from gdrnet_tpu_torch.ops import kernels
+from gdrnet_tpu_torch.ops import device_pnp, kernels
 from gdrnet_tpu_torch.ops.rasterizer import render_phong_xyz_roi_many, vertex_normals
 from gdrnet_tpu_torch.ops.symmetry import get_closest_rot_batch, identity_padded_sym_arrays
+from gdrnet_tpu_torch.tools import bench_pnp
 from gdrnet_tpu_torch.tools import eval_csv as eval_csv_tool
 from gdrnet_tpu_torch.tools.compute_fps import compute_fps_dict
 from gdrnet_tpu_torch.tools import gen_xyz as gen_xyz_tool
@@ -313,6 +326,21 @@ VARIANT_NO_1024 = {"PointPnPNet": "region_product_68.7GB",
 SOLVER_UPDATE_RTOL, SOLVER_F32_BATCH = 1e-4, 4
 LM_CONFIG = str(REPO / "configs/gdrn/lm/a6_cPnP_lm13.py")
 TV_EPOCHS, TV_PRECISE_ITERS, TV_TIMEOUT_S = 1, 10, 600
+
+# the PnP slice: (a) ops/device_pnp.pnp_from_maps_batch on the card against the
+# CPU with the same minimal sets, on synthetic_decoded_maps of PNP_B ROIs at
+# PNP_HW x PNP_HW with 0.5 px noise (the default bucket), net poses
+# PNP_NET_DEG and ~3 cm off: every ROI within PNP_DEG / PNP_METRE (the JAX
+# package's clean-data floor, tests/test_device_pnp.py:51-52), and at least
+# PNP_TRUTH_SHARE of them within PNP_TRUTH_DEG / PNP_TRUTH_M of the truth;
+# (b) tools/bench_pnp at PNP_B, PNP_BENCH_ITERS chained rounds; (c) do_test
+# with TEST.USE_PNP in PNP_TEST_RUNS (DEVICE_PNP, PNP_TYPE); (d) PNP_VIS_ITERS
+# iterations with TRAIN.VIS_IMG at PNP_VIS_BATCH
+PNP_B, PNP_HW, PNP_NET_DEG = 64, 64, 8.0
+PNP_DEG, PNP_METRE = 0.05, 5e-4
+PNP_TRUTH_DEG, PNP_TRUTH_M, PNP_TRUTH_SHARE = 1.0, 0.01, 0.95
+PNP_BENCH_ITERS, PNP_VIS_ITERS, PNP_VIS_BATCH = 4, 3, 16
+PNP_TEST_RUNS = ((True, "ransac_pnp"), (False, "net_iter_pnp"))
 
 TRAIN_OP_KINDS = (
     ("conv_and_matmul", ("xmma", "gemm", "conv", "cudnn", "cutlass", "sm90_")),
@@ -2851,6 +2879,129 @@ def phase_train_variant(root: str, dets: dict, card: str) -> tuple[int, int]:
     return run["b1_test"], tr["b2"] + run["b2_test"]
 
 
+def rot_deg(Ra, Rb) -> np.ndarray:
+    """Angle in degrees of Ra^T Rb ([..., 3, 3] each), by atan2 of its skew
+    part, which resolves angles below arccos's f32 floor."""
+    M = np.swapaxes(np.asarray(Ra, np.float64), -1, -2) @ np.asarray(Rb, np.float64)
+    v = np.stack([M[..., 2, 1] - M[..., 1, 2], M[..., 0, 2] - M[..., 2, 0],
+                  M[..., 1, 0] - M[..., 0, 1]], -1) / 2
+    return np.degrees(np.arctan2(np.linalg.norm(v, axis=-1),
+                                 (np.trace(M, axis1=-2, axis2=-1) - 1) / 2))
+
+
+def pnp_card_vs_cpu() -> None:
+    """(a) pnp_from_maps_batch in each mode on the card and on the CPU with
+    the same minimal sets (drawn once on the CPU)."""
+    rng = np.random.RandomState(0)
+    mask, xyzn, c2d, R, t, K, ext, (W, H) = synthetic_decoded_maps(
+        rng, PNP_B, h=PNP_HW, w=PNP_HW, noise_px=0.5, t_jitter=0.02)
+    axes = rng.randn(PNP_B, 3)
+    axes *= np.radians(PNP_NET_DEG) / np.linalg.norm(axes, axis=1, keepdims=True)
+    R_net = np.stack([cv_pnp.rodrigues(a) @ r for a, r in zip(axes, R)]).astype(np.float32)
+    t_net = (t + [0.02, -0.01, 0.02]).astype(np.float32)
+    host = {"mask_prob": mask, "xyz_norm": xyzn, "coord2d": c2d,
+            "im_wh": np.tile([[W, H]], (PNP_B, 1)).astype(np.float32),
+            "extents": np.tile(ext, (PNP_B, 1)), "Ks": np.tile(K, (PNP_B, 1, 1)),
+            "rot_net": R_net, "trans_net": t_net, "roi_valid": np.ones(PNP_B, bool)}
+    on = {d: {k: torch.from_numpy(np.ascontiguousarray(v)).to(d) for k, v in host.items()}
+          for d in (DEV, "cpu")}
+    w = device_pnp.correspondence_weights(*(on["cpu"][k] for k in (
+        "mask_prob", "xyz_norm", "coord2d", "im_wh", "extents")))[2]
+    idx = device_pnp.draw_samples(w, 128, 6, torch.Generator().manual_seed(0))
+    for mode in device_pnp.MODES:
+        got = {}
+        for d in (DEV, "cpu"):
+            if d == DEV:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Rd, td = device_pnp.pnp_from_maps_batch(**on[d], mode=mode, sample_idx=idx)
+            got[d] = (Rd.cpu().numpy(), td.cpu().numpy(), time.perf_counter() - t0)
+        (Rc, tc, card_s), (Rp, tp, cpu_s) = got[DEV], got["cpu"]
+        vs_deg, vs_m = float(rot_deg(Rc, Rp).max()), float(np.abs(tc - tp).max())
+        near = (rot_deg(Rc, R) < PNP_TRUTH_DEG) & (np.linalg.norm(tc - t, axis=1) < PNP_TRUTH_M)
+        if vs_deg > PNP_DEG or vs_m > PNP_METRE or near.mean() < PNP_TRUTH_SHARE:
+            raise AssertionError(f"pnp {mode}: card vs CPU {vs_deg} deg, {vs_m} m; "
+                                 f"{near.mean()} of the ROIs near the truth")
+        log("pnp", mode=mode, rois=PNP_B, maps=f"{PNP_HW}x{PNP_HW}", points_median=int(
+            w.sum(-1).median()), hypotheses=idx.shape[1], vs="cpu, same minimal sets",
+            max_deg=f"{vs_deg:.3e}", max_m=f"{vs_m:.3e}", deg_tol=PNP_DEG, m_tol=PNP_METRE,
+            near_truth=f"{near.mean():.3f}", truth_deg_median=f"{np.median(rot_deg(Rc, R)):.4f}",
+            first_call_card_s=f"{card_s:.3f}", cpu_s=f"{cpu_s:.3f}", check="ok")
+
+
+def phase_pnp(cfg, split, dets: dict, weights: str, root: str, card: str) -> tuple[int, int]:
+    """The PnP slice on the card: (a) the device program against the CPU,
+    (b) bench_pnp's ROIs/s and peak memory, (c) do_test with TEST.USE_PNP on
+    [train_loop]'s checkpoint (finite CSV rows with rotations, one a kept
+    detection, finite recalls, B1 launched inside each run), (d) do_train
+    with TRAIN.VIS_IMG (finite losses; with tensorboard, the five panels at
+    every iteration). Returns the B1 and B2 launches of (c) and (d)."""
+    t_phase = time.perf_counter()
+    pnp_card_vs_cpu()
+    for row in bench_pnp.run(PNP_B, PNP_BENCH_ITERS, device=DEV):
+        log("pnp_bench", card=repr(card), **{k: (f"{v:.2f}" if isinstance(v, float) else v)
+                                               for k, v in row.items() if k != "device"})
+    nn_total = raster_total = 0
+    for device_pnp_on, pnp_type in PNP_TEST_RUNS:
+        c = test_cfg(cfg, dets)
+        c.TEST.USE_PNP, c.TEST.DEVICE_PNP, c.TEST.PNP_TYPE = True, device_pnp_on, pnp_type
+        model = load_weights(build_model(c, device=DEV), weights)
+        torch.cuda.synchronize()
+        kernels.nn_min_dist.launches = 0
+        kernels.rasterize_xyz.launches = 0
+        t0 = time.perf_counter()
+        res = do_test(c, model, split["models"], split["records"],
+                      output_dir=str(Path(root) / f"test_pnp_{pnp_type}"), device=DEV)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = kernels.nn_min_dist.launches, kernels.rasterize_xyz.launches
+        rows = load_bop_results(res["_csv_path"])
+        csv_rows_check(rows, f"do_test_pnp {pnp_type}")
+        recalls = [res["Avg"][k] for k in RECALL_KEYS] + [res["_bop_average_recall"]]
+        if launches[0] < 1 or len(rows) != dets["kept"] or not np.all(np.isfinite(recalls)):
+            raise AssertionError(f"do_test_pnp {pnp_type}: launches {launches}, {len(rows)} rows "
+                                 f"for {dets['kept']}, recalls {recalls}")
+        nn_total, raster_total = nn_total + launches[0], raster_total + launches[1]
+        tm = res["_time"]
+        log("do_test_pnp", device_pnp=device_pnp_on, pnp_type=pnp_type, rois=len(rows),
+            compute_s_per_bucket=f"{tm['compute_s_per_bucket']:.4f}",
+            process_s_per_bucket=f"{tm['process_s_per_bucket']:.4f}", wall_s=f"{wall_s:.2f}",
+            launches_nn_min_dist=launches[0], launches_rasterize_xyz=launches[1],
+            ar_bop19=f"{res['_bop_average_recall']:.4f}",
+            avg_mean_re=f"{res['Avg']['mean_re']:.3f}", check="ok")
+        del model
+
+    c = loop_cfg(root, str(Path(root) / "flagship_seed0.pth"))
+    c.OUTPUT_DIR = str(Path(root) / "vis_out")
+    c.SOLVER.IMS_PER_BATCH = PNP_VIS_BATCH
+    c.TRAIN.VIS_IMG = True
+    kernels.rasterize_xyz.launches = 0
+    t0 = time.perf_counter()
+    state, _, preempted = do_train(c, data_root=root, max_iters_override=PNP_VIS_ITERS, device=DEV)
+    vis_s = time.perf_counter() - t0
+    raster_total += kernels.rasterize_xyz.launches
+    with open(Path(c.OUTPUT_DIR) / "metrics.json") as f:
+        losses = [json.loads(ln)["total_loss"] for ln in f]
+    if preempted or state.step != PNP_VIS_ITERS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"vis_img: step {state.step}, losses {losses}")
+    try:
+        from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+    except ImportError:
+        EventAccumulator = None
+    panels = {}
+    if EventAccumulator is not None:
+        acc = EventAccumulator(str(Path(c.OUTPUT_DIR) / "tb"), size_guidance={"images": 0})
+        acc.Reload()
+        panels = {tag: len(acc.Images(tag)) for tag in acc.Tags()["images"]}
+        if len(panels) != 5 or set(panels.values()) != {PNP_VIS_ITERS}:
+            raise AssertionError(f"vis_img: tensorboard holds the panels {panels}")
+    log("vis_img", iterations=PNP_VIS_ITERS, batch=PNP_VIS_BATCH,
+        tensorboard="present" if EventAccumulator is not None else "absent",
+        panels_written=sum(panels.values()), tags=len(panels), losses_finite=True,
+        wall_s=f"{vis_s:.1f}", phase_s=f"{time.perf_counter() - t_phase:.1f}", check="ok")
+    return nn_total, raster_total
+
+
 def check_rotations(R: np.ndarray, where: str) -> None:
     if not np.all(np.isfinite(R)):
         raise AssertionError(f"{where}: non-finite rotations")
@@ -3000,6 +3151,7 @@ def main() -> int:
         tested = phase_do_test(cfg, split, dets, ckpt, root, card)
         phase_do_test_vs_cpu(cfg32, split, dets, ckpt, root)
         phase_cli(cfg, split, dets, ckpt, root, tested)
+        pnp_launches = phase_pnp(cfg, split, dets, ckpt, root, card)
         # before [gen_xyz] writes the train split's pickles: its XYZ renders on B2
         tv_launches = phase_train_variant(root, dets, card)
         overfit = phase_overfit(gsd, root, card)
@@ -3024,13 +3176,13 @@ def main() -> int:
          "source": "gdrnet_tpu_torch/csrc/nn_min_dist.cu",
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:28",
          "launches": launches + test_launches[0] + csv_launches[0] + lmo_launches[0]
-         + tv_launches[0],
+         + tv_launches[0] + pnp_launches[0],
          **nn_stats},
         {"name": "rasterize_xyz", "route": "cuda",
          "source": "gdrnet_tpu_torch/csrc/rasterize_xyz.cu",
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:140",
          "launches": raster_launches + loop_launches + test_launches[1] + gen_launches
-         + csv_launches[1] + xyz_launches + lmo_launches[1] + tv_launches[1],
+         + csv_launches[1] + xyz_launches + lmo_launches[1] + tv_launches[1] + pnp_launches[1],
          **raster_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,10 +1,10 @@
 """Synthetic fixed-shape ROI batches (numpy), channels-last, and the port's
 scoring fixtures.
 
-synthetic_roi_batch is a copy of gdrnet_tpu/data/synthetic.py:
-synthetic_roi_batch, which cannot be imported without JAX (gdrnet_tpu.data's
-package import pulls it in). The two must stay equal;
-tests/test_torch_slice.py holds them to it.
+synthetic_roi_batch and synthetic_decoded_maps are copies of
+gdrnet_tpu/data/synthetic.py's, which cannot be imported without JAX
+(gdrnet_tpu.data's package import pulls it in). The copies must stay equal;
+tests/test_torch_slice.py and tests/test_torch_pnp.py hold them to it.
 """
 
 from __future__ import annotations
@@ -118,6 +118,38 @@ def synthetic_roi_batch(batch_size: int = 8, input_res: int = 256,
         "sym_rots": sym_rots,
         "sym_mask": sym_mask,
     }
+
+
+def synthetic_decoded_maps(rng: np.random.RandomState, batch_size: int = 1,
+                           h: int = 64, w: int = 64, mask_frac: float = 0.6,
+                           noise_px: float = 0.0, t_jitter: float = 0.0):
+    """Synthetic decoded geometry maps in the tester's contract: per-ROI
+    xyz_norm ([0,1] over the extent), coord2d (full-image fraction) and a
+    random visibility mask, with the true (R, t) that generated them.
+    Shared by the PnP tests, tools/bench_pnp.py and chip_smoke.py's [pnp],
+    so that the map conventions (coord2d normalization, xyz centering) live
+    in one place.
+
+    Returns (mask [B,h,w], xyz_norm [B,h,w,3], coord2d [B,h,w,2],
+    R [B,3,3], t [B,3], K [3,3], extent [3], (im_w, im_h))."""
+    K = np.array([[572.4, 0, 325.3], [0, 573.6, 242.0], [0, 0, 1.0]],
+                 np.float32)
+    extent = np.array([0.2, 0.2, 0.2], np.float32)
+    im_w, im_h = 640, 480
+    B = batch_size
+    R = _random_rotations(rng, B)
+    t = (np.array([0.02, -0.01, 0.7], np.float32) +
+         rng.randn(B, 3).astype(np.float32) * t_jitter)
+    p3 = ((rng.rand(B, h * w, 3) - 0.5) * extent).astype(np.float32)
+    pc = p3 @ np.swapaxes(R, 1, 2) + t[:, None]      # camera-frame points
+    uv = pc @ K.T
+    uv = uv[..., :2] / uv[..., 2:3]
+    if noise_px:
+        uv = uv + rng.randn(B, h * w, 2) * noise_px
+    mask = (rng.rand(B, h, w) < mask_frac).astype(np.float32)
+    xyz_norm = (p3 / extent + 0.5).reshape(B, h, w, 3).astype(np.float32)
+    coord2d = (uv / [im_w, im_h]).reshape(B, h, w, 2).astype(np.float32)
+    return mask, xyz_norm, coord2d, R, t, K, extent, (im_w, im_h)
 
 
 # ---------------------------------------------------------------------------

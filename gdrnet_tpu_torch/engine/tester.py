@@ -16,8 +16,11 @@ Where the port differs from the JAX package: the model is an nn.Module that
 holds its weights (no separate `variables`); one process scores the whole
 split on one device, so there is no shard gather; the settings the port does
 not run yet raise NotImplementedError naming their ROADMAP.md queue item
-before anything is mapped: TEST.USE_PNP (A9), more than one process or
-TEST.LOCAL_DEVICES other than -1 or 1 (A10). TEST.FOLD_BN folds the BN
+before anything is mapped: more than one process or TEST.LOCAL_DEVICES
+other than -1 or 1 (A10). TEST.USE_PNP refines each bucket's net poses from
+its decoded maps (engine/pnp_refine.py: TEST.PNP_TYPE's mode, on the device
+with TEST.DEVICE_PNP, else the per-ROI host loop) inside the compute
+window, as JAX does (gdrnet_tpu/engine/tester.py:229-236). TEST.FOLD_BN folds the BN
 statistics into a copy of the model before the first bucket
 (utils/fold_bn.py); TEST.INT8 calibrates on the first mapped bucket and
 serves a quantized copy (models/quantize.py); the two compose, as in JAX
@@ -40,6 +43,7 @@ import torch
 
 from gdrnet_tpu_torch.data.bop import load_detections
 from gdrnet_tpu_torch.data.mapper import GDRNTestMapper
+from gdrnet_tpu_torch.engine.pnp_refine import refine_bucket_poses
 from gdrnet_tpu_torch.engine.steps import make_predict_step
 from gdrnet_tpu_torch.eval.bop_score import (
     bop19_average_recall,
@@ -89,9 +93,6 @@ def check_supported(cfg, logger: logging.Logger | None = None) -> None:
     """Raise for the test settings the port does not run yet; warn for
     TEST.DEVICE_PREPROCESS, which it does not need."""
     test = cfg.TEST
-    if test.get("USE_PNP"):
-        raise NotImplementedError("TEST.USE_PNP: the PnP refinement is not ported yet "
-                                  "(ROADMAP.md A9)")
     local = int(test.get("LOCAL_DEVICES", -1))
     if local not in (-1, 1):
         raise NotImplementedError(
@@ -163,7 +164,8 @@ def do_test(cfg, model: torch.nn.Module, models, records: list[dict],
     mapper = GDRNTestMapper(cfg, models, roi_batch_size=bucket)
     if cfg.TEST.get("FOLD_BN"):  # inference only; a folded model quantizes too
         model = fold_batch_norms(model)
-    predict = make_predict_step(model)
+    use_pnp = bool(cfg.TEST.USE_PNP)
+    predict = make_predict_step(model, with_maps=use_pnp)
     int8 = bool(cfg.TEST.get("INT8"))
     evaluator = CustomEvaluator(
         models.objs, models.points, models.diameters,
@@ -250,11 +252,15 @@ def do_test(cfg, model: torch.nn.Module, models, records: list[dict],
             dev_batch = _to_device(batch, device)
             if int8:  # calibrate the activation scales on the first bucket
                 predict = make_predict_step(
-                    model, int8_scales=calibrate_act_scales(model, [dev_batch]))
+                    model, with_maps=use_pnp,
+                    int8_scales=calibrate_act_scales(model, [dev_batch]))
                 int8 = False
             out = predict(dev_batch)
-            rot = out["rot"].float().cpu().numpy()  # the host waits for the bucket here
-            trans = out["trans"].float().cpu().numpy()
+            if use_pnp:  # pose computation, so it lands in the compute window
+                rot, trans = refine_bucket_poses(cfg, models, batch, dev_batch, out, seed=start)
+            else:
+                rot = out["rot"].float().cpu().numpy()  # the host waits for the bucket here
+                trans = out["trans"].float().cpu().numpy()
             if start > 0:  # warmup-excluded timing (gdrn_evaluator.py:545)
                 total_compute += time.perf_counter() - t0
                 n_buckets += 1

@@ -14,13 +14,17 @@ batches (engine/precise_bn.py) before each periodic eval, as the JAX package
 does, and once after the last iteration, so that the final checkpoint and
 the test that follows read them (detectron2's PreciseBN hook runs at the
 final iteration too; the JAX package's do_train leaves the final statistics
-as their running average).
+as their running average). With TRAIN.VIS_IMG it writes five tensorboard
+panels of the current batch's first ROI at each log boundary (the input
+crop, the predicted and GT xyz, the predicted and GT mask), as JAX does
+(gdrnet_tpu/engine/trainer.py:405-427); without tensorboard it writes none.
 
-The JAX package's device-resident pool and device preprocessing
-(TRAIN.DEVICE_RESIDENT_POOL, POOL_REFRESH, INPUT.DEVICE_PREPROCESS) are TPU
-placement choices the port does not need (ROADMAP.md "Do not port"): with
-them set it trains from the host loader, the reference's sampling, and
-warns once.
+The JAX package's device-resident pool, device preprocessing and device
+colour jitter (TRAIN.DEVICE_RESIDENT_POOL, POOL_REFRESH,
+INPUT.DEVICE_PREPROCESS, INPUT.DEVICE_COLOR_AUG) are TPU placement choices
+the port does not need (ROADMAP.md "Do not port"): with them set it trains
+from the host loader, the reference's sampling, jitters on the host as JAX
+does with DEVICE_COLOR_AUG off, and warns once.
 """
 
 from __future__ import annotations
@@ -39,24 +43,34 @@ from gdrnet_tpu_torch.data.loader import TrainLoader
 from gdrnet_tpu_torch.data.mapper import GDRNTrainMapper
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.engine.checkpoint import CheckpointManager, init_model_weights
+from gdrnet_tpu_torch.engine.decode import get_out_coor, get_out_mask
 from gdrnet_tpu_torch.engine.precise_bn import update_bn_stats
-from gdrnet_tpu_torch.engine.steps import _autocast, _model_kwargs, make_train_step
+from gdrnet_tpu_torch.engine.steps import (
+    _autocast,
+    _model_kwargs,
+    make_predict_step,
+    make_train_step,
+)
 from gdrnet_tpu_torch.engine.train_state import create_train_state
-from gdrnet_tpu_torch.engine.writers import ConsoleWriter, EventLog, JsonWriter, setup_logger
+from gdrnet_tpu_torch.engine.writers import (
+    ConsoleWriter,
+    EventLog,
+    JsonWriter,
+    TensorboardWriter,
+    setup_logger,
+)
 from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
 from gdrnet_tpu_torch.solver.optimizers import build_optimizer
 from gdrnet_tpu_torch.solver.schedulers import build_lr_schedule
 
 # TPU placement settings of the JAX package: the port trains from the host loader
 _TPU_PLACEMENT = (("TRAIN", "DEVICE_RESIDENT_POOL"), ("TRAIN", "POOL_REFRESH"),
-                  ("INPUT", "DEVICE_PREPROCESS"))
+                  ("INPUT", "DEVICE_PREPROCESS"), ("INPUT", "DEVICE_COLOR_AUG"))
 
 
 def check_supported(cfg, logger=None) -> None:
     """Raise for what the port's trainer does not do yet; warn once for the
     TPU placement settings, which it does not need."""
-    if cfg.TRAIN.VIS_IMG:
-        raise NotImplementedError("TRAIN.VIS_IMG is not ported yet (ROADMAP.md A7)")
     mesh = tuple(cfg.PARALLEL.get("MESH_SHAPE", (-1,)))
     if mesh not in ((-1,), (1,)) or int(cfg.PARALLEL.get("MODEL_PARALLEL", 1) or 1) > 1:
         raise NotImplementedError(
@@ -96,6 +110,26 @@ def build_train_objects(cfg, data_root: str = "datasets/BOP_DATASETS", device="c
             bg_type=cfg.INPUT.BG_TYPE)
     mapper = GDRNTrainMapper(cfg, models, bg_replacer=bg, device=device)
     return meta, records, records2, models, mapper
+
+
+def vis_panels(cfg, model: torch.nn.Module, batch: dict) -> dict:
+    """TRAIN.VIS_IMG's tensorboard panels of the batch's first ROI, as the
+    JAX trainer draws them (gdrnet_tpu/engine/trainer.py:412-427): tag ->
+    (numpy image, dataformats). The maps come from the eval-mode forward
+    (the next train step puts the model back in train mode)."""
+    out = make_predict_step(model, with_maps=True)(batch)
+    rh = cfg.MODEL.CDPN.ROT_HEAD
+    xyz_pred = get_out_coor(out["coor_x"], out["coor_y"], out["coor_z"], rh.XYZ_BIN)[0]
+    mask_pred = get_out_mask(out["mask"], rh.MASK_LOSS_TYPE)[0]
+    img0 = batch["roi_img"][0].float().cpu().numpy()
+    img0 = (img0 - img0.min()) / max(img0.max() - img0.min(), 1e-6)
+    return {
+        "vis/roi_img": (img0, "HWC"),
+        "vis/xyz_pred": (np.clip(xyz_pred.cpu().numpy(), 0, 1), "HWC"),
+        "vis/xyz_gt": (np.clip(batch["gt_xyz"][0].float().cpu().numpy(), 0, 1), "HWC"),
+        "vis/mask_pred": (np.clip(mask_pred.cpu().numpy(), 0, 1)[None], "CHW"),
+        "vis/mask_gt": (batch["gt_mask_visib"][0].float().cpu().numpy()[None], "CHW"),
+    }
 
 
 def build_input_pipeline(cfg, records, records2, mapper, seed: int, device="cuda"):
@@ -227,11 +261,12 @@ def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir,
 
     ev = EventLog()
     writers = [ConsoleWriter(total_iters, device), JsonWriter(osp.join(out_dir, "metrics.json"))]
-    if cfg.VIS_PERIOD:
-        from gdrnet_tpu_torch.engine.writers import TensorboardWriter
-
+    tb = None  # tensorboard's writer, where tensorboard is installed
+    if cfg.TRAIN.VIS_IMG or cfg.VIS_PERIOD:
         tb = TensorboardWriter(osp.join(out_dir, "tb"))
-        if tb.tb is not None:
+        if tb.tb is None:
+            tb = None
+        else:
             writers.append(tb)
     ckpt_every = (cfg.SOLVER.CHECKPOINT_PERIOD * iters_per_epoch
                   if cfg.SOLVER.CHECKPOINT_BY_EPOCH else cfg.SOLVER.CHECKPOINT_PERIOD)
@@ -305,6 +340,9 @@ def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir,
                 ev.put(**{"time/step": step_time, "time/data": data_time})
                 for w in writers:
                     w.write(ev)
+                if cfg.TRAIN.VIS_IMG and tb is not None:
+                    for tag, (img, fmt) in vis_panels(cfg, model, batch).items():
+                        tb.tb.add_image(tag, img, it, dataformats=fmt)
             if ckpt_every and (it + 1) % ckpt_every == 0:
                 ckpt.save(state, it + 1)
             if eval_every and (it + 1) % eval_every == 0 and eval_fn is not None:
@@ -319,3 +357,5 @@ def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir,
         return state, models, False
     finally:
         loader_iter.close()
+        if tb is not None:
+            tb.close()

@@ -8,20 +8,23 @@ data/mapper.GDRNTestMapper into buckets of TEST.ROI_BATCH_SIZE crops; each
 bucket is one forward of engine/steps.make_predict_step on `--device`, the
 card unless `--device cpu`. TEST.FOLD_BN=True folds the BN statistics into
 the convs first (utils/fold_bn.py), TEST.INT8=True calibrates on the first
-bucket and serves int8 (models/quantize.py); both are KEY=value options.
-Each CSV row's `time` is its bucket's seconds (mapping and forward).
+bucket and serves int8 (models/quantize.py); TEST.USE_PNP=True refines
+each bucket's poses from its decoded maps in TEST.PNP_TYPE's mode, on the
+device with TEST.DEVICE_PNP=True, else per ROI on the host
+(engine/pnp_refine.py); all are KEY=value options. Each CSV row's `time` is
+its bucket's seconds (mapping, forward and refinement).
 
 A frame is `<scene>/rgb/<im>.png`, else `.jpg` (data/jpeg.py decodes it).
 
-Not here: TEST.USE_PNP (ROADMAP.md A9) and TEST.LOCAL_DEVICES other than -1
-or 1 (A10) raise.
+Not here: TEST.LOCAL_DEVICES other than -1 or 1 (ROADMAP.md A10) raises.
 
 Usage:
   python -m gdrnet_tpu_torch.tools.predict --config-file configs/gdrn/lm/a6_cPnP_lm13.py \
       --ckpt output/.../ckpt --dataset lm --dets dets.json \
       --image-root datasets/BOP_DATASETS/lm/test --out poses.csv \
       [--camera-json <scene_camera.json>] [--K fx,fy,cx,cy] [--device cpu] \
-      [TEST.FOLD_BN=True TEST.INT8=True]
+      [TEST.FOLD_BN=True TEST.INT8=True] [TEST.USE_PNP=True TEST.PNP_TYPE=ransac_pnp
+      TEST.DEVICE_PNP=True]
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from gdrnet_tpu_torch.data.io import load_json
 from gdrnet_tpu_torch.data.mapper import GDRNTestMapper
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.engine.checkpoint import load_weights
+from gdrnet_tpu_torch.engine.pnp_refine import refine_bucket_poses
 from gdrnet_tpu_torch.engine.steps import make_predict_step
 from gdrnet_tpu_torch.engine.tester import _to_device, check_supported
 from gdrnet_tpu_torch.eval.bop_writer import save_bop_results
@@ -97,7 +101,8 @@ def main(argv=None, device="cuda") -> list[dict]:
     model = load_weights(build_model(cfg, device=device), args.ckpt)
     if cfg.TEST.get("FOLD_BN"):
         model = fold_batch_norms(model)
-    predict = make_predict_step(model)
+    use_pnp = bool(cfg.TEST.USE_PNP)
+    predict = make_predict_step(model, with_maps=use_pnp)
     int8 = bool(cfg.TEST.get("INT8"))
     bucket = int(cfg.TEST.ROI_BATCH_SIZE)
 
@@ -133,11 +138,15 @@ def main(argv=None, device="cuda") -> list[dict]:
         dev_batch = _to_device(batch, device)
         if int8:  # calibrate on the first bucket (models/quantize.py)
             predict = make_predict_step(
-                model, int8_scales=calibrate_act_scales(model, [dev_batch]))
+                model, with_maps=use_pnp,
+                int8_scales=calibrate_act_scales(model, [dev_batch]))
             int8 = False
         out = predict(dev_batch)
-        rot = out["rot"].float().cpu().numpy()  # waits for the bucket
-        trans = out["trans"].float().cpu().numpy()
+        if use_pnp:
+            rot, trans = refine_bucket_poses(cfg, models, batch, dev_batch, out, seed=start)
+        else:
+            rot = out["rot"].float().cpu().numpy()  # waits for the bucket
+            trans = out["trans"].float().cpu().numpy()
         dt = time.perf_counter() - t0
         for j, (_, _, _, scene_id, im_id) in enumerate(chunk):
             rows.append({"scene_id": scene_id, "im_id": im_id,

@@ -2,7 +2,9 @@
 nn_min_dist (B1) and rasterize_xyz (B2, with XYZ and with 12 per-pose
 attribute channels), B2 under the train mapper (renders on the card equal
 to the CPU's, from loader-like threads on their own streams beside train
-steps) and under the dataset generator's phong+XYZ pass.
+steps) and under the dataset generator's phong+XYZ pass; and the device PnP
+program (ops/device_pnp.py, batched torch, no kernel of its own) on the
+card against the CPU.
 
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
 without one. This file imports no JAX, so it also runs where JAX is not
@@ -21,8 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from gdrnet_tpu_torch.data.synthetic import edge_on_poses, sliver_mesh
-from gdrnet_tpu_torch.ops import kernels
+from gdrnet_tpu_torch.data.synthetic import edge_on_poses, sliver_mesh, synthetic_decoded_maps
+from gdrnet_tpu_torch.ops import device_pnp, kernels
 from gdrnet_tpu_torch.ops.kernels import (
     nn_min_dist,
     nn_min_dist_ref,
@@ -622,3 +624,39 @@ def test_zoo_update_on_the_card_equals_the_cpu(cuda_device, name):
         ulp = 2.0 ** -23 * float(sd[k].abs().max())  # the update is read as after - before
         np.testing.assert_allclose(updates[0][k].numpy(), want.numpy(), rtol=1e-4,
                                    atol=1e-4 * scale + ulp, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", device_pnp.MODES)
+def test_device_pnp_on_the_card_equals_the_cpu(cuda_device, mode):
+    """pnp_from_maps_batch on the card against the CPU with the same minimal
+    sets (16 ROIs of 64x64 maps, 0.5 px noise, net poses ~3 cm off): every
+    refined pose within 0.05 degrees and 5e-4 m (the JAX package's
+    clean-data floor), the padding row's net pose kept bitwise."""
+    rng = np.random.RandomState(4)
+    mask, xyzn, c2d, R, t, K, ext, (W, H) = synthetic_decoded_maps(rng, 16, noise_px=0.5,
+                                                                   t_jitter=0.02)
+    valid = np.ones(16, bool)
+    valid[-1] = False
+    host = {"mask_prob": mask, "xyz_norm": xyzn, "coord2d": c2d,
+            "im_wh": np.tile([[W, H]], (16, 1)).astype(np.float32),
+            "extents": np.tile(ext, (16, 1)), "Ks": np.tile(K, (16, 1, 1)), "rot_net": R,
+            "trans_net": (t + [0.02, -0.01, 0.02]).astype(np.float32), "roi_valid": valid}
+    w = device_pnp.correspondence_weights(*(torch.from_numpy(host[k]) for k in (
+        "mask_prob", "xyz_norm", "coord2d", "im_wh", "extents")))[2]
+    idx = device_pnp.draw_samples(w, 64, 6, torch.Generator().manual_seed(1))
+    got = {}
+    for d in (cuda_device, torch.device("cpu")):
+        Rd, td = device_pnp.pnp_from_maps_batch(
+            **{k: torch.from_numpy(np.ascontiguousarray(v)).to(d) for k, v in host.items()},
+            mode=mode, sample_idx=idx)
+        assert Rd.device.type == d.type
+        got[d.type] = (Rd.cpu().numpy().astype(np.float64), td.cpu().numpy())
+    (Rc, tc), (Rp, tp) = got["cuda"], got["cpu"]
+    M = np.swapaxes(Rc, 1, 2) @ Rp
+    v = np.stack([M[:, 2, 1] - M[:, 1, 2], M[:, 0, 2] - M[:, 2, 0], M[:, 1, 0] - M[:, 0, 1]], -1)
+    deg = np.degrees(np.arctan2(np.linalg.norm(v / 2, axis=-1),
+                                (np.trace(M, axis1=1, axis2=2) - 1) / 2))
+    assert deg.max() < 0.05 and np.abs(tc - tp).max() < 5e-4
+    np.testing.assert_array_equal(Rc[-1], R[-1])
+    np.testing.assert_array_equal(tc[-1], host["trans_net"][-1])

@@ -529,10 +529,10 @@ def test_predict_cli_reads_jpeg_frames_as_jax(fix, weights, tmp_path, monkeypatc
 
 
 def test_predict_cli_raises_for_what_waits(fix, weights, tmp_path):  # noqa: F811
-    argv = ["--config-file", _predict_cfg_file(tmp_path, ("USE_PNP",)), "--ckpt", weights[2],
+    argv = ["--config-file", _predict_cfg_file(tmp_path, ()), "--ckpt", weights[2],
             "--dataset", "fixture", "--dets", fix["det_path"], "--image-root",
-            str(tmp_path), "--out", str(tmp_path / "x.csv")]
-    with pytest.raises(NotImplementedError, match="A9"):
+            str(tmp_path), "--out", str(tmp_path / "x.csv"), "TEST.LOCAL_DEVICES=2"]
+    with pytest.raises(NotImplementedError, match="A10"):
         port_predict.main(argv, device="cpu")
     rgb = tmp_path / "000001" / "rgb"
     rgb.mkdir(parents=True)

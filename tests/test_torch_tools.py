@@ -5,7 +5,9 @@ the --out JSON and the --latex report), and the eval helpers they stand on:
 pose matching, the CoU errors (cou_mask, cou_bb, cus, cou_bb_proj), the
 LaTeX report and the tabulate-like table. The root tools/*.py run as the
 JAX package's tests run them, loaded from their path, with the dataset's
-meta given through get_meta (tests/test_tools.py:128-250).
+meta given through get_meta (tests/test_tools.py:128-250). Then the predict
+CLI with TEST.USE_PNP on exact correspondences (its poses against the GT),
+and bench_pnp's lines on the CPU.
 
 Tolerances: xyz_crop within 1e-3 (f16 of the two packages' plain
 rasterizers, which tests/test_torch_raster.py holds within 1e-5 m), xyxy
@@ -15,6 +17,7 @@ byte for byte, matches and CoU values exactly).
 
 import dataclasses
 import importlib.util
+import json
 import os
 import os.path as osp
 import pickle
@@ -39,6 +42,7 @@ from gdrnet_tpu_torch.eval import pose_errors, pose_matching, report, vsd
 from gdrnet_tpu_torch.eval.custom_evaluator import plain_table
 from gdrnet_tpu_torch.tools import eval_csv, gen_xyz
 from fixture_bop import build_fixture_dataset
+from test_torch_tester import StubMaps, _rot_deg, fix, weights  # noqa: F401
 from torch_parity import REPO
 
 XYZ_ATOL = 1e-3
@@ -297,3 +301,60 @@ def test_summarize_equals_jax():
     args = (["cube"], {"cube": np.zeros((3, 3), np.float32)}, {"cube": 0.1})
     assert CustomEvaluator(*args, device="cpu").summarize(results) == \
         JaxCustomEvaluator(*args).summarize(results)
+
+
+# ---------------------------------------------------------------------------
+# predict with TEST.USE_PNP, and bench_pnp
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("pnp_type,device_pnp", [("ransac_pnp", True), ("net_iter_pnp", False)])
+def test_predict_cli_with_use_pnp_recovers_the_gt_poses(fix, weights, tmp_path, monkeypatch,
+                                                        pnp_type, device_pnp):
+    """The serving CLI with TEST.USE_PNP over tests/test_torch_tester.py's
+    fixture, its net replaced by StubMaps (exact correspondences, net poses
+    up to 12 degrees and 3 cm off): every detection's row, the lower-scored
+    shifted second ones too, holds its GT pose within the device PnP's
+    clean-data floor (0.05 degrees, 0.5 mm)."""
+    from gdrnet_tpu_torch.eval.bop_writer import load_bop_results
+    from gdrnet_tpu_torch.tools import predict as port_predict
+
+    stub = StubMaps(fix, fix["pmodels"], "est")
+    monkeypatch.setattr(ref_meta, "get_meta", lambda name, data_root=None: fix["pmodels"].meta)
+    monkeypatch.setattr(port_predict, "make_predict_step", lambda *args, **kwargs: (
+        lambda batch: {k: torch.from_numpy(v) for k, v in stub.outputs(batch).items()}))
+    cfg = tmp_path / "predict_pnp.py"
+    cfg.write_text(
+        "MODEL = dict(CDPN=dict(BACKBONE=dict(NUM_LAYERS=18, INPUT_RES=32, OUTPUT_RES=8),\n"
+        "                       ROT_HEAD=dict(NUM_CLASSES=2, NUM_REGIONS=4),\n"
+        "                       PNP_NET=dict(NUM_PM_POINTS=64)))\n"
+        "PARALLEL = dict(DTYPE='float32')\n"
+        "TEST = dict(ROI_BATCH_SIZE=4, LOCAL_DEVICES=1)\n")
+    out = str(tmp_path / "poses.csv")
+    rows = port_predict.main(
+        ["--config-file", str(cfg), "--ckpt", weights[2], "--dataset", "fixture", "--dets",
+         fix["det_path"], "--image-root", osp.join(fix["pmodels"].meta.data_root, "test"),
+         "--out", out, "TEST.USE_PNP=True", f"TEST.PNP_TYPE={pnp_type}",
+         f"TEST.DEVICE_PNP={device_pnp}"], device="cpu")
+    assert len(rows) == len(load_bop_results(out)) == len(fix["dets"])
+    gts = {(r["scene_id"], r["im_id"], r["obj_id"]): r for r in fix["precs"]}
+    for row in load_bop_results(out):
+        gt = gts[(row["scene_id"], row["im_id"], row["obj_id"])]
+        assert _rot_deg(gt["R"], row["R"]) < 0.05
+        assert np.abs(row["t"] / 1000.0 - gt["t"]).max() < 5e-4
+
+
+def test_bench_pnp_prints_a_line_a_path(capsys):
+    from gdrnet_tpu_torch.tools import bench_pnp
+
+    rows = bench_pnp.main(["--device", "cpu", "--batch", "3", "--iters", "1"])
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert lines == rows
+    assert [r["metric"] for r in rows] == ["pnp_host_numpy", "pnp_device_ransac_pnp",
+                                           "pnp_device_net_iter_pnp",
+                                           "pnp_device_net_ransac_pnp"]
+    assert all(r["value"] > 0 and r["unit"] == "rois/s" and r["batch"] == 3 for r in rows)
+    assert all(r["device"] == "cpu" and r["peak_mem_mib"] is None for r in rows[1:])
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="--device cpu"):
+            bench_pnp.main(["--batch", "3"])

@@ -353,20 +353,87 @@ def test_sigterm_checkpoints_and_resume_continues(fixture_records, reference_pth
     assert mgr.latest_step() == saved + 2 and len(_losses(cfg.OUTPUT_DIR)) == saved + 2
 
 
-def test_pool_settings_warn_and_train(fixture_records, reference_pth, tmp_path, caplog):
+@pytest.mark.parametrize("settings,named", [
+    (("TRAIN.DEVICE_RESIDENT_POOL", "INPUT.DEVICE_PREPROCESS"),
+     ("TRAIN.DEVICE_RESIDENT_POOL", "TRAIN.POOL_REFRESH", "INPUT.DEVICE_PREPROCESS")),
+    (("INPUT.DEVICE_COLOR_AUG",), ("INPUT.DEVICE_COLOR_AUG",))])
+def test_pool_settings_warn_and_train(fixture_records, reference_pth, tmp_path, caplog,
+                                      settings, named):
     cfg = _train_cfg(str(tmp_path / "pool"), reference_pth[0])
-    cfg.TRAIN.DEVICE_RESIDENT_POOL = True
-    cfg.INPUT.DEVICE_PREPROCESS = True
+    for setting in settings:
+        cfg.set_path(setting, True)
     state, _, _ = trainer.do_train(cfg, max_iters_override=2, device="cpu")
     assert state.step == 2 and np.all(np.isfinite(_losses(cfg.OUTPUT_DIR)))
     warned = [r.message for r in caplog.records if "TPU placement" in r.message]
     assert len(warned) == 1
-    for name in ("TRAIN.DEVICE_RESIDENT_POOL", "TRAIN.POOL_REFRESH", "INPUT.DEVICE_PREPROCESS"):
-        assert name in warned[0]
+    for name in (f"{a}.{b}" for a, b in trainer._TPU_PLACEMENT):
+        assert (name in warned[0]) == (name in named), name
 
 
-@pytest.mark.parametrize("setting,item", [("TRAIN.VIS_IMG", "A7"),
-                                          ("PARALLEL.MESH_SHAPE", "A10")])
+@pytest.mark.parametrize("outputs", ["forward", "jax_maps"])
+def test_vis_img_panels_equal_jax(reference_pth, monkeypatch, outputs):
+    """TRAIN.VIS_IMG's five panels of one batch against the JAX trainer's
+    drawing of them (gdrnet_tpu/engine/trainer.py:412-427) on the same
+    weights. From each package's own forward the maps differ by the two
+    libraries' f32 (up to 1.5e-5, 2.2e-5 relative, in the xyz panel), so
+    they are held as tests/test_torch_model.py holds O(1) outputs: atol
+    1e-5 with rtol 1e-4. From JAX's own maps fed to the port's panels, the
+    panels are bitwise JAX's."""
+    import jax.numpy as jnp
+
+    from gdrnet_tpu.engine.decode import get_out_coor, get_out_mask
+    from gdrnet_tpu.engine.steps import make_predict_step as jax_make_predict_step
+
+    path, params, stats = reference_pth
+    cfg = _fixture_cfg()
+    batch = _batch(3)
+    batch["roi_classes"] = batch["roi_classes"] % 2
+    model = checkpoint.load_weights(build_model(cfg, device="cpu"), path)
+    out = jax_make_predict_step(jax_build_model(cfg), with_maps=True)(
+        {"params": params, "batch_stats": stats}, {k: jnp.asarray(v) for k, v in batch.items()})
+    if outputs == "jax_maps":
+        maps = {k: torch.from_numpy(np.asarray(v)) for k, v in out.items()}
+        monkeypatch.setattr(trainer, "make_predict_step",
+                            lambda *args, **kwargs: lambda b: maps)
+    got = trainer.vis_panels(cfg, model, {k: torch.from_numpy(v) for k, v in batch.items()})
+    rh = cfg.MODEL.CDPN.ROT_HEAD
+    xyz_pred = np.asarray(get_out_coor(out["coor_x"], out["coor_y"], out["coor_z"],
+                                       rh.XYZ_BIN))[0]
+    mask_pred = np.asarray(get_out_mask(out["mask"], rh.MASK_LOSS_TYPE))[0]
+    img0 = batch["roi_img"][0]
+    img0 = (img0 - img0.min()) / max(img0.max() - img0.min(), 1e-6)
+    want = {"vis/roi_img": (img0, "HWC"), "vis/xyz_pred": (np.clip(xyz_pred, 0, 1), "HWC"),
+            "vis/xyz_gt": (np.clip(batch["gt_xyz"][0], 0, 1), "HWC"),
+            "vis/mask_pred": (np.clip(mask_pred, 0, 1)[None], "CHW"),
+            "vis/mask_gt": (batch["gt_mask_visib"][0][None], "CHW")}
+    assert got.keys() == want.keys()
+    for tag, (img, fmt) in want.items():
+        assert got[tag][1] == fmt and got[tag][0].shape == img.shape, tag
+        if outputs == "jax_maps":
+            np.testing.assert_array_equal(got[tag][0], img, err_msg=tag)
+        else:
+            np.testing.assert_allclose(got[tag][0], img, rtol=1e-4, atol=1e-5, err_msg=tag)
+    assert 0.0 < float(mask_pred.std())  # the panels are not flat
+
+
+def test_do_train_writes_the_vis_img_panels(fixture_records, reference_pth, tmp_path):
+    """Two iterations at PRINT_FREQ=1: each of the five tags holds a panel
+    of iterations 0 and 1 in the run's tensorboard events."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    cfg = _train_cfg(str(tmp_path / "vis"), reference_pth[0])
+    cfg.TRAIN.VIS_IMG = True
+    state, _, _ = trainer.do_train(cfg, max_iters_override=2, device="cpu")
+    assert state.step == 2
+    acc = EventAccumulator(osp.join(cfg.OUTPUT_DIR, "tb"), size_guidance={"images": 0})
+    acc.Reload()
+    tags = {"vis/roi_img", "vis/xyz_pred", "vis/xyz_gt", "vis/mask_pred", "vis/mask_gt"}
+    assert set(acc.Tags()["images"]) == tags
+    for tag in tags:
+        assert [e.step for e in acc.Images(tag)] == [0, 1], tag
+
+
+@pytest.mark.parametrize("setting,item", [("PARALLEL.MESH_SHAPE", "A10")])
 def test_what_waits_raises(setting, item, tmp_path):
     cfg = _train_cfg(str(tmp_path), "")
     cfg.set_path(setting, (8,) if setting == "PARALLEL.MESH_SHAPE" else True)
