@@ -47,7 +47,11 @@ batched torch) in each TEST.PNP_TYPE mode on the card against the CPU,
 bench_pnp's ROIs/s of the host loop and of each mode, do_test with
 TEST.USE_PNP on the device and on the host path (ADD-S on the
 nearest-neighbour kernel, VSD on the z-buffer kernel), and training with
-TRAIN.VIS_IMG.
+TRAIN.VIS_IMG. Then data parallelism ([ddp]): the engine.train CLI under
+python -m torch.distributed.run as one NCCL rank (train, then --eval-only
+on its checkpoint), and two gloo ranks on the one card (a DDP train step
+of the flagship against one process, then do_test sharded over the ranks
+against [do_test]'s one process).
 
 Phases, one line each (or one per case): device, kernel builds (both nvcc
 runs and the codec's g++ at once), nn_min_dist against its plain PyTorch version and cKDTree,
@@ -95,7 +99,14 @@ the same minimal sets within 0.05 degrees and 5e-4 m, at least 95 % of 64
 ROIs within 1 degree and 1 cm of the truth, in each mode), [pnp_bench]
 (ROIs/s and peak memory), [do_test_pnp] (finite rows with rotations, one a
 kept detection, finite recalls, B1 in each run), [vis_img] (finite losses;
-with tensorboard, five panels an iteration); last, what
+with tensorboard, five panels an iteration); [ddp_nccl] (the NCCL group's
+all_reduce, the host values' own gloo group's barrier and object gather,
+losses finite, the rank's log, checkpoint keys without `module.`, B2 in
+training and B1 in the test, one CSV row a kept detection), [ddp_gloo]
+(loss terms of 2 ranks against one process at every step, the gradients
+at the first, BN buffers equal on both ranks, ms a step and ROIs/s of each,
+the all-reduce ms), [ddp_do_test] (rows and recalls against one process,
+B1 on each rank, B2 on rank 0); last, what
 torch.profiler measures (rasterize_xyz's launches per call and its
 kernels' device time, the device time of a BOP scoring call, the train
 step's busy share, top device operations and Ranger's launches), so that no
@@ -116,6 +127,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -167,11 +179,13 @@ from gdrnet_tpu_torch.solver.optimizers import OPTIMIZER_NAMES
 from gdrnet_tpu_torch.ops import device_pnp, kernels
 from gdrnet_tpu_torch.ops.rasterizer import render_phong_xyz_roi_many, vertex_normals
 from gdrnet_tpu_torch.ops.symmetry import get_closest_rot_batch, identity_padded_sym_arrays
+from gdrnet_tpu_torch.parallel import multihost as mh
 from gdrnet_tpu_torch.tools import bench_pnp
 from gdrnet_tpu_torch.tools import eval_csv as eval_csv_tool
 from gdrnet_tpu_torch.tools.compute_fps import compute_fps_dict
 from gdrnet_tpu_torch.tools import gen_xyz as gen_xyz_tool
 from gdrnet_tpu_torch.tools import predict as predict_tool
+from gdrnet_tpu_torch.tools.dryrun_multichip import launch, train_steps
 from gdrnet_tpu_torch.utils.fold_bn import conv_bn_pairs, fold_batch_norms
 
 REPO = Path(__file__).resolve().parent
@@ -326,6 +340,17 @@ VARIANT_NO_1024 = {"PointPnPNet": "region_product_68.7GB",
 SOLVER_UPDATE_RTOL, SOLVER_F32_BATCH = 1e-4, 4
 LM_CONFIG = str(REPO / "configs/gdrn/lm/a6_cPnP_lm13.py")
 TV_EPOCHS, TV_PRECISE_ITERS, TV_TIMEOUT_S = 1, 10, 600
+# [ddp]: (a) the CLI under torch.distributed.run, one NCCL rank, the flagship's
+# B=128 over the [train_loop] split for DDP_CLI_ITERS iterations, then
+# --eval-only; (b) two gloo ranks on the one card: DDP_STEPS f32 steps at a
+# global DDP_BATCH against one process, then do_test sharded over the ranks
+DDP_BATCH, DDP_STEPS, DDP_TIMEOUT_S, DDP_CLI_TIMEOUT_S, DDP_CLI_ITERS = 32, 3, 300, 300, 2
+# (b)'s gradients at the first step, from one state on both sides: readings
+# on the H100 4.7e-5 / 4.25e-4 overall, 1.51e-2 on the worst tensor (a BN
+# weight: a sum over the batch with cancellation); from the second step the
+# two runs are two states a rounding apart, held by the loss terms and the
+# ranks' equal BN buffers
+DDP_GRAD_ALL_REL, DDP_GRAD_TENSOR_REL = 5e-3, 0.05
 
 # the PnP slice: (a) ops/device_pnp.pnp_from_maps_batch on the card against the
 # CPU with the same minimal sets, on synthetic_decoded_maps of PNP_B ROIs at
@@ -2431,9 +2456,20 @@ def train_cli_child(argv: list) -> None:
     wrappers around the JPEG decoder (by folder), the train mapper (by
     img_type), the background replacer, the train step (host clock at each
     call, its metrics) and the loader (host-clock wait for each batch).
-    Its last line is TRAIN_CLI {json}."""
+    A leading `--max-iters N` is the child's own: do_train then stops after
+    N iterations (max_iters_override); a `--then` splits the arguments into
+    two CLI runs in this process, one after the other (each as `python -m`
+    runs it; the second's launches are b1_test and b2_test). Under a process group it records the
+    default group's backend and an all_reduce over it, and a barrier and an
+    all_gather_object over multihost.host_group() (gloo beside NCCL). Its
+    last line is TRAIN_CLI {json}."""
     import runpy
     import threading
+
+    clock = {"entry": time.time()}  # epoch stamps: the parent sets them beside its own
+    max_iters = None
+    if argv[:1] == ["--max-iters"]:
+        max_iters, argv = int(argv[1]), argv[2:]
 
     from gdrnet_tpu_torch.data import augment as aug_mod, io as io_mod, mapper as mapper_mod
     from gdrnet_tpu_torch.engine import trainer as trainer_mod
@@ -2470,6 +2506,7 @@ def train_cli_child(argv: list) -> None:
         step = make_step(*args, **kwargs)
 
         def timed(state, batch, gen):
+            clock.setdefault("first_step", time.time())
             t0 = time.perf_counter()
             state, metrics = step(state, batch, gen)
             steps_log.append((t0, metrics))
@@ -2509,11 +2546,36 @@ def train_cli_child(argv: list) -> None:
         return n
 
     train_out: dict = {}
+    dist_info: dict = {}
+    init_dist = mh.maybe_init_distributed
+
+    def probed_init(*args, **kwargs):  # the process group the CLI joins, and its collectives
+        up = init_dist(*args, **kwargs)
+        clock.setdefault("group", time.time())
+        if up and not dist_info:
+            probe = torch.ones(1, device="cuda")
+            torch.distributed.all_reduce(probe)
+            host = mh.host_group()  # the host values' group (a new gloo group under NCCL)
+            torch.distributed.barrier(group=host)
+            gathered: list = [None] * torch.distributed.get_world_size()
+            torch.distributed.all_gather_object(gathered, {"rank": torch.distributed.get_rank()},
+                                                group=host)
+            dist_info.update(backend=torch.distributed.get_backend(),
+                             world=torch.distributed.get_world_size(),
+                             rank=torch.distributed.get_rank(), all_reduce=float(probe.item()),
+                             host_backend=torch.distributed.get_backend(host),
+                             host_is_world=host is torch.distributed.group.WORLD,
+                             host_gathered=[g["rank"] for g in gathered])
+        return up
 
     def counted_train(*args, **kwargs):
+        if max_iters:
+            kwargs["max_iters_override"] = max_iters
+        clock["train_start"] = time.time()
         t0 = time.perf_counter()
         out = train(*args, **kwargs)
         torch.cuda.synchronize()
+        clock["train_end"] = time.time()
         train_out.update(
             wall_s=time.perf_counter() - t0, b1=kernels.nn_min_dist.launches,
             b2=kernels.rasterize_xyz.launches, samples=dict(counts),
@@ -2529,13 +2591,22 @@ def train_cli_child(argv: list) -> None:
     trainer_mod.build_input_pipeline = timed_pipeline
     trainer_mod.do_train = counted_train
     trainer_mod.update_bn_stats = recorded_update_bn_stats
-    sys.argv = ["gdrnet_tpu_torch.engine.train", *argv]
-    runpy.run_module("gdrnet_tpu_torch.engine.train", run_name="__main__", alter_sys=True)
-    torch.cuda.synchronize()
+    mh.maybe_init_distributed = probed_init
+    runs = [[]]
+    for arg in argv:
+        if arg == "--then":
+            runs.append([])
+        else:
+            runs[-1].append(arg)
+    for i, run_argv in enumerate(runs):
+        sys.argv = ["gdrnet_tpu_torch.engine.train", *run_argv]
+        runpy.run_module("gdrnet_tpu_torch.engine.train", run_name="__main__", alter_sys=True)
+        torch.cuda.synchronize()
+        clock["cli_end" if i == 0 else f"cli{i}_end"] = time.time()
     print("TRAIN_CLI " + json.dumps({
-        "train": train_out, "b1_test": kernels.nn_min_dist.launches - train_out["b1"],
-        "b2_test": kernels.rasterize_xyz.launches - train_out["b2"], "counts": dict(counts),
-        "precise_bn": precise}),
+        "train": train_out, "b1_test": kernels.nn_min_dist.launches - train_out.get("b1", 0),
+        "b2_test": kernels.rasterize_xyz.launches - train_out.get("b2", 0),
+        "counts": dict(counts), "precise_bn": precise, "dist": dist_info, "clock": clock}),
         flush=True)
 
 
@@ -2879,6 +2950,350 @@ def phase_train_variant(root: str, dets: dict, card: str) -> tuple[int, int]:
     return run["b1_test"], tr["b2"] + run["b2_test"]
 
 
+def ddp_cli(args: list, label: str) -> tuple[dict, float]:
+    """`python -m torch.distributed.run --standalone --nproc_per_node=1
+    chip_smoke.py --train-cli-child <args>`: the engine.train CLI as one
+    NCCL rank, with the counting wrappers. Gates the process group: NCCL
+    answers an all_reduce, and host_group() is a gloo group of its own that
+    answers a barrier and an all_gather_object. Returns (its TRAIN_CLI
+    record, its "clock" holding the parent's launch and end stamps beside
+    the child's, and wall s)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+           str(REPO / "chip_smoke.py"), "--train-cli-child", *args]
+    t0, launched = time.perf_counter(), time.time()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=DDP_CLI_TIMEOUT_S)
+    wall_s, ended = time.perf_counter() - t0, time.time()
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("TRAIN_CLI ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"ddp {label}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    run = json.loads(lines[-1][len("TRAIN_CLI "):])
+    run["clock"].update(launched=launched, ended=ended)
+    info = run["dist"]
+    if (info.get("backend"), info.get("world"), info.get("all_reduce"), info.get("host_backend"),
+            info.get("host_is_world"), info.get("host_gathered")) != (
+            "nccl", 1, 1.0, "gloo", False, [0]):
+        raise AssertionError(f"ddp {label}: process group {info}")
+    return run, wall_s
+
+
+def clock_parts(clock: dict, marks: tuple) -> str:
+    """s between consecutive stamps of a CLI child's clock, by the later
+    stamp's name (entry: the launcher and the child's imports; group: the
+    process group; ended: the child's and the launcher's exit)."""
+    return ",".join(f"{b}:{clock[b] - clock[a]:.1f}" for a, b in zip(marks, marks[1:]))
+
+
+def ddp_rank_child(argv: list) -> None:
+    """[ddp] (b)'s rank process (started by dryrun_multichip.launch):
+    joins the gloo group on the one card, loads the weights and batches and
+    builds the model, the optimizer and DDP, then waits for the parent's
+    `go` file (written once the card is free of leg (a) and of the
+    one-process run; "abort" ends it). Then it takes DDP_STEPS f32 train
+    steps on its rows of the global batches, times a
+    gradient-sized all_reduce and runs do_test sharded over the ranks;
+    pickles what it measured beside the job."""
+    import argparse
+    import hashlib
+
+    p = argparse.ArgumentParser()
+    p.add_argument("job")
+    p.add_argument("--rank", type=int)
+    p.add_argument("--world", type=int)
+    p.add_argument("--init-method")
+    args = p.parse_args(argv)
+    if DEV == "cuda":  # both ranks on the one card: NCCL refuses that, gloo does not
+        torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False  # f32 as the one process runs it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mh.maybe_init_distributed(backend="gloo", init_method=args.init_method,
+                              world_size=args.world, rank=args.rank)
+    with open(args.job, "rb") as f:
+        job = pickle.load(f)
+    cfg32 = merged_config(FLAGSHIP)
+    cfg32.PARALLEL.DTYPE = "float32"
+    state_dict = torch.load(job["init_path"], weights_only=True)
+    batches = [train_batch(cfg32, DDP_BATCH, seed=s) for s in job["seeds"]]
+    went = []
+
+    def wait_for_go() -> None:  # the model, optimizer and DDP built; the card may be busy
+        go, deadline = Path(job["go"]), time.monotonic() + DDP_TIMEOUT_S
+        while not go.exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"ddp rank {args.rank}: no go from the parent")
+            time.sleep(0.05)
+        if go.read_text() != "go":
+            raise SystemExit(f"ddp rank {args.rank}: the parent aborted")
+        went.append(time.perf_counter())
+
+    out = {"rank": args.rank}
+    res = train_steps(cfg32, state_dict, batches, device=DEV, keep_steps=args.rank == 0,
+                      before_steps=wait_for_go)
+    t_go = went[0]
+    out.update(metrics=res["metrics"], step_ms=res["step_ms"],
+               parts_s={"steps": time.perf_counter() - t_go})
+    out["buffers_sha"] = hashlib.sha256(b"".join(
+        v.numpy().tobytes() for v in res["buffers"].values())).hexdigest()
+    if args.rank == 0:  # the first step's gradients against one process's
+        ref = torch.load(job["ref_path"], weights_only=True)
+        sizes = [(k, v.numel()) for k, v in state_dict.items()  # the parameters' order
+                 if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))]
+        out["grads"] = []
+        for got, want in zip(res["grads"], ref):
+            parts = dict(zip([k for k, _ in sizes], got.split([n for _, n in sizes])))
+            wants = dict(zip([k for k, _ in sizes], want.split([n for _, n in sizes])))
+            per = {k: rel_l2(parts[k], wants[k]) for k in parts}
+            worst = max(per, key=per.get)
+            out["grads"].append({"all": rel_l2(got, want), "worst": worst,
+                                 "worst_rel": per[worst]})
+    flat = torch.zeros(sum(p.numel() for p in state_dict.values() if p.is_floating_point()),
+                       device=DEV)
+    ms = []
+    for _ in range(4):  # a gradient-sized all_reduce over gloo, the first left out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.distributed.all_reduce(flat)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["allreduce_ms"] = float(np.median(ms[1:]))
+    out["allreduce_mb"] = flat.numel() * 4 / 2 ** 20
+    out["parts_s"]["to_test"] = time.perf_counter() - t_go
+    # the sharded test
+    c = merged_config(FLAGSHIP)
+    apply_opts(c, job["test_opts"])
+    models = ObjectModels(job["meta"], num_pm_points=c.MODEL.CDPN.PNP_NET.NUM_PM_POINTS,
+                          num_fps=c.MODEL.CDPN.ROT_HEAD.NUM_REGIONS)
+    model = load_weights(build_model(c, device=DEV), job["weights"])
+    kernels.nn_min_dist.launches = kernels.rasterize_xyz.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = do_test(c, model, models, job["records"], output_dir=job["out"], device=DEV)
+    torch.cuda.synchronize()
+    out.update(test_wall_s=time.perf_counter() - t0, results=results,
+               b1=kernels.nn_min_dist.launches, b2=kernels.rasterize_xyz.launches)
+    out["parts_s"]["done"] = time.perf_counter() - t_go
+    torch.distributed.destroy_process_group()
+    with open(f"{args.job}.rank{args.rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def phase_ddp(cfg, split, dets: dict, weights: str, tested: tuple, root: str,
+              card: str) -> tuple[int, int]:
+    """[ddp]: data-parallel training and sharded testing, (a) one NCCL rank
+    through the CLI (ddp_nccl), (b) two gloo ranks on the one card
+    (ddp_gloo). (b)'s rank processes start with (a) and build their model,
+    then wait for the card before their timed work. Returns their (B1, B2)
+    launches."""
+    t0 = time.perf_counter()
+    job: dict = {}
+    try:
+        job.update(start_gloo_ranks(cfg, split, dets, weights, root))
+        a = ddp_nccl(dets, root, card)
+        b = ddp_gloo(cfg, split, dets, tested, job, card)
+    finally:
+        if job:  # ranks still waiting (a failure above) end; none outlives the phase
+            go = job["dir"] / "go"
+            if not go.exists():
+                (job["dir"] / "go.tmp").write_text("abort")
+                (job["dir"] / "go.tmp").rename(go)
+            job["thread"].join()
+    log("ddp", phase_s=f"{time.perf_counter() - t0:.1f}", check="ok")
+    return a[0] + b[0], a[1] + b[1]
+
+
+def ddp_nccl(dets: dict, root: str, card: str) -> tuple[int, int]:
+    """[ddp] (a): the engine.train CLI under torch.distributed.run as one
+    NCCL rank: the flagship at full width over the [train_loop] split for
+    DDP_CLI_ITERS iterations, then --eval-only on its checkpoint over the
+    BOP split's detections, both CLI runs in the one launcher process (a
+    process start saved). Gates: the process group (ddp_cli); losses
+    finite, no step skipped; the rank's log; a checkpoint whose keys have no
+    `module.`; B2 launched in training (the split has no pickles yet), B1 in
+    the test, one CSV row a kept detection. Returns (B1, B2) launches."""
+    link = Path(root) / "bop"
+    if not link.exists():
+        link.symlink_to(Path(root), target_is_directory=True)
+    out_a, out_e = Path(root) / "ddp_out", Path(root) / "ddp_eval"
+    run, cli_s = ddp_cli([
+        "--max-iters", str(DDP_CLI_ITERS), "--config-file", FLAGSHIP, "--data-root", root,
+        f"OUTPUT_DIR={str(out_a)!r}",
+        "DATASETS.TRAIN=('loop_train',)", "DATASETS.TEST=()", "INPUT.CHANGE_BG_PROB=0.0",
+        "SOLVER.TOTAL_EPOCHS=1", f"DATALOADER.NUM_WORKERS={LOOP_WORKERS}", "MODEL.WEIGHTS=''",
+        "MODEL.CDPN.BACKBONE.PRETRAINED=''", "TRAIN.PRINT_FREQ=1",
+        "--then", "--config-file", FLAGSHIP, "--eval-only", "--data-root", root,
+        f"OUTPUT_DIR={str(out_e)!r}", f"MODEL.WEIGHTS={str(out_a / 'ckpt')!r}",
+        "DATASETS.TEST=('bop_test',)", f"DATASETS.DET_FILES_TEST=({dets['path']!r},)"],
+        "train, eval")
+    tr = run["train"]
+    losses, skips = np.array(tr["losses"]), np.array(tr["skips"])
+    if len(losses) != DDP_CLI_ITERS or not np.all(np.isfinite(losses)) or skips.any() or \
+            tr["b2"] < 1:
+        raise AssertionError(f"ddp train: losses {losses.tolist()}, skips {skips.tolist()}, "
+                             f"B2 {tr['b2']}")
+    ckpts = sorted((out_a / "ckpt").glob("model_*.pth"))
+    keys = list(torch.load(ckpts[-1], map_location="cpu", weights_only=True, mmap=True)["model"])
+    with open(out_a / "log.txt") as f:
+        rank_log = "rank 0 of 1" in f.read()
+    if not ckpts or any(k.startswith("module.") for k in keys) or not rank_log:
+        raise AssertionError(f"ddp train: checkpoints {ckpts}, keys {keys[:3]}, "
+                             f"rank log {rank_log}")
+    with open(out_e / "results.json") as f:
+        res_a = json.load(f)
+    rows_a = load_bop_results(res_a["_csv_path"])
+    csv_rows_check(rows_a, "ddp eval")
+    if len(rows_a) != dets["kept"] or run["b1_test"] < 1:
+        raise AssertionError(f"ddp eval: {len(rows_a)} CSV rows for {dets['kept']} kept, "
+                             f"B1 {run['b1_test']}")
+    step_ms_a = np.diff(np.array(tr["step_starts"])) * 1e3  # the first step, warm-up included
+    log("ddp_nccl", card=repr(card), launcher="torch.distributed.run --standalone "
+        "--nproc_per_node=1", backend=run["dist"]["backend"], world=1,
+        batch=merged_config(FLAGSHIP).SOLVER.IMS_PER_BATCH, iterations=len(losses),
+        losses_finite=True, skipped=0, total_loss_first=f"{losses[0]:.4f}",
+        total_loss_last=f"{losses[-1]:.4f}",
+        first_step_ms=",".join(f"{m:.1f}" for m in step_ms_a),
+        checkpoint=ckpts[-1].name, module_prefix=False, rank_log="log.txt",
+        launches_rasterize_xyz_train=tr["b2"], launches_nn_min_dist_test=run["b1_test"],
+        launches_rasterize_xyz_test=run["b2_test"], csv_rows=len(rows_a),
+        ar_bop19=res_a.get("_bop_average_recall", "not scored"), cli_wall_s=f"{cli_s:.1f}",
+        cli_parts_s=clock_parts(run["clock"], ("launched", "entry", "group", "train_start",
+                                               "first_step", "train_end", "cli_end",
+                                               "cli1_end", "ended")), check="ok")
+    return run["b1_test"], tr["b2"] + run["b2_test"]
+
+
+def start_gloo_ranks(cfg, split, dets: dict, weights: str, root: str) -> dict:
+    """[ddp] (b)'s two rank processes (ddp_rank_child), started in a thread
+    with their job: the flagship's seeded f32 weights, the batches' seeds,
+    the sharded test's split, detections and weights. Returns the job."""
+    job_dir = Path(root) / "ddp_job"
+    job_dir.mkdir()
+    job = {"seeds": [300 + i for i in range(DDP_STEPS)], "init_path": str(job_dir / "init.pt"),
+           "ref_path": str(job_dir / "ref_grads.pt"), "go": str(job_dir / "go"),
+           "test_opts": [f"PARALLEL.DTYPE={cfg.PARALLEL.DTYPE!r}",
+                         f"DATASETS.DET_FILES_TEST=({dets['path']!r},)"],
+           "meta": split["models"].meta, "records": split["records"], "weights": weights,
+           "out": str(job_dir / "test_out")}
+    with open(job_dir / "job.pkl", "wb") as f:
+        pickle.dump(job, f)
+    errors: list = []
+    weights0: dict = {}
+    ready = threading.Event()
+
+    def run() -> None:
+        try:  # the weights first (on the host, beside the eval-only CLI), then the ranks
+            cfg32 = merged_config(FLAGSHIP)
+            cfg32.PARALLEL.DTYPE = "float32"
+            weights0.update(init_weights(build_model(cfg32, device="cpu"),
+                                         torch.Generator().manual_seed(0)).state_dict())
+            torch.save(weights0, job_dir / "init.pt")
+            ready.set()
+            launch([sys.executable, str(REPO / "chip_smoke.py"), "--ddp-rank-child",
+                    str(job_dir / "job.pkl")], 2, timeout_s=DDP_TIMEOUT_S)
+        except BaseException as e:  # noqa: BLE001 (raised in the phase's thread)
+            errors.append(e)
+            ready.set()
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return dict(job, dir=job_dir, state_dict=weights0, ready=ready, thread=thread,
+                errors=errors)
+
+
+def ddp_gloo(cfg, split, dets: dict, tested: tuple, job: dict, card: str) -> tuple[int, int]:
+    """[ddp] (b): two gloo ranks on the one card (NCCL refuses two ranks on
+    one card), named explicitly, started by start_gloo_ranks. DDP_STEPS f32
+    steps of the flagship at a global DDP_BATCH against one process at
+    DDP_BATCH from the same weights and batches: every loss term of every
+    step within TRAIN_LOSS_RTOL, the first step's gradients within
+    DDP_GRAD_ALL_REL overall and DDP_GRAD_TENSOR_REL a tensor, every BN
+    buffer equal on both ranks. Then do_test sharded over the ranks against
+    [do_test]'s one process: the same rows and keys, recalls equal but for
+    counted threshold flips, B1 on each rank, B2 on rank 0. The ranks share
+    one card: their step times are no scaling figure. Returns (B1, B2)
+    launches."""
+    torch.backends.cudnn.allow_tf32 = False  # f32 as the ranks run it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = merged_config(FLAGSHIP)
+    cfg32.PARALLEL.DTYPE = "float32"
+    job["ready"].wait(DDP_TIMEOUT_S)
+    if job["errors"] or not job["state_dict"]:
+        raise AssertionError(f"ddp gloo: the ranks' job failed: {job['errors']}")
+    one = train_steps(cfg32, job["state_dict"],
+                      [train_batch(cfg32, DDP_BATCH, seed=s) for s in job["seeds"]],
+                      device=DEV, keep_steps=True)
+    torch.save(one["grads"][:1], job["ref_path"])  # the first step's
+    del one["grads"], one["states"]
+    torch.cuda.empty_cache()
+    c = test_cfg(cfg, dets)
+    t0 = time.perf_counter()
+    (job["dir"] / "go.tmp").write_text("go")
+    (job["dir"] / "go.tmp").rename(job["go"])
+    job["thread"].join()
+    ranks_s = time.perf_counter() - t0
+    if job["errors"]:
+        raise job["errors"][0]
+    ranks = []
+    for r in range(2):
+        with open(job["dir"] / f"job.pkl.rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    r0, r1 = ranks
+    if r0["metrics"] != r1["metrics"] or r0["buffers_sha"] != r1["buffers_sha"]:
+        raise AssertionError("ddp gloo: the ranks' logged terms or BN buffers differ")
+    loss_rel = 0.0
+    for i, (g, w) in enumerate(zip(r0["metrics"], one["metrics"])):
+        for k in w:
+            np.testing.assert_allclose(g[k], w[k], rtol=TRAIN_LOSS_RTOL, atol=1e-6,
+                                       err_msg=f"ddp step {i} {k}")
+            loss_rel = max(loss_rel, abs(g[k] - w[k]) / max(abs(w[k]), 1e-12))
+    g = r0["grads"][0]
+    if len(r0["grads"]) != 1 or g["all"] > DDP_GRAD_ALL_REL or \
+            g["worst_rel"] > DDP_GRAD_TENSOR_REL:
+        raise AssertionError(f"ddp gloo: the first step's gradients against one process {g}")
+    # the sharded test against [do_test]'s one process (the same config, weights, split)
+    want, want_rows, _ = tested
+    res_b = r0["results"]
+    rows_b = load_bop_results(res_b["_csv_path"])
+    csv_rows_check(rows_b, "ddp do_test")
+    if [(r["scene_id"], r["im_id"], r["obj_id"]) for r in rows_b] != [
+            (r["scene_id"], r["im_id"], r["obj_id"]) for r in want_rows] or set(
+            k for k in res_b if not k.startswith("_")) != set(
+            k for k in want if not k.startswith("_")):
+        raise AssertionError("ddp do_test: rows or result keys differ from one process's")
+    if "_csv_path" in r1["results"] or "_bop" in r1["results"] or r0["b1"] < 1 or \
+            r1["b1"] < 1 or r0["b2"] < 1:
+        raise AssertionError(f"ddp do_test: rank 1 wrote a CSV or scored BOP, or launches "
+                             f"B1 {r0['b1']}, {r1['b1']}, B2 {r0['b2']}, {r1['b2']}")
+    flips = threshold_flips(c, rows_b, want_rows, split["records"], split["models"])
+    differ = recalls_differ("ddp do_test", res_b, want, flips)
+    one_ms = np.median(one["step_ms"][1:])
+    rank_ms = [np.median(r["step_ms"][1:]) for r in ranks]
+    half = DDP_BATCH // 2
+    log("ddp_gloo", card=repr(card), backend="gloo", ranks="2 on one card", dtype="float32",
+        global_batch=DDP_BATCH, steps=DDP_STEPS, loss_max_rel=f"{loss_rel:.3e}",
+        step1_grad_all_rel_l2=f"{g['all']:.3e}", step1_grad_worst_rel_l2=f"{g['worst_rel']:.3e}",
+        step1_grad_worst_tensor=g["worst"], bn_buffers="equal on both ranks",
+        one_process_step_ms=f"{one_ms:.1f}",
+        one_process_rois_per_s=f"{DDP_BATCH / one_ms * 1e3:.1f}",
+        rank_step_ms=",".join(f"{m:.1f}" for m in rank_ms),
+        rank_rois_per_s=",".join(f"{half / m * 1e3:.1f}" for m in rank_ms),
+        allreduce_ms=",".join(f"{r['allreduce_ms']:.1f}" for r in ranks),
+        allreduce_mib=f"{r0['allreduce_mb']:.1f}",
+        scaling="none: both ranks share one card", check="ok")
+    log("ddp_do_test", card=repr(card), ranks=2, csv_rows=len(rows_b),
+        rows_vs_one_process="same keys and order",
+        recalls_vs_one_process="equal" if not differ else f"differ at {len(differ)} (flips)",
+        threshold_flips=json.dumps(flips).replace(" ", ""),
+        ar_bop19=f"{res_b['_bop_average_recall']:.4f}",
+        ar_bop19_one_process=f"{want['_bop_average_recall']:.4f}",
+        wall_s=",".join(f"{r['test_wall_s']:.2f}" for r in ranks),
+        launches_nn_min_dist=f"{r0['b1']},{r1['b1']}",
+        launches_rasterize_xyz=f"{r0['b2']},{r1['b2']}", ranks_after_go_s=f"{ranks_s:.1f}",
+        rank0_s_after_go="steps {steps:.1f}, test start {to_test:.1f}, done {done:.1f}".format(
+            **r0["parts_s"]),
+        check="ok")
+    return r0["b1"] + r1["b1"], r0["b2"] + r1["b2"]
+
+
 def rot_deg(Ra, Rb) -> np.ndarray:
     """Angle in degrees of Ra^T Rb ([..., 3, 3] each), by atan2 of its skew
     part, which resolves angles below arccos's f32 floor."""
@@ -3154,6 +3569,7 @@ def main() -> int:
         pnp_launches = phase_pnp(cfg, split, dets, ckpt, root, card)
         # before [gen_xyz] writes the train split's pickles: its XYZ renders on B2
         tv_launches = phase_train_variant(root, dets, card)
+        ddp_launches = phase_ddp(cfg, split, dets, ckpt, tested, root, card)
         overfit = phase_overfit(gsd, root, card)
         phase_render_attr(gsd)
         phase_render_phong_xyz(gsd)
@@ -3176,13 +3592,14 @@ def main() -> int:
          "source": "gdrnet_tpu_torch/csrc/nn_min_dist.cu",
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:28",
          "launches": launches + test_launches[0] + csv_launches[0] + lmo_launches[0]
-         + tv_launches[0] + pnp_launches[0],
+         + tv_launches[0] + pnp_launches[0] + ddp_launches[0],
          **nn_stats},
         {"name": "rasterize_xyz", "route": "cuda",
          "source": "gdrnet_tpu_torch/csrc/rasterize_xyz.cu",
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:140",
          "launches": raster_launches + loop_launches + test_launches[1] + gen_launches
-         + csv_launches[1] + xyz_launches + lmo_launches[1] + tv_launches[1] + pnp_launches[1],
+         + csv_launches[1] + xyz_launches + lmo_launches[1] + tv_launches[1] + pnp_launches[1]
+         + ddp_launches[1],
          **raster_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -3192,5 +3609,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-cli-child"]:
         train_cli_child(sys.argv[2:])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--ddp-rank-child"]:
+        ddp_rank_child(sys.argv[2:])
         sys.exit(0)
     sys.exit(main())

@@ -14,6 +14,8 @@ Layout:
   models/    nn.Modules: ResNet-18..152, geometry and translation heads, ConvPnPNet
              (with DropBlock), the point PnP heads, GDRN with every variant
   engine/    the train state, the train and predict steps, precise BN, the trainer
+  parallel/  data parallelism over torch.distributed: DDP's world, BN over the
+             global batch, local replicas for testing and serving
   losses/    the GDR-Net losses (xyz, mask, region, point matching, pose)
   solver/    the optimizer zoo (Ranger and the JAX registry's others), the LR schedules
   eval/      pose errors and the in-process evaluator

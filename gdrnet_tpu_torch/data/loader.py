@@ -9,6 +9,13 @@ stream-level mix. Threads, not worker processes, as in the JAX package: the
 mapper renders missing XYZ ground truth with the CUDA z-buffer kernel, and a
 forked worker cannot use CUDA. InferenceLoader comes with do_test (ROADMAP.md
 A7).
+
+Under data parallelism (rank r of N) every rank walks the same sample stream
+(the same sampler seed, the same per-sample seeds) and maps only rows
+[r*b, (r+1)*b) of each global batch of B, b = B / N: the ranks' batches
+together are the one-process global batch, at 1/N of the host work each.
+(The JAX package has every process map the whole global batch,
+gdrnet_tpu/engine/trainer.py:256-263.)
 """
 
 from __future__ import annotations
@@ -20,23 +27,28 @@ import numpy as np
 
 from gdrnet_tpu_torch.data.mapper import collate
 from gdrnet_tpu_torch.data.samplers import repeat_factor_training_sampler, training_sampler
+from gdrnet_tpu_torch.parallel.mesh import local_batch_size
 
 PREFETCH_BATCHES = 4  # the queue holds this many batches of mapped samples
 
 
 class TrainLoader:
-    """Infinite batched iterator: records + mapper -> batch dicts. With
-    num_workers=1 the batches come out in a fixed order."""
+    """Infinite batched iterator: records + mapper -> batch dicts of the
+    rank's rows of each global batch of `batch_size` (all of them in one
+    process). With num_workers=1 the batches come out in a fixed order."""
 
     def __init__(self, records: list[dict], mapper, batch_size: int,
                  sampler_name: str = "TrainingSampler", repeat_thresh: float = 0.0,
                  seed: int = 0, num_workers: int = 4,
-                 records2: list[dict] | None = None, ratio2: float = 0.0):
+                 records2: list[dict] | None = None, ratio2: float = 0.0,
+                 rank: int = 0, world_size: int = 1):
         self.records = records
         self.records2 = records2 or []
         self.ratio2 = ratio2 if self.records2 else 0.0
         self.mapper = mapper
-        self.batch_size = batch_size
+        self.global_batch_size = batch_size
+        self.batch_size = local_batch_size(batch_size, world_size)
+        self.rank = rank
         self.num_workers = max(1, num_workers)
         if sampler_name == "RepeatFactorTrainingSampler":
             labels = [r["label"] for r in records]
@@ -48,13 +60,19 @@ class TrainLoader:
         self._rng = np.random.RandomState(seed + 7)
 
     def _sample_stream(self):
-        """Yield (record, per-sample seed), mixing TRAIN2 at ratio2."""
+        """Yield (record, per-sample seed) of the rank's rows, mixing TRAIN2
+        at ratio2; every row of the global stream is drawn."""
+        lo = self.rank * self.batch_size
+        row = 0
         while True:
             if self.sampler2 is not None and self._rng.rand() < self.ratio2:
                 rec = self.records2[next(self.sampler2)]
             else:
                 rec = self.records[next(self.sampler)]
-            yield rec, int(self._rng.randint(0, 2 ** 31 - 1))
+            seed = int(self._rng.randint(0, 2 ** 31 - 1))
+            if lo <= row < lo + self.batch_size:
+                yield rec, seed
+            row = (row + 1) % self.global_batch_size
 
     def __iter__(self):
         stream = self._sample_stream()

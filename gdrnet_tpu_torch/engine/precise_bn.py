@@ -9,6 +9,13 @@ no_grad. BatchNorms that stay in eval mode there (a frozen module's, see
 models/gdrn.py) keep theirs. torch's running_var is the average of the
 unbiased batch variances; the JAX package averages flax's biased ones, so
 the two differ by n / (n - 1), n the layer's B*H*W.
+
+Under a process group the model's BatchNorms are parallel/sync_bn.
+SyncBatchNorm2d (engine/trainer.py), whose batch statistics are the global
+batch's: every rank averages the same statistics over the same number of
+batches, as the JAX package's precise BN over its sharded batch does
+(gdrnet_tpu/engine/precise_bn.py:16-47), and every rank must call this
+with the same num_iters.
 """
 
 from __future__ import annotations

@@ -5,6 +5,15 @@ Batches keep the JAX package's layout: `roi_img` [B, H, W, 3],
 `compute_dtype` is "bfloat16" (PARALLEL.DTYPE) runs under bf16 autocast; the
 head's out conv, the pose regressors and the decode stay f32, and so do the
 parameters, the optimizer state and the losses.
+
+Under a process group the train step takes the DDP-wrapped model (one
+process a GPU, parallel/): each rank runs its row block of the global batch,
+its BatchNorms normalise over the global batch (parallel/sync_bn.py), the
+losses are its share of the global terms (losses/gdrn_loss.py), DDP
+averages the gradients, and the logged metrics and the non-finite flag are
+reduced over the ranks, so every rank takes or skips the same update and
+logs the global values, as the JAX package's one program over the sharded
+batch does.
 """
 
 from __future__ import annotations
@@ -13,10 +22,13 @@ import contextlib
 from typing import Callable
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from gdrnet_tpu_torch.engine.train_state import TrainState
 from gdrnet_tpu_torch.losses.gdrn_loss import gdrn_loss
 from gdrnet_tpu_torch.ops.rotation import rot_angle_deg
+from gdrnet_tpu_torch.parallel import multihost as mh
 
 _MODEL_KWARG_KEYS = (
     "roi_classes", "roi_coord_2d", "roi_cams", "roi_centers", "roi_whs",
@@ -52,45 +64,81 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
                     dropblock_nr_steps: int = 5000) -> Callable:
     """Returns train_step(state, batch, generator) -> (state, metrics), on the
     model's device: the forward in train mode, gdrn_loss in f32, backward,
-    the optimizer, then state.step += 1. `batch` holds arrays or tensors
-    (moved to the model's device); `generator` (on that device) feeds
-    DropBlock, whose progress is state.step / dropblock_nr_steps.
+    the optimizer, then state.step += 1. `model` is the model or, under a
+    process group, its DistributedDataParallel wrapper. `batch` holds arrays
+    or tensors (moved to the model's device); `generator` (on that device)
+    feeds DropBlock, whose progress is state.step / dropblock_nr_steps.
 
     metrics are device tensors: every loss term, total_loss, vis/error_R
     (degrees), vis/error_t (cm) and, with SOLVER.SKIP_NONFINITE, nonfinite_skip:
-    1.0 when the loss or a gradient was not finite, and then the parameters,
-    the optimizer state and the BN buffers are exactly as before the step."""
-    device = next(model.parameters()).device
+    1.0 when the loss or a gradient was not finite (on any rank), and then the
+    parameters, the optimizer state and the BN buffers are exactly as before
+    the step. Under a process group they are the global batch's: the mean of
+    the ranks' values. With SOLVER.GRAD_ACCUM_STEPS=k under a process group,
+    the first k-1 micro-steps of an update run under DDP's no_sync and the
+    optimizer's running mean of the gradients is averaged over the ranks once,
+    at the k-th (TableOptimizer.step's `reduce`); which micro-step comes next
+    is the optimizer's device count, read once a micro-step. The first call
+    runs synced whichever micro-step it is: DDP records its static graph
+    there (parallel/mesh.ddp_model), and a mean over the ranks taken early
+    is the same mean."""
+    module = model.module if isinstance(model, DistributedDataParallel) else model
+    ddp = module is not model
+    world = mh.get_world_size() if ddp else 1
+    device = next(module.parameters()).device
     skip_nonfinite = bool(cfg.SOLVER.get("SKIP_NONFINITE", True))
-    buffers = list(model.buffers())  # BN running stats; torch updates them in the forward
+    buffers = list(module.buffers())  # BN running stats; torch updates them in the forward
     groups = [[b for b in buffers if b.is_floating_point()],
               [b for b in buffers if not b.is_floating_point()]]
+    accum = getattr(optimizer, "accum_steps", 1) if ddp else 1
+
+    first = [True]
+
+    def rank_mean(t: torch.Tensor) -> None:
+        dist.all_reduce(t)
+        t.div_(world)
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator | None):
         batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
         model.train()
         snapshots = [_flat(g) for g in groups] if skip_nonfinite else None
         optimizer.zero_grad(set_to_none=True)
-        with _autocast(model, device):
-            out = model(batch["roi_img"], **_model_kwargs(batch),
-                        dropblock_progress=state.step / dropblock_nr_steps,
-                        generator=generator)
-        with torch.autocast(device.type, enabled=False):
-            loss_dict = gdrn_loss(cfg, out, batch)
-        total = sum(loss_dict[k] for k in sorted(loss_dict))  # the JAX package's leaf order
-        total.backward()
+        # an update's micro-steps before its last keep their gradients local,
+        # but for DDP's first step (its static graph is recorded on a synced one)
+        local = accum > 1 and not first[0] and optimizer.micro_step() < accum - 1
+        first[0] = False
+        with model.no_sync() if local else contextlib.nullcontext():
+            with _autocast(module, device):
+                out = model(batch["roi_img"], **_model_kwargs(batch),
+                            dropblock_progress=state.step / dropblock_nr_steps,
+                            generator=generator)
+            with torch.autocast(device.type, enabled=False):
+                loss_dict = gdrn_loss(cfg, out, batch)
+            total = sum(loss_dict[k] for k in sorted(loss_dict))  # the JAX package's leaf order
+            total.backward()
         metrics = {k: v.detach() for k, v in loss_dict.items()}
-        if skip_nonfinite:
-            ok = optimizer.step(finite=torch.isfinite(total.detach()))
-            for g, snap in zip(groups, snapshots):
-                _restore_where_not(ok, g, snap)
-            metrics["nonfinite_skip"] = (~ok).float()
-        else:
-            optimizer.step()
         metrics["total_loss"] = total.detach()
         with torch.no_grad():  # train-time pose errors, as the reference logs them
             metrics["vis/error_R"] = rot_angle_deg(out["rot"], batch["gt_ego_rot"]).mean()
             metrics["vis/error_t"] = (out["trans"] - batch["gt_trans"]).norm(dim=-1).mean() * 100.0
+        finite = torch.isfinite(metrics["total_loss"])
+        if local:  # gradients DDP did not average: each rank's own count
+            finite = finite & torch.isfinite(torch.linalg.vector_norm(
+                _flat([p.grad for p in module.parameters() if p.grad is not None])))
+        if world > 1:  # the global values, and one flag for every rank
+            names = sorted(metrics)
+            vec = torch.stack([metrics[k] for k in names] + [(~finite).float()])
+            dist.all_reduce(vec)
+            metrics = dict(zip(names, vec[:-1] / world))
+            finite = vec[-1] == 0
+        reduce = {"reduce": rank_mean} if accum > 1 and not local else {}
+        if skip_nonfinite:
+            ok = optimizer.step(finite=finite, **reduce)
+            for g, snap in zip(groups, snapshots):
+                _restore_where_not(ok, g, snap)
+            metrics["nonfinite_skip"] = (~ok).float()
+        else:
+            optimizer.step(**reduce)
         state.step += 1
         return state, metrics
 

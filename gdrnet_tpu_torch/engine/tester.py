@@ -13,11 +13,15 @@ a BOP19 CSV and, with VAL.USE_BOP, eval/bop_score. Timing is split compute
 vs process with the first bucket left out (:545-624).
 
 Where the port differs from the JAX package: the model is an nn.Module that
-holds its weights (no separate `variables`); one process scores the whole
-split on one device, so there is no shard gather; the settings the port does
-not run yet raise NotImplementedError naming their ROADMAP.md queue item
-before anything is mapped: more than one process or TEST.LOCAL_DEVICES
-other than -1 or 1 (A10). TEST.USE_PNP refines each bucket's net poses from
+holds its weights (no separate `variables`). Under a process group each
+rank tests a contiguous shard of the (image, object) groups on its own card
+and the shards' predictions are gathered to every rank before scoring
+(parallel/multihost.all_gather_objects, as gdrnet_tpu/engine/tester.py:
+163-168,291-301); the CSV and BOP scoring run on the main process.
+TEST.LOCAL_DEVICES splits each bucket over replicas of the model on this
+process's cards (parallel/mesh.local_dp_setup; -1, the default, takes every
+visible card of a single process, and a rank's own card under a process
+group). TEST.USE_PNP refines each bucket's net poses from
 its decoded maps (engine/pnp_refine.py: TEST.PNP_TYPE's mode, on the device
 with TEST.DEVICE_PNP, else the per-ROI host loop) inside the compute
 window, as JAX does (gdrnet_tpu/engine/tester.py:229-236). TEST.FOLD_BN folds the BN
@@ -53,6 +57,8 @@ from gdrnet_tpu_torch.eval.bop_score import (
 from gdrnet_tpu_torch.eval.bop_writer import save_bop_results
 from gdrnet_tpu_torch.eval.custom_evaluator import CustomEvaluator
 from gdrnet_tpu_torch.models.quantize import calibrate_act_scales
+from gdrnet_tpu_torch.parallel import local_dp_setup, split_predict
+from gdrnet_tpu_torch.parallel import multihost as mh
 from gdrnet_tpu_torch.utils.fold_bn import fold_batch_norms
 
 # the batch keys the forward reads; the rest of a mapped bucket stays on the host
@@ -90,20 +96,8 @@ def build_test_items(records: list[dict], detections: dict | None = None,
 
 
 def check_supported(cfg, logger: logging.Logger | None = None) -> None:
-    """Raise for the test settings the port does not run yet; warn for
-    TEST.DEVICE_PREPROCESS, which it does not need."""
-    test = cfg.TEST
-    local = int(test.get("LOCAL_DEVICES", -1))
-    if local not in (-1, 1):
-        raise NotImplementedError(
-            f"TEST.LOCAL_DEVICES={local}: the port tests on one device; more than one is "
-            "not ported yet (ROADMAP.md A10)")
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            f"do_test in {torch.distributed.get_world_size()} processes: sharded testing "
-            "is not ported yet (ROADMAP.md A10)")
-    if test.get("DEVICE_PREPROCESS"):
+    """Warn for TEST.DEVICE_PREPROCESS, which the port does not need."""
+    if cfg.TEST.get("DEVICE_PREPROCESS"):
         (logger or logging.getLogger("gdrnet_tpu_torch")).warning(
             "TEST.DEVICE_PREPROCESS: a TPU placement setting of the JAX package; the port "
             "maps test ROIs on the host (ROADMAP.md \"Do not port\")")
@@ -118,6 +112,33 @@ def _to_device(batch: dict, device: torch.device) -> dict:
             for k in _DEVICE_KEYS}
 
 
+def bucket_predictor(cfg, model: torch.nn.Module, bucket: int, with_maps: bool = False):
+    """predict(dev_batch) for buckets of `bucket` rows, as do_test and
+    predict serve them: TEST.FOLD_BN folds the BN statistics into a copy of
+    the model first; TEST.LOCAL_DEVICES splits each bucket over replicas of
+    it (parallel/mesh.py); TEST.INT8 calibrates the activation scales on the
+    first bucket (on the whole bucket, with the first replica) and serves
+    every replica quantized with them, as JAX does
+    (gdrnet_tpu/engine/tester.py:95-112,219-225)."""
+    if cfg.TEST.get("FOLD_BN"):  # inference only; a folded model quantizes too
+        model = fold_batch_norms(model)
+    devices, replicas = local_dp_setup(model, bucket, cfg.TEST.get("LOCAL_DEVICES", -1))
+    int8 = bool(cfg.TEST.get("INT8"))
+    predicts = [make_predict_step(r, with_maps=with_maps) for r in replicas]
+
+    def predict(dev_batch: dict) -> dict:
+        nonlocal predicts, int8
+        if int8:
+            scales = calibrate_act_scales(replicas[0], [dev_batch])
+            predicts = [make_predict_step(r, with_maps=with_maps, int8_scales=scales)
+                        for r in replicas]
+            int8 = False
+        return predicts[0](dev_batch) if devices is None else split_predict(
+            predicts, devices)(dev_batch)
+
+    return predict
+
+
 def _check_device(model: torch.nn.Module, device: torch.device) -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("do_test: device is cuda, but no CUDA card is available; "
@@ -129,14 +150,22 @@ def _check_device(model: torch.nn.Module, device: torch.device) -> None:
 
 def do_test(cfg, model: torch.nn.Module, models, records: list[dict],
             output_dir: str | None = None, data_root: str = "datasets/BOP_DATASETS",
-            save_csv: bool = True, device="cuda") -> dict:
+            save_csv: bool = True, shard: int | None = None, num_shards: int | None = None,
+            device="cuda") -> dict:
     """Run inference over `records` (one test split) with `model` (on
     `device`, holding its weights), then the in-process evaluation. Returns
     the evaluator's results dict plus `_summary`, `_time` (after the first
     bucket), `_csv_path` (with output_dir and save_csv) and, with
-    VAL.USE_BOP, `_bop` and `_bop_average_recall`. data_root is accepted
-    for the JAX package's signature; records already hold their paths."""
+    VAL.USE_BOP, `_bop` and `_bop_average_recall` (the last three on the main
+    process). shard / num_shards (default: the rank and the world size)
+    pick a contiguous shard of the (image, object) groups; the shards'
+    predictions are gathered over the process group before scoring. Called
+    in one process with num_shards > 1, it scores its shard alone, as JAX's
+    does. data_root is accepted for the JAX package's signature; records
+    already hold their paths."""
     del data_root
+    shard = mh.get_rank() if shard is None else shard
+    num_shards = mh.get_world_size() if num_shards is None else num_shards
     device = torch.device(device)
     check_supported(cfg)
     _check_device(model, device)
@@ -162,11 +191,8 @@ def do_test(cfg, model: torch.nn.Module, models, records: list[dict],
 
     bucket = cfg.TEST.ROI_BATCH_SIZE
     mapper = GDRNTestMapper(cfg, models, roi_batch_size=bucket)
-    if cfg.TEST.get("FOLD_BN"):  # inference only; a folded model quantizes too
-        model = fold_batch_norms(model)
     use_pnp = bool(cfg.TEST.USE_PNP)
-    predict = make_predict_step(model, with_maps=use_pnp)
-    int8 = bool(cfg.TEST.get("INT8"))
+    predict = bucket_predictor(cfg, model, bucket, with_maps=use_pnp)
     evaluator = CustomEvaluator(
         models.objs, models.points, models.diameters,
         sym_objs=[o for o in cfg.DATASETS.SYM_OBJS if o in models.objs],
@@ -174,8 +200,9 @@ def do_test(cfg, model: torch.nn.Module, models, records: list[dict],
         eval_precision=cfg.VAL.get("EVAL_PRECISION", False), device=device)
 
     # GT instances with no detection are recall failures (reference
-    # gdrn_custom_evaluator.py:552-556)
-    if detections is not None:
+    # gdrn_custom_evaluator.py:552-556), counted on shard 0 alone so that
+    # the gather sums to the total
+    if detections is not None and shard == 0:
         gt_cnt_by_img: dict = defaultdict(Counter)
         for r in records:
             gt_cnt_by_img[(r["scene_id"], r["im_id"])][int(r["obj_id"])] += 1
@@ -206,6 +233,13 @@ def do_test(cfg, model: torch.nn.Module, models, records: list[dict],
             groups.append(grp)
             for det in dets:
                 flat.append((rgb_path, K, det, grp))
+    if num_shards > 1:
+        # a contiguous shard of groups (not of detections), so that each
+        # group's estimates are matched to its GT on one shard
+        per = -(-len(groups) // num_shards)
+        groups = groups[shard * per:(shard + 1) * per]
+        kept = {id(g) for g in groups}
+        flat = [f for f in flat if id(f[3]) in kept]
 
     bop_results = []
     total_compute, total_process, n_buckets = 0.0, 0.0, 0
@@ -250,11 +284,6 @@ def do_test(cfg, model: torch.nn.Module, models, records: list[dict],
             start, chunk, batch = item
             t0 = time.perf_counter()
             dev_batch = _to_device(batch, device)
-            if int8:  # calibrate the activation scales on the first bucket
-                predict = make_predict_step(
-                    model, with_maps=use_pnp,
-                    int8_scales=calibrate_act_scales(model, [dev_batch]))
-                int8 = False
             out = predict(dev_batch)
             if use_pnp:  # pose computation, so it lands in the compute window
                 rot, trans = refine_bucket_poses(cfg, models, batch, dev_batch, out, seed=start)
@@ -310,6 +339,18 @@ def do_test(cfg, model: torch.nn.Module, models, records: list[dict],
         for est, gt in matched:
             evaluator.process(name, est["R"], est["t"], gt["R"], gt["t"], gt["K"])
 
+    if mh.get_world_size() > 1 and num_shards > 1:
+        # every shard's rows and (pose, GT) pairs, scored together on every rank
+        gathered = mh.all_gather_objects({"bop": bop_results, "preds": dict(evaluator._preds),
+                                          "missing": dict(evaluator._missing)})
+        bop_results = [r for g in gathered for r in g["bop"]]
+        evaluator.reset()
+        for g in gathered:
+            for name, pairs in g["preds"].items():
+                evaluator._preds[name].extend(pairs)
+            for name, n in g["missing"].items():
+                evaluator._missing[name] += n
+
     # BOP CSV requires one time value per image (the official toolkit
     # rejects rows of the same image with differing times); report the max
     # over the image's estimates
@@ -321,11 +362,12 @@ def do_test(cfg, model: torch.nn.Module, models, records: list[dict],
         r_["time"] = t_by_img[(r_["scene_id"], r_["im_id"])]
 
     results = evaluator.evaluate()
-    if output_dir and save_csv:
+    main = mh.is_main_process()
+    if output_dir and save_csv and main:
         csv_path = osp.join(output_dir, f"{models.meta.name}-test_gdrnet-tpu.csv")
         save_bop_results(csv_path, bop_results)
         results["_csv_path"] = csv_path
-    if cfg.VAL.get("USE_BOP"):
+    if cfg.VAL.get("USE_BOP") and main:
         # in-process BOP-toolkit-style scoring over VAL.ERROR_TYPES
         # (reference spawns eval_pose_results_more.py subprocesses,
         # test_utils.py:33-75; here eval/bop_score.py scores directly)

@@ -9,6 +9,16 @@ or with --eval-only test the weights of MODEL.WEIGHTS (a reference-layout
 .pth or a checkpoint directory), else of the newest checkpoint under
 OUTPUT_DIR/ckpt. The results go to OUTPUT_DIR/results.json beside the BOP19
 CSV. It runs on the CUDA card; main(argv, device="cpu") runs it on the CPU.
+
+On N GPUs of one machine, one process a GPU (data-parallel training,
+sharded testing; engine/trainer.py, engine/tester.py):
+  torchrun --standalone --nproc_per_node=N -m gdrnet_tpu_torch.engine.train \
+      --config-file <cfg.py> [--eval-only] [KEY.PATH=value ...]
+(or python -m torch.distributed.run with the same arguments). Each process
+joins the NCCL group on its LOCAL_RANK's card; SOLVER.IMS_PER_BATCH is the
+global batch, split evenly between the ranks. Rank 0 writes the checkpoints,
+metrics.json, results.json and the CSV; every rank logs to OUTPUT_DIR/
+log[.rankR].txt.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import torch
 
 from gdrnet_tpu_torch.config import base_config, load_config
 from gdrnet_tpu_torch.config.config import Config, apply_opts, merge_dict
+from gdrnet_tpu_torch.parallel import multihost as mh
 
 
 def parse_args(argv=None):
@@ -53,7 +64,8 @@ def setup(args) -> Config:
     # dump the resolved config into the run dir for reproducibility
     # (reference default_args_setup.py:102-110)
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    cfg.dump(osp.join(cfg.OUTPUT_DIR, "config_dump.json"))
+    if mh.is_main_process():
+        cfg.dump(osp.join(cfg.OUTPUT_DIR, "config_dump.json"))
     return cfg
 
 
@@ -93,21 +105,32 @@ def _test(cfg, model, data_root: str, device) -> dict:
                           num_fps=cfg.MODEL.CDPN.ROT_HEAD.NUM_REGIONS)
     results = do_test(cfg, model, models, records, output_dir=cfg.OUTPUT_DIR,
                       data_root=data_root, device=device)
-    print(results["_summary"])
-    _dump_results(results, cfg.OUTPUT_DIR)
+    if mh.is_main_process():
+        print(results["_summary"])
+        _dump_results(results, cfg.OUTPUT_DIR)
     return results
 
 
 def main(argv=None, device="cuda"):
     args = parse_args(argv)
-    cfg = setup(args)
     device = torch.device(device)
     # a real config is hours of GPU work: without the card, stop here rather
     # than fall back to the host
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("gdrnet_tpu_torch.engine.train: no CUDA card is available "
                            "(torch.cuda.is_available() is false)")
+    # under a launcher: join the process group (NCCL on the card, gloo on the CPU)
+    joined = not torch.distributed.is_initialized() and mh.maybe_init_distributed(
+        backend="nccl" if device.type == "cuda" else "gloo")
+    try:
+        return _run(setup(args), args, device)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
 
+
+def _run(cfg, args, device):
+    """Train then test, or test alone with --eval-only, in this process."""
     from gdrnet_tpu_torch.engine.checkpoint import load_weights
     from gdrnet_tpu_torch.engine.trainer import do_train
     from gdrnet_tpu_torch.models.gdrn import build_model

@@ -19,6 +19,18 @@ panels of the current batch's first ROI at each log boundary (the input
 crop, the predicted and GT xyz, the predicted and GT mask), as JAX does
 (gdrnet_tpu/engine/trainer.py:405-427); without tensorboard it writes none.
 
+Data parallelism (ROADMAP.md A10): under a launcher (`torchrun`, one process
+a GPU) or a process group the caller made, every rank trains on its row
+block of each global batch of SOLVER.IMS_PER_BATCH (data/loader.py) with the
+model wrapped in DistributedDataParallel, its BatchNorms over the global
+batch (parallel/sync_bn.py) and the loss terms and logged metrics global
+(losses/gdrn_loss.py, engine/steps.py), so N ranks take the step one
+process takes at the same global batch. parallel/mesh.resolve_world checks
+the world against PARALLEL.MESH_SHAPE and the batch. Rank 0 broadcasts the
+seed, writes the checkpoints, the console and metrics.json lines and
+tensorboard; every rank logs to its own file and stops at the same
+iteration on SIGTERM; eval_fn tests sharded (engine/tester.py).
+
 The JAX package's device-resident pool, device preprocessing and device
 colour jitter (TRAIN.DEVICE_RESIDENT_POOL, POOL_REFRESH,
 INPUT.DEVICE_PREPROCESS, INPUT.DEVICE_COLOR_AUG) are TPU placement choices
@@ -60,6 +72,8 @@ from gdrnet_tpu_torch.engine.writers import (
     setup_logger,
 )
 from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
+from gdrnet_tpu_torch.parallel import ddp_model, resolve_world
+from gdrnet_tpu_torch.parallel import multihost as mh
 from gdrnet_tpu_torch.solver.optimizers import build_optimizer
 from gdrnet_tpu_torch.solver.schedulers import build_lr_schedule
 
@@ -69,13 +83,8 @@ _TPU_PLACEMENT = (("TRAIN", "DEVICE_RESIDENT_POOL"), ("TRAIN", "POOL_REFRESH"),
 
 
 def check_supported(cfg, logger=None) -> None:
-    """Raise for what the port's trainer does not do yet; warn once for the
-    TPU placement settings, which it does not need."""
-    mesh = tuple(cfg.PARALLEL.get("MESH_SHAPE", (-1,)))
-    if mesh not in ((-1,), (1,)) or int(cfg.PARALLEL.get("MODEL_PARALLEL", 1) or 1) > 1:
-        raise NotImplementedError(
-            f"PARALLEL.MESH_SHAPE={mesh}: the port trains on one device; more than one is "
-            "not ported yet (ROADMAP.md A10)")
+    """Warn once for the TPU placement settings, which the port does not
+    need (the world and the model axis are resolve_world's)."""
     on = [f"{a}.{b}" for a, b in _TPU_PLACEMENT if getattr(cfg, a).get(b)]
     if not cfg.TRAIN.get("DEVICE_RESIDENT_POOL"):  # the refresh is part of the pool
         on = [name for name in on if name != "TRAIN.POOL_REFRESH"]
@@ -134,14 +143,16 @@ def vis_panels(cfg, model: torch.nn.Module, batch: dict) -> dict:
 
 def build_input_pipeline(cfg, records, records2, mapper, seed: int, device="cuda"):
     """The training input path: (loader, to_device). The loader yields host
-    batches; to_device(batch) moves one to `device`, through pinned host
-    memory and a copy that does not block the host on a CUDA device."""
+    batches, the rank's rows of each global batch; to_device(batch) moves one
+    to `device`, through pinned host memory and a copy that does not block
+    the host on a CUDA device."""
     loader = TrainLoader(
         records, mapper, cfg.SOLVER.IMS_PER_BATCH,
         sampler_name=cfg.DATALOADER.SAMPLER_TRAIN,
         repeat_thresh=cfg.DATALOADER.REPEAT_THRESHOLD,
         num_workers=cfg.DATALOADER.NUM_WORKERS, seed=seed,
-        records2=records2, ratio2=cfg.DATASETS.TRAIN2_RATIO)
+        records2=records2, ratio2=cfg.DATASETS.TRAIN2_RATIO,
+        rank=mh.get_rank(), world_size=mh.get_world_size())
     device = torch.device(device)
 
     def to_device(batch: dict) -> dict:
@@ -206,13 +217,17 @@ class _Preemption:
 def do_train(cfg, resume: bool = False, data_root: str = "datasets/BOP_DATASETS",
              max_iters_override: int | None = None, eval_fn=None, device="cuda"):
     """Returns (state, models, preempted). eval_fn(cfg, state, models) is
-    called every TEST.EVAL_PERIOD epochs if provided (engine.py:285-292).
-    preempted=True means a SIGTERM/SIGINT ended the run at an iteration
-    boundary (state checkpointed; resume with resume=True)."""
+    called every TEST.EVAL_PERIOD epochs if provided (engine.py:285-292),
+    on every rank. preempted=True means a SIGTERM/SIGINT ended the run at an
+    iteration boundary (state checkpointed; resume with resume=True). Under a
+    launcher it joins the process group first (NCCL for a CUDA `device`,
+    gloo for the CPU; a group the caller made is kept); `device` "cuda" is
+    then the rank's card. state.model is the unwrapped model."""
     device = torch.device(device)
+    mh.maybe_init_distributed(backend="nccl" if device.type == "cuda" else "gloo")
     out_dir = cfg.OUTPUT_DIR if cfg.OUTPUT_DIR != "auto" else osp.join(
         cfg.OUTPUT_ROOT, cfg.EXP_NAME or "gdrn")
-    logger = setup_logger(out_dir)
+    logger = setup_logger(out_dir, rank=mh.get_rank())
     check_supported(cfg, logger)
 
     # preemption-safe exit: on SIGTERM/SIGINT finish the current iteration,
@@ -225,16 +240,19 @@ def do_train(cfg, resume: bool = False, data_root: str = "datasets/BOP_DATASETS"
 
 def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir, logger,
            preempted: _Preemption):
-    meta, records, records2, models, mapper = build_train_objects(cfg, data_root, device)
     ims_per_batch = cfg.SOLVER.IMS_PER_BATCH
+    world = resolve_world(cfg, ims_per_batch, mh.get_world_size(), logger)
+    meta, records, records2, models, mapper = build_train_objects(cfg, data_root, device)
     iters_per_epoch = max(len(records) // ims_per_batch, 1)
     total_iters = max_iters_override or iters_per_epoch * cfg.SOLVER.TOTAL_EPOCHS
     logger.info(f"{len(records)} records, {iters_per_epoch} iters/epoch, "
-                f"{total_iters} total iters, on {device}")
+                f"{total_iters} total iters, on {device}, rank {mh.get_rank()} of {world}")
 
     # SEED < 0 means fully randomize (reference common_base.py SEED=-1),
-    # masked to 31 bits
+    # masked to 31 bits; every rank takes rank 0's (the same loader stream
+    # and init, as gdrnet_tpu/engine/trainer.py:256-263)
     seed = cfg.SEED if cfg.SEED >= 0 else int.from_bytes(os.urandom(4), "little") & 0x7FFFFFFF
+    seed = mh.broadcast_int(seed)
     loader, to_device = build_input_pipeline(cfg, records, records2, mapper, seed, device)
     model = init_weights(build_model(cfg, device=device), torch.Generator().manual_seed(seed))
     base_lr = dict(cfg.SOLVER.OPTIMIZER_CFG).get("lr", 1e-4)
@@ -245,7 +263,6 @@ def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir,
     schedule = build_lr_schedule(cfg, base_lr, total_iters, steps_per_update=accum)
     optimizer = build_optimizer(cfg, model, schedule)
     state = create_train_state(model, optimizer)
-    train_step = make_train_step(cfg, model, optimizer)
 
     ckpt = CheckpointManager(osp.join(out_dir, "ckpt"), max_to_keep=cfg.SOLVER.MAX_TO_KEEP)
     state, start_iter = ckpt.resume_or_load(state, resume=resume)
@@ -253,6 +270,7 @@ def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir,
         # fresh run: MODEL.WEIGHTS, else BACKBONE.PRETRAINED, else the
         # random-init warning (reference engine.py:198-204 + GDRN.py:713-721)
         init_model_weights(cfg, state, logger=logger)
+    train_step = make_train_step(cfg, ddp_model(model), optimizer)
 
     loader_iter = iter(loader)
     t0 = time.perf_counter()
@@ -260,9 +278,13 @@ def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir,
     data_time = time.perf_counter() - t0
 
     ev = EventLog()
-    writers = [ConsoleWriter(total_iters, device), JsonWriter(osp.join(out_dir, "metrics.json"))]
+    # console / metrics.json / tensorboard on the main process only (reference
+    # setup_for_distributed, my_setup.py:6-20): the metrics are global
+    main = mh.is_main_process()
+    writers = ([ConsoleWriter(total_iters, device),
+                JsonWriter(osp.join(out_dir, "metrics.json"))] if main else [])
     tb = None  # tensorboard's writer, where tensorboard is installed
-    if cfg.TRAIN.VIS_IMG or cfg.VIS_PERIOD:
+    if (cfg.TRAIN.VIS_IMG or cfg.VIS_PERIOD) and main:
         tb = TensorboardWriter(osp.join(out_dir, "tb"))
         if tb.tb is None:
             tb = None
@@ -284,7 +306,8 @@ def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir,
             torch.cuda.synchronize(device)
         prof.stop()
         os.makedirs(prof_dir, exist_ok=True)
-        path = osp.join(prof_dir, "trace.json")
+        rank = mh.get_rank()
+        path = osp.join(prof_dir, f"trace.rank{rank}.json" if rank else "trace.json")
         prof.export_chrome_trace(path)
         logger.info(f"profiler trace written to {path}")
 
@@ -300,7 +323,7 @@ def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir,
             if prof is not None and it == cfg.TRAIN.PROFILE_STOP:
                 stop_profiler()
                 prof, prof_dir = None, ""
-            if preempted.flag:
+            if mh.any_rank(preempted.flag):  # every rank stops at the same iteration
                 if prof is not None:
                     stop_profiler()
                 ckpt.save(state, it)

@@ -6,6 +6,15 @@ channels-last, as GDRN.forward returns them. Call it in f32 (autocast off).
 With MODEL.CDPN.USE_MTL each term L whose name is one of the model's
 log-variances lv becomes L exp(-lv) + log(1 + exp(lv)) (the reference's
 uncertainty weighting).
+
+Under a process group of N ranks (DDP) each term is the rank's share of the
+term over the global batch, as the JAX package computes it in one program
+over the sharded batch: the mask-sum denominators are summed over the ranks
+(detached: the masks are ground truth) and the masked sums over them are
+scaled by N, while the plain means are taken over equal row blocks. So the
+mean of the ranks' values is the global term, and DDP's mean of the ranks'
+gradients is its gradient; MTL's weighting is linear in a term, so it
+keeps both.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from gdrnet_tpu_torch.losses.basic import (
     rot_l2_loss,
 )
 from gdrnet_tpu_torch.losses.pm_loss import point_matching_loss
+from gdrnet_tpu_torch.parallel import multihost as mh
 
 _SIMPLE = {"L1": l1_loss, "L2": l2_loss, "MSE": mse_loss}
 
@@ -44,6 +54,13 @@ def gdrn_loss(cfg, out: dict, batch: dict) -> dict[str, torch.Tensor]:
     out_mask, out_region = out["mask"], out["region"]
     coors = (out["coor_x"], out["coor_y"], out["coor_z"])
     out_rot, out_trans, pred_t_ = out["rot"], out["trans"], out["pred_t_"]
+    world = mh.get_world_size()
+
+    def over_mask(total: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """A masked sum over the mask's pixel count, both of the global batch
+        (gdrnet_tpu/losses/gdrn_loss.py:54,100): the rank's share."""
+        denom = mh.all_reduce_sum(mask.sum()).clamp_min(1.0)
+        return total * world / denom if world > 1 else total / denom
 
     if not rh.FREEZE:
         if tuple(coors[0].shape[1:3]) != tuple(batch["gt_mask_visib"].shape[1:3]):
@@ -54,20 +71,20 @@ def gdrn_loss(cfg, out: dict, batch: dict) -> dict[str, torch.Tensor]:
                 "fails on the same shapes)")
         # xyz loss, masked and normalised by the mask's pixel count
         gt_mask_xyz = gt_masks[rh.XYZ_LOSS_MASK_GT]  # [B,H,W]
-        denom = gt_mask_xyz.sum().clamp_min(1.0)
         m = gt_mask_xyz[..., None]
         names = ("loss_coor_x", "loss_coor_y", "loss_coor_z")
         if rh.XYZ_LOSS_TYPE == "L1":
             gt_xyz = batch["gt_xyz"]
             for i, (name, coor) in enumerate(zip(names, coors)):
-                loss_dict[name] = (coor * m - gt_xyz[..., i:i + 1] * m).abs().sum() / denom
+                loss_dict[name] = over_mask((coor * m - gt_xyz[..., i:i + 1] * m).abs().sum(),
+                                            gt_mask_xyz)
         elif rh.XYZ_LOSS_TYPE == "CE_coor":
             gt_bin = batch["gt_xyz_bin"].long()
             mi = gt_mask_xyz.long()
             # the reference multiplies logits AND targets by the mask
             for i, (name, coor) in enumerate(zip(names, coors)):
-                loss_dict[name] = cross_entropy_heatmap_loss(
-                    coor * m, gt_bin[..., i] * mi, reduction="sum") / denom
+                loss_dict[name] = over_mask(cross_entropy_heatmap_loss(
+                    coor * m, gt_bin[..., i] * mi, reduction="sum"), gt_mask_xyz)
         else:
             raise NotImplementedError(f"unknown xyz loss type: {rh.XYZ_LOSS_TYPE}")
         for name in names:
@@ -95,10 +112,9 @@ def gdrn_loss(cfg, out: dict, batch: dict) -> dict[str, torch.Tensor]:
         gt_mask_region = gt_masks[rh.REGION_LOSS_MASK_GT]
         if rh.REGION_LOSS_TYPE != "CE":
             raise NotImplementedError(f"unknown region loss type: {rh.REGION_LOSS_TYPE}")
-        denom_r = gt_mask_region.sum().clamp_min(1.0)
-        loss_dict["loss_region"] = cross_entropy_heatmap_loss(
+        loss_dict["loss_region"] = over_mask(cross_entropy_heatmap_loss(
             out_region * gt_mask_region[..., None],
-            batch["gt_region"].long() * gt_mask_region.long(), reduction="sum") / denom_r
+            batch["gt_region"].long() * gt_mask_region.long(), reduction="sum"), gt_mask_region)
         loss_dict["loss_region"] = loss_dict["loss_region"] * rh.REGION_LW
 
     if pnp.PM_LW > 0:

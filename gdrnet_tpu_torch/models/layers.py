@@ -3,6 +3,17 @@
 The port runs NCHW inside its modules. Flax's BatchNorm momentum 0.9 (the
 weight of the old running value) is torch's momentum 0.1 (the weight of the
 new batch value).
+
+BatchNorm under data parallelism: the JAX package's comment says its BN
+keeps per-replica statistics (gdrnet_tpu/models/layers.py:21-28), but its
+train step is one jit over the global batch sharded on the `data` axis
+(gdrnet_tpu/engine/steps.py:101-124), so flax BN's mean over the batch axis
+is a global reduction there. The port computes what that program computes:
+under a process group of more than one rank, engine/trainer.py swaps every
+BatchNorm2d for parallel/sync_bn.SyncBatchNorm2d, whose batch statistics,
+running statistics and precise-BN averages are those of the global batch.
+The reference normalises per GPU (ROADMAP.md §C). DropBlock likewise draws
+the global batch's seeds and keeps the rank's rows (its `shard`).
 """
 
 from __future__ import annotations
@@ -46,11 +57,16 @@ class DropBlock2D(nn.Module):
     """DropBlock with the reference's LinearScheduler folded in: the drop
     probability ramps from 0 to drop_prob as `progress` goes from 0 to 1.
     At train time the seeds are a Bernoulli draw with gamma = drop_prob *
-    clip(progress, 0, 1) / block_size^2 from `generator` (on x's device)."""
+    clip(progress, 0, 1) / block_size^2 from `generator` (on x's device).
+    `shard` = (rank, world), set by parallel/mesh.ddp_model, draws for the
+    global batch (every rank's generator has the same seed) and keeps the
+    rank's row block, so that N ranks drop what one process at the global
+    batch drops."""
 
     def __init__(self, drop_prob: float = 0.0, block_size: int = 5):
         super().__init__()
         self.drop_prob, self.block_size = drop_prob, block_size
+        self.shard = (0, 1)
 
     def forward(self, x: torch.Tensor, progress: float = 1.0,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -58,7 +74,9 @@ class DropBlock2D(nn.Module):
             return x
         gamma = self.drop_prob * min(max(progress, 0.0), 1.0) / self.block_size ** 2
         b, _, h, w = x.shape
-        draw = torch.rand((b, 1, h, w), generator=generator, device=x.device)
+        rank, world = self.shard
+        draw = torch.rand((b * world, 1, h, w), generator=generator,
+                          device=x.device)[rank * b:(rank + 1) * b]
         return dropblock(x, (draw < gamma).to(x.dtype), self.block_size)
 
 

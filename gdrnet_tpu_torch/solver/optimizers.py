@@ -90,7 +90,10 @@ class TableOptimizer(torch.optim.Optimizer):
     every gradient are finite, and otherwise leaves the parameters and every
     piece of state exactly as they were; it returns that device flag. Without
     `finite`, every update is made. With accum_steps=k, k calls average their
-    gradients and the k-th makes one update (optax.MultiSteps)."""
+    gradients and the k-th makes one update (optax.MultiSteps); a skipped
+    call does not count. micro_step() reads that count; step(reduce=fn)
+    makes the mean accumulated so far global first (data parallelism, where
+    the earlier micro-steps' gradients stayed on their rank)."""
 
     TABLE_CHUNK = 1024
     STATE: dict[str, str] = {}
@@ -181,6 +184,15 @@ class TableOptimizer(torch.optim.Optimizer):
                 self.state["shared"]["acc"] = torch.zeros_like(self._grad)
         return self.state["shared"]
 
+    def micro_step(self) -> int:
+        """The calls accumulated toward the next update (0 without
+        accumulation): the device count, so one host sync. It stays on the
+        device because a skipped call leaves it as it was, which the host
+        does not know without this read."""
+        if self.accum_steps == 1:
+            return 0
+        return int(self._init_state()["mini_step"])
+
     def load_state_dict(self, state_dict: dict) -> None:
         super().load_state_dict(state_dict)
         shared = self.state.pop("shared", None)
@@ -199,7 +211,12 @@ class TableOptimizer(torch.optim.Optimizer):
                                         for i, d in self._gc_dims])
 
     @torch.no_grad()
-    def step(self, finite: torch.Tensor | None = None) -> torch.Tensor:
+    def step(self, finite: torch.Tensor | None = None,
+             reduce: Callable[[torch.Tensor], None] | None = None) -> torch.Tensor:
+        """One call (see the class). `reduce`, with accumulation, is applied
+        in place to the mean of the earlier calls' gradients before this
+        call's joins it (the cross-rank mean, where those gradients stayed
+        on their rank under DDP's no_sync)."""
         shared = self._init_state()
         with_grad = [i for i, p in enumerate(self._params) if p.grad is not None]
         torch._foreach_copy_([self._grad_views[i] for i in with_grad],
@@ -214,6 +231,8 @@ class TableOptimizer(torch.optim.Optimizer):
             ok = finite & torch.isfinite(torch.linalg.vector_norm(self._grad))
         if self.accum_steps > 1:  # optax.MultiSteps: a running mean of the k gradients
             n, acc = shared["mini_step"], shared["acc"]
+            if reduce is not None:
+                reduce(acc)
             torch.sub(self._grad, acc, out=self._work).div_(n + 1).add_(acc)
             last = n == self.accum_steps - 1
             acc.copy_(torch.where(ok, torch.where(last, 0.0, self._work), acc))

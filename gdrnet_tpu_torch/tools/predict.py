@@ -16,7 +16,10 @@ its bucket's seconds (mapping, forward and refinement).
 
 A frame is `<scene>/rgb/<im>.png`, else `.jpg` (data/jpeg.py decodes it).
 
-Not here: TEST.LOCAL_DEVICES other than -1 or 1 (ROADMAP.md A10) raises.
+TEST.LOCAL_DEVICES=n (-1, the default, for every visible card) splits each
+bucket over replicas of the model on that many local cards, the largest
+divisor of TEST.ROI_BATCH_SIZE no greater than n, as JAX's predict does
+(tools/predict.py:79-86); the fold and int8 apply to every replica.
 
 Usage:
   python -m gdrnet_tpu_torch.tools.predict --config-file configs/gdrn/lm/a6_cPnP_lm13.py \
@@ -24,7 +27,7 @@ Usage:
       --image-root datasets/BOP_DATASETS/lm/test --out poses.csv \
       [--camera-json <scene_camera.json>] [--K fx,fy,cx,cy] [--device cpu] \
       [TEST.FOLD_BN=True TEST.INT8=True] [TEST.USE_PNP=True TEST.PNP_TYPE=ransac_pnp
-      TEST.DEVICE_PNP=True]
+      TEST.DEVICE_PNP=True] [TEST.LOCAL_DEVICES=2]
 """
 
 from __future__ import annotations
@@ -46,12 +49,9 @@ from gdrnet_tpu_torch.data.mapper import GDRNTestMapper
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.engine.checkpoint import load_weights
 from gdrnet_tpu_torch.engine.pnp_refine import refine_bucket_poses
-from gdrnet_tpu_torch.engine.steps import make_predict_step
-from gdrnet_tpu_torch.engine.tester import _to_device, check_supported
+from gdrnet_tpu_torch.engine.tester import _to_device, bucket_predictor, check_supported
 from gdrnet_tpu_torch.eval.bop_writer import save_bop_results
 from gdrnet_tpu_torch.models.gdrn import build_model
-from gdrnet_tpu_torch.models.quantize import calibrate_act_scales
-from gdrnet_tpu_torch.utils.fold_bn import fold_batch_norms
 
 
 def parse_args(argv=None):
@@ -99,12 +99,9 @@ def main(argv=None, device="cuda") -> list[dict]:
     models = ObjectModels(meta, num_pm_points=cfg.MODEL.CDPN.PNP_NET.NUM_PM_POINTS,
                           num_fps=cfg.MODEL.CDPN.ROT_HEAD.NUM_REGIONS)
     model = load_weights(build_model(cfg, device=device), args.ckpt)
-    if cfg.TEST.get("FOLD_BN"):
-        model = fold_batch_norms(model)
     use_pnp = bool(cfg.TEST.USE_PNP)
-    predict = make_predict_step(model, with_maps=use_pnp)
-    int8 = bool(cfg.TEST.get("INT8"))
     bucket = int(cfg.TEST.ROI_BATCH_SIZE)
+    predict = bucket_predictor(cfg, model, bucket, with_maps=use_pnp)
 
     K_global = None
     if args.K:
@@ -136,11 +133,6 @@ def main(argv=None, device="cuda") -> list[dict]:
         t0 = time.perf_counter()
         batch = mapper.map_flat([(p, K, d) for p, K, d, _, _ in chunk])
         dev_batch = _to_device(batch, device)
-        if int8:  # calibrate on the first bucket (models/quantize.py)
-            predict = make_predict_step(
-                model, with_maps=use_pnp,
-                int8_scales=calibrate_act_scales(model, [dev_batch]))
-            int8 = False
         out = predict(dev_batch)
         if use_pnp:
             rot, trans = refine_bucket_poses(cfg, models, batch, dev_batch, out, seed=start)

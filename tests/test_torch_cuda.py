@@ -4,7 +4,10 @@ attribute channels), B2 under the train mapper (renders on the card equal
 to the CPU's, from loader-like threads on their own streams beside train
 steps) and under the dataset generator's phong+XYZ pass; and the device PnP
 program (ops/device_pnp.py, batched torch, no kernel of its own) on the
-card against the CPU.
+card against the CPU; and parallel/sync_bn.SyncBatchNorm2d in two gloo
+ranks on the one card against nn.BatchNorm2d in one process (plain
+PyTorch, no kernel of its own), and the multichip dry run's ranks on the
+card.
 
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
 without one. This file imports no JAX, so it also runs where JAX is not
@@ -13,6 +16,7 @@ installed; tests/conftest.py does import JAX, so on such a machine run it as
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import os
 import os.path as osp
 import subprocess
 import sys
@@ -660,3 +664,75 @@ def test_device_pnp_on_the_card_equals_the_cpu(cuda_device, mode):
     assert deg.max() < 0.05 and np.abs(tc - tp).max() < 5e-4
     np.testing.assert_array_equal(Rc[-1], R[-1])
     np.testing.assert_array_equal(tc[-1], host["trans_net"][-1])
+
+
+# ---------------------------------------------------------------------------
+# parallel/sync_bn.py: two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+SYNC_BN_CASES = {"momentum": dict(momentum=0.1, passes=2), "cumulative": dict(momentum=None,
+                                                                             passes=3)}
+
+
+@pytest.mark.cuda
+def test_sync_bn_two_ranks_on_the_card_match_one_process(cuda_device, tmp_path):
+    """SyncBatchNorm2d over [8, 64, 16, 16] in two gloo ranks on the card
+    (4 rows each) against nn.BatchNorm2d (cuDNN) on the 8 rows, with torch's
+    momentum and with the cumulative average (precise BN): outputs, the
+    input's and the affine gradients and the running buffers within 1e-5
+    (the two sum in other orders: cuDNN's Welford against two passes), the
+    buffers equal on both ranks."""
+    from torch_ddp_worker import run_ranks
+
+    rng = np.random.RandomState(0)
+    c = 64
+    x = (rng.randn(8, c, 16, 16) * 2.0 + 0.5).astype(np.float32)
+    dy = rng.randn(8, c, 16, 16).astype(np.float32)
+    state = {"weight": (1.0 + 0.1 * rng.randn(c)).astype(np.float32),
+             "bias": (0.1 * rng.randn(c)).astype(np.float32),
+             "running_mean": (0.1 * rng.randn(c)).astype(np.float32),
+             "running_var": (rng.rand(c) + 0.5).astype(np.float32),
+             "num_batches_tracked": np.array(3, np.int64)}
+    ranks = run_ranks(tmp_path, [("sync_bn", dict(x=x, dy=dy, state=state, device="cuda", **kw))
+                                 for kw in SYNC_BN_CASES.values()])
+    for i, kw in enumerate(SYNC_BN_CASES.values()):
+        bn = torch.nn.BatchNorm2d(c, eps=1e-5, momentum=kw["momentum"]).to(cuda_device)
+        bn.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+        bn.train()
+        for p in range(kw["passes"]):
+            xt = torch.from_numpy(x).to(cuda_device).requires_grad_(True)
+            bn.zero_grad()
+            y = bn(xt)
+            (y * torch.from_numpy(dy).to(cuda_device)).sum().backward()
+            want = {"y": y.detach().cpu().numpy(), "dx": xt.grad.cpu().numpy(),
+                    "dw": bn.weight.grad.cpu().numpy(), "db": bn.bias.grad.cpu().numpy()}
+            for results in ranks:
+                got = results[i]
+                lo, hi = got["rows"]
+                g = got["passes"][p]
+                for k in ("y", "dx"):
+                    np.testing.assert_allclose(g[k], want[k][lo:hi], rtol=0, atol=1e-5, err_msg=k)
+                for k in ("dw", "db"):
+                    np.testing.assert_allclose(g[k], want[k], rtol=1e-5, atol=1e-4, err_msg=k)
+                for k, v in bn.state_dict().items():
+                    np.testing.assert_allclose(g["buffers"][k], v.cpu().numpy(), rtol=0,
+                                               atol=1e-5, err_msg=k)
+        a, b = (r[i]["passes"][-1]["buffers"] for r in ranks)
+        assert all(np.array_equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_the_card(cuda_device):
+    """The dry run's default device: two gloo ranks on the card (card r
+    modulo the cards there are) against one process on the first, f32 with
+    TF32 off, loss terms within the dry run's rtol 1e-4."""
+    import json
+
+    from gdrnet_tpu_torch.tools import dryrun_multichip
+
+    proc = subprocess.run([sys.executable, "-m", "gdrnet_tpu_torch.tools.dryrun_multichip",
+                           "--nproc", "2"], capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=dryrun_multichip.PACKAGE_ROOT))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1].split(" ", 1)[1])
+    assert res["ok"] and res["device"] == "cuda" and res["ranks_equal"]

@@ -43,6 +43,7 @@ from gdrnet_tpu.utils.fold_bn import fold_variables
 
 from gdrnet_tpu_torch.data.synthetic import synthetic_roi_batch
 from gdrnet_tpu_torch.engine import do_test
+from gdrnet_tpu_torch.engine import tester as port_tester
 from gdrnet_tpu_torch.engine.steps import make_predict_step
 from gdrnet_tpu_torch.eval.bop_writer import load_bop_results
 from gdrnet_tpu_torch.models import quantize as Q
@@ -528,12 +529,37 @@ def test_predict_cli_reads_jpeg_frames_as_jax(fix, weights, tmp_path, monkeypatc
     _csv_close(got, want)
 
 
-def test_predict_cli_raises_for_what_waits(fix, weights, tmp_path):  # noqa: F811
-    argv = ["--config-file", _predict_cfg_file(tmp_path, ()), "--ckpt", weights[2],
-            "--dataset", "fixture", "--dets", fix["det_path"], "--image-root",
-            str(tmp_path), "--out", str(tmp_path / "x.csv"), "TEST.LOCAL_DEVICES=2"]
-    with pytest.raises(NotImplementedError, match="A10"):
-        port_predict.main(argv, device="cpu")
+def test_predict_cli_raises_for_what_waits(fix, weights, tmp_path, monkeypatch):  # noqa: F811
+    """What waited for A10 runs now: TEST.LOCAL_DEVICES=2 over two replicas
+    (local_devices patched to two CPU devices) splits each bucket of 4 in
+    two, with the BN fold and int8 (calibrated once, on the whole first
+    bucket, as JAX's tools/predict.py:79-86 does), and writes the rows of
+    the one-device run (rotations within 1e-5, translations within 1e-5
+    relative)."""
+    from gdrnet_tpu_torch.data import ref_meta
+    from gdrnet_tpu_torch.parallel import mesh
+
+    meta = fix["pmodels"].meta
+    monkeypatch.setattr(ref_meta, "get_meta", lambda name, data_root=None: meta)
+    argv = ["--config-file", _predict_cfg_file(tmp_path, ("INT8", "FOLD_BN")), "--ckpt",
+            weights[2], "--dataset", "fixture", "--dets", fix["det_path"], "--image-root",
+            osp.join(meta.data_root, "test")]
+    port_predict.main(argv + ["--out", str(tmp_path / "one.csv")], device="cpu")
+    monkeypatch.setattr(mesh, "local_devices", lambda device: [torch.device("cpu")] * 2)
+    replicas = []
+    setup = mesh.local_dp_setup
+
+    def recorded(*args, **kwargs):
+        out = setup(*args, **kwargs)
+        replicas.append(len(out[1]))
+        return out
+
+    monkeypatch.setattr(port_tester, "local_dp_setup", recorded)
+    port_predict.main(argv + ["--out", str(tmp_path / "two.csv"), "TEST.LOCAL_DEVICES=2"],
+                      device="cpu")
+    assert replicas == [2]
+    _csv_close(load_bop_results(str(tmp_path / "two.csv")),
+               load_bop_results(str(tmp_path / "one.csv")), rot_atol=1e-5, trans_rtol=1e-5)
     rgb = tmp_path / "000001" / "rgb"
     rgb.mkdir(parents=True)
     (rgb / "000000.jpg").write_bytes(b"")

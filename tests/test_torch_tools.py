@@ -316,12 +316,14 @@ def test_predict_cli_with_use_pnp_recovers_the_gt_poses(fix, weights, tmp_path, 
     up to 12 degrees and 3 cm off): every detection's row, the lower-scored
     shifted second ones too, holds its GT pose within the device PnP's
     clean-data floor (0.05 degrees, 0.5 mm)."""
+    from gdrnet_tpu_torch.engine import tester as port_tester
     from gdrnet_tpu_torch.eval.bop_writer import load_bop_results
     from gdrnet_tpu_torch.tools import predict as port_predict
 
     stub = StubMaps(fix, fix["pmodels"], "est")
     monkeypatch.setattr(ref_meta, "get_meta", lambda name, data_root=None: fix["pmodels"].meta)
-    monkeypatch.setattr(port_predict, "make_predict_step", lambda *args, **kwargs: (
+    # predict's forward is engine/tester.bucket_predictor's make_predict_step
+    monkeypatch.setattr(port_tester, "make_predict_step", lambda *args, **kwargs: (
         lambda batch: {k: torch.from_numpy(v) for k, v in stub.outputs(batch).items()}))
     cfg = tmp_path / "predict_pnp.py"
     cfg.write_text(

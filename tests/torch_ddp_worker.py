@@ -1,0 +1,176 @@
+"""One rank of the port's data-parallel tests: joins a gloo process group on
+the CPU and runs the scenarios of a pickled job, then pickles what each
+returned next to the job, as `<job>.rank<r>.pkl`.
+
+Run by gdrnet_tpu_torch.tools.dryrun_multichip.launch:
+  python tests/torch_ddp_worker.py <job.pkl> --rank R --world N --init-method tcp://...
+
+It imports neither JAX nor the JAX package. A job is {"scenarios": [(name,
+kwargs), ...]}; the names are the functions below.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import os.path as osp
+import pickle
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from gdrnet_tpu_torch.parallel import multihost as mh
+
+WORKER = osp.abspath(__file__)
+
+
+def run_ranks(job_dir, scenarios: list, world: int = 2, timeout_s: float = 300.0) -> list:
+    """Run `scenarios` in `world` rank processes of this script (gloo, CPU);
+    returns each rank's list of results, in rank order."""
+    from gdrnet_tpu_torch.tools.dryrun_multichip import launch
+
+    job = osp.join(str(job_dir), "job.pkl")
+    with open(job, "wb") as f:
+        pickle.dump({"scenarios": scenarios}, f)
+    launch([sys.executable, WORKER, job], world, timeout_s=timeout_s)
+    out = []
+    for r in range(world):
+        with open(f"{job}.rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def start_ranks(job_dir, scenarios: list, world: int = 2,
+                timeout_s: float = 300.0) -> concurrent.futures.Future:
+    """run_ranks in a thread of its own: the caller works on while the ranks
+    run and takes their results with .result()."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(run_ranks, job_dir, scenarios, world, timeout_s)
+    pool.shutdown(wait=False)
+    return future
+
+
+def helpers() -> dict:
+    """Every multihost helper once; payloads of different sizes per rank."""
+    rank = mh.get_rank()
+    gathered = mh.all_gather_objects({"rank": rank, "data": list(range(1000 * rank + 1))})
+    mh.synchronize()
+    return {"rank": rank, "world": mh.get_world_size(), "main": mh.is_main_process(),
+            "gathered": gathered,
+            "mean": mh.reduce_dict_mean({"a": float(rank), "b": 2.0}),
+            "any_none": mh.any_rank(False), "any_one": mh.any_rank(rank == 1),
+            "seed": mh.broadcast_int(1234 + rank),
+            "sum": mh.all_reduce_sum(torch.tensor([1.0 + rank])).tolist()}
+
+
+def sync_bn(x: np.ndarray, dy: np.ndarray, state: dict, momentum, passes: int,
+            train: bool = True, device: str = "cpu") -> dict:
+    """SyncBatchNorm2d on the rank's row block of x [B, C, H, W] on `device`
+    (every rank on the first card for "cuda"): `passes` forward / backward
+    passes of sum(y * dy); per pass the outputs, the input's gradient, the
+    affine gradients summed over the ranks, and the buffers."""
+    from gdrnet_tpu_torch.parallel.sync_bn import SyncBatchNorm2d
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+    rank, world = mh.get_rank(), mh.get_world_size()
+    b = len(x) // world
+    rows = slice(rank * b, (rank + 1) * b)
+    bn = SyncBatchNorm2d(x.shape[1], eps=1e-5, momentum=momentum).to(device)
+    bn.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    bn.train(train)
+    out = []
+    for _ in range(passes):
+        xr = torch.from_numpy(x[rows]).to(device).requires_grad_(True)
+        bn.zero_grad()
+        y = bn(xr)
+        (y * torch.from_numpy(dy[rows]).to(device)).sum().backward()
+        grads = torch.cat([bn.weight.grad, bn.bias.grad])
+        dist.all_reduce(grads)
+        out.append({"y": y.detach().cpu().numpy(), "dx": xr.grad.cpu().numpy(),
+                    "dw": grads[:x.shape[1]].cpu().numpy(),
+                    "db": grads[x.shape[1]:].cpu().numpy(),
+                    "buffers": {k: v.clone().cpu().numpy() for k, v in bn.state_dict().items()}})
+    return {"rows": (rows.start, rows.stop), "passes": out}
+
+
+def train(cfg: dict, state_dict: dict, batches: list, **kwargs) -> dict:
+    """dryrun_multichip.train_steps as this rank; "no_sync" counts the
+    micro-steps DDP ran under no_sync."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    from gdrnet_tpu_torch.config.config import Config
+    from gdrnet_tpu_torch.tools.dryrun_multichip import train_steps
+
+    no_sync, calls = DistributedDataParallel.no_sync, []
+
+    def counted(self):
+        calls.append(1)
+        return no_sync(self)
+
+    DistributedDataParallel.no_sync = counted
+    try:
+        res = train_steps(Config(cfg), state_dict, batches, **dict(dict(device="cpu"), **kwargs))
+    finally:
+        DistributedDataParallel.no_sync = no_sync
+    res["no_sync"] = len(calls)
+    if not mh.is_main_process():  # the parameters and gradients are every rank's
+        for k in ("state", "grads", "states"):
+            res.pop(k)
+    return res
+
+
+def do_train(cfg: dict, dataset: str, meta, records: list, iters: int) -> dict:
+    """engine/trainer.do_train on the CPU over `records` registered as
+    `dataset`, seeded as the single-process run is."""
+    from gdrnet_tpu_torch.config.config import Config
+    from gdrnet_tpu_torch.data import dataset_factory
+    from gdrnet_tpu_torch.engine import trainer
+
+    dataset_factory.register(dataset, lambda: (meta, records))
+    np.random.seed(5)  # the mapper draws its blur when it is built
+    state, _, preempted = trainer.do_train(Config(cfg), max_iters_override=iters, device="cpu")
+    return {"step": state.step, "preempted": preempted}
+
+
+def do_test(cfg: dict, meta, records: list, weights: str, output_dir: str,
+            num_pm_points: int, num_fps: int) -> dict:
+    """engine/tester.do_test on the CPU, sharded over the ranks."""
+    from gdrnet_tpu_torch.config.config import Config
+    from gdrnet_tpu_torch.data import ObjectModels
+    from gdrnet_tpu_torch.engine import checkpoint, tester
+    from gdrnet_tpu_torch.models.gdrn import build_model
+
+    cfg = Config(cfg)
+    models = ObjectModels(meta, num_pm_points=num_pm_points, num_fps=num_fps)
+    model = checkpoint.load_weights(build_model(cfg, device="cpu"), weights)
+    res = tester.do_test(cfg, model, models, records, output_dir=output_dir, device="cpu")
+    return {k: v for k, v in res.items() if k != "_time"}
+
+
+def main() -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("job")
+    p.add_argument("--rank", type=int, required=True)
+    p.add_argument("--world", type=int, required=True)
+    p.add_argument("--init-method", required=True)
+    args = p.parse_args()
+    torch.set_num_threads(1)
+    with open(args.job, "rb") as f:
+        job = pickle.load(f)
+    mh.maybe_init_distributed(backend="gloo", init_method=args.init_method,
+                              world_size=args.world, rank=args.rank)
+    try:
+        out = [getattr(sys.modules[__name__], name)(**kwargs) for name, kwargs in job["scenarios"]]
+    finally:
+        dist.destroy_process_group()
+    with open(f"{args.job}.rank{args.rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
