@@ -51,7 +51,15 @@ TRAIN.VIS_IMG. Then data parallelism ([ddp]): the engine.train CLI under
 python -m torch.distributed.run as one NCCL rank (train, then --eval-only
 on its checkpoint), and two gloo ranks on the one card (a DDP train step
 of the flagship against one process, then do_test sharded over the ranks
-against [do_test]'s one process).
+against [do_test]'s one process). Then the bench leg and the serving tools,
+each tool's main called in this process as `python -m` calls it:
+[bench_train] (tools/bench_train.py: the train step, the loader leg over
+the train loop's split, whose XYZ renders on the z-buffer kernel, and the
+FLOP audit with its share of the card's peaks), [bench] (tools/bench.py:
+bf16, then int8 on the trained checkpoint), [export] (tools/export_model.py
+on the card, the artifacts run in a child process that imports only
+torch), [strip_ckpt] and [pvnet] (models/pvnet.py on the card against the
+CPU).
 
 Phases, one line each (or one per case): device, kernel builds (both nvcc
 runs and the codec's g++ at once), nn_min_dist against its plain PyTorch version and cKDTree,
@@ -106,7 +114,14 @@ training and B1 in the test, one CSV row a kept detection), [ddp_gloo]
 (loss terms of 2 ranks against one process at every step, the gradients
 at the first, BN buffers equal on both ranks, ms a step and ROIs/s of each,
 the all-reduce ms), [ddp_do_test] (rows and recalls against one process,
-B1 on each rank, B2 on rank 0); last, what
+B1 on each rank, B2 on rank 0); [bench_train_step], [bench_train_loader]
+(B2 at least once a sample the loop consumed), [bench_train_audit] (mfu
+and hbm_frac in (0, 1], the FLOP counts beside [train_time]'s step),
+[bench] (values finite and above 0, int8 drift finite), [export] (the
+child's poses bit for bit the in-process forward's, int8's at all but at
+most 16 of 64 crops, those within 10 degrees and 5e-3), [strip_ckpt] (smaller,
+model and iteration only, the same poses bit for bit), [pvnet] (card
+against CPU within 1e-3 of the scale, ms at B=64); last, what
 torch.profiler measures (rasterize_xyz's launches per call and its
 kernels' device time, the device time of a BOP scoring call, the train
 step's busy share, top device operations and Ranger's launches), so that no
@@ -175,16 +190,21 @@ from gdrnet_tpu_torch.eval.custom_evaluator import RECALL_KEYS, CustomEvaluator
 from gdrnet_tpu_torch.eval.renderer import create_renderer
 from gdrnet_tpu_torch.models import quantize as Q
 from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
+from gdrnet_tpu_torch.models.pvnet import PVNet
 from gdrnet_tpu_torch.solver.optimizers import OPTIMIZER_NAMES
 from gdrnet_tpu_torch.ops import device_pnp, kernels
 from gdrnet_tpu_torch.ops.rasterizer import render_phong_xyz_roi_many, vertex_normals
 from gdrnet_tpu_torch.ops.symmetry import get_closest_rot_batch, identity_padded_sym_arrays
 from gdrnet_tpu_torch.parallel import multihost as mh
+from gdrnet_tpu_torch.tools import bench as bench_tool
 from gdrnet_tpu_torch.tools import bench_pnp
+from gdrnet_tpu_torch.tools import bench_train as bench_train_tool
 from gdrnet_tpu_torch.tools import eval_csv as eval_csv_tool
+from gdrnet_tpu_torch.tools import export_model as export_tool
 from gdrnet_tpu_torch.tools.compute_fps import compute_fps_dict
 from gdrnet_tpu_torch.tools import gen_xyz as gen_xyz_tool
 from gdrnet_tpu_torch.tools import predict as predict_tool
+from gdrnet_tpu_torch.tools import strip_ckpt as strip_tool
 from gdrnet_tpu_torch.tools.dryrun_multichip import launch, train_steps
 from gdrnet_tpu_torch.utils.fold_bn import conv_bn_pairs, fold_batch_norms
 
@@ -367,6 +387,31 @@ PNP_TRUTH_DEG, PNP_TRUTH_M, PNP_TRUTH_SHARE = 1.0, 0.01, 0.95
 PNP_BENCH_ITERS, PNP_VIS_ITERS, PNP_VIS_BATCH = 4, 3, 16
 PNP_TEST_RUNS = ((True, "ransac_pnp"), (False, "net_iter_pnp"))
 
+# the bench leg and the serving tools: [bench] at BENCH_BATCH for
+# BENCH_ITERS calls; [bench_train] the step and the audit at BT_BATCH, the
+# loader leg at BT_BATCH with BT_WORKERS threads for BT_LOADER_ITERS
+# iterations over [train_loop]'s split (B2 at least once a sample mapped);
+# [export] at EXPORT_BATCH, loaded in a child process with only torch;
+# [pvnet] PVNet-34 at PVNET_RES^2 in f32, PVNET_CPU_CROPS crops on the card
+# against the CPU within PVNET_REL of the outputs' scale, then its ms at
+# PVNET_BATCH
+BENCH_ITERS, BT_BATCH, BT_WORKERS, BT_LOADER_ITERS, BT_STEP_ITERS = 10, 128, 4, 3, 6
+EXPORT_BATCH, EXPORT_TIMEOUT_S = 64, 300
+# the int8 artifact against the eager int8 forward: bit for bit but at most
+# EXPORT_INT8_MAX_CROPS of the EXPORT_BATCH crops, each of those within
+# EXPORT_INT8_MAX_DEG degrees and EXPORT_INT8_TRANS_REL relative in
+# translation. The exported program's bf16 ops before an int8 layer can part
+# from the eager forward's by a bf16 ulp (scripts/probe_torch_export_int8.py
+# prints the first such layer and the graph's ops before it; the op is not
+# identified), and that moves an input across a rounding half-way point now
+# and then: only the crops whose inputs sit there move. Readings on an H100:
+# 1 of 64 crops at 0.7475 and at 2.9844 degrees, 6.665e-4 and 2.491e-4
+# relative in translation, on two runs' loop checkpoints; 5 of 64 crops,
+# 0.18-0.87 degrees, on the probe's 30-step weights. An artifact with a wrong
+# scale or layer moves every crop. The bf16 artifact bit for bit.
+EXPORT_INT8_MAX_CROPS, EXPORT_INT8_MAX_DEG, EXPORT_INT8_TRANS_REL = 16, 10.0, 5e-3
+PVNET_RES, PVNET_CPU_CROPS, PVNET_BATCH, PVNET_REL, PVNET_TIMED = 256, 2, 64, 1e-3, 10
+
 TRAIN_OP_KINDS = (
     ("conv_and_matmul", ("xmma", "gemm", "conv", "cudnn", "cutlass", "sm90_")),
     ("batch_norm", ("batch_norm",)),
@@ -379,8 +424,14 @@ TRAIN_OP_KINDS = (
 )
 
 
+T_START = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+    """One line `[phase] key=value ...`, ending in at_s, the seconds since the
+    script started (the phases' share of the time limit)."""
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items())
+          + f" at_s={time.perf_counter() - T_START:.1f}", flush=True)
 
 
 def cuda_times(fn, iters: int, warmup: int = 3) -> np.ndarray:
@@ -741,21 +792,31 @@ def phase_bop_split(cfg, gsd, requests, root: str) -> dict:
 
 
 def compare_with_plain(cfg, results, split, label: str) -> None:
-    """Scene 1's scoring on the card against the plain versions on the CPU:
-    per-pair VSD errors within VSD_ATOL, every recall equal except where a
-    pair's VSD error lies within VSD_ATOL of a threshold."""
+    """Scene 1 scored on the card against the plain versions on the CPU:
+    per-pair VSD errors (the ones each scoring computes, recorded as it runs)
+    within VSD_ATOL, every recall equal except where a pair's VSD error lies
+    within VSD_ATOL of a threshold."""
     models = split["models"]
     records = [r for r in split["records"] if r["scene_id"] == 1]
     results = [r for r in results if r["scene_id"] == 1]
-    t0 = time.perf_counter()
-    plain = score(cfg, results, records, models, "cpu")
-    plain_s = time.perf_counter() - t0
-    card = score(cfg, results, records, models, DEV)
-    pairs = bop_score.match_estimates_to_gt(results, records, cfg.VAL.N_TOP)
-    delta = bop_score.VSD_DELTAS_MM.get(models.meta.name.split("_")[0],
-                                        bop_score.VSD_DELTA_MM_DEFAULT)
-    errs = [bop_score._vsd_errors_by_obj(pairs, models, delta, bop_score.BOP19_VSD_TAUS,
-                                         device=device) for device in (DEV, "cpu")]
+    recorded = []  # the VSD errors of the CPU's scoring, then of the card's
+    vsd_errors = bop_score._vsd_errors_by_obj
+
+    def recording(*args, **kwargs):
+        recorded.append(vsd_errors(*args, **kwargs))
+        return recorded[-1]
+
+    bop_score._vsd_errors_by_obj = recording
+    try:
+        t0 = time.perf_counter()
+        plain = score(cfg, results, records, models, "cpu")
+        plain_s = time.perf_counter() - t0
+        card = score(cfg, results, records, models, DEV)
+    finally:
+        bop_score._vsd_errors_by_obj = vsd_errors
+    if len(recorded) != 2:
+        raise AssertionError(f"bop_plain {label}: {len(recorded)} VSD scorings, not 2")
+    errs = recorded[::-1]  # card, CPU
     worst, near, flips = 0.0, 0, 0
     ths = bop_score.BOP19_VSD_THRESHOLDS
     for name in errs[0]:
@@ -943,8 +1004,10 @@ def phase_train(cfg, state_dict: dict, card: str) -> tuple:
     buffers are bitwise unchanged. (d) ms per step, ROIs/s, the split into
     forward, loss, backward and optimizer, and peak memory at each of
     TRAIN_BATCHES, each time with `card` (name, power limit) beside it.
-    Returns what the profiled run needs."""
+    Returns what the profiled run needs, and the median ms a step by batch
+    size."""
     bs = cfg.SOLVER.IMS_PER_BATCH
+    train_ms = {}
     state, step = train_setup(cfg, state_dict, DEV)
     gen = torch.Generator(device=DEV).manual_seed(0)
     batch = to_device(train_batch(cfg, bs, seed=300), DEV)
@@ -990,12 +1053,13 @@ def phase_train(cfg, state_dict: dict, card: str) -> tuple:
         torch.cuda.reset_peak_memory_stats()
         ms = cuda_times(lambda: step(state, data, gen), TRAIN_TIMED, TRAIN_WARMUP)
         split = train_split(state, step, data, gen)
+        train_ms[b] = float(np.median(ms))
         log("train_time", card=repr(card), batch=b, steps=len(ms),
             median_ms=f"{np.median(ms):.3f}",
             max_ms=f"{ms.max():.3f}", rois_per_s=f"{b / np.median(ms) * 1e3:.1f}",
             **{f"{k}_ms": f"{v:.3f}" for k, v in split.items()},
             peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
-    return state, step, batch, gen, card
+    return (state, step, batch, gen, card), train_ms
 
 
 def train_split(state, step, batch, gen) -> dict:
@@ -3417,6 +3481,214 @@ def phase_pnp(cfg, split, dets: dict, weights: str, root: str, card: str) -> tup
     return nn_total, raster_total
 
 
+def phase_bench(weights: str, card: str) -> None:
+    """[bench]: python -m gdrnet_tpu_torch.tools.bench's main in this
+    process, as a user runs it: --bf16 on the random-init flagship input
+    assembly at BENCH_BATCH, then the default int8 path on [train_loop]'s
+    checkpoint with the flagship's config. Each line's value finite and
+    above 0, the int8 drift fields finite."""
+    runs = {"bf16": ["--bf16"], "int8_ckpt": ["--ckpt", weights, "--config", FLAGSHIP]}
+    for label, extra in runs.items():
+        t0 = time.perf_counter()
+        rec = bench_tool.main(["--batch", str(BENCH_BATCH), "--iters", str(BENCH_ITERS)] + extra)
+        wall_s = time.perf_counter() - t0
+        if not (np.isfinite(rec["value"]) and rec["value"] > 0):
+            raise AssertionError(f"bench {label}: value {rec['value']}")
+        drift = {k: rec[k] for k in ("int8_rot_drift_deg_mean", "int8_trans_rel_drift_max")
+                 if k in rec}
+        if label != "bf16" and (len(drift) != 2 or not all(np.isfinite(list(drift.values())))):
+            raise AssertionError(f"bench {label}: drift fields {drift}")
+        log("bench", card=repr(card), path=label, batch=BENCH_BATCH, iters=BENCH_ITERS,
+            crops_per_s=rec["value"], vs_baseline=rec["vs_baseline"], ckpt=rec["ckpt"],
+            wall_s=f"{wall_s:.1f}", **drift, check="ok")
+
+
+def phase_bench_train(root: str, card: str, train_ms: dict) -> int:
+    """[bench_train]: tools/bench_train's three legs in this process: the
+    step at BT_BATCH; --with-loader at BT_BATCH with BT_WORKERS threads for
+    BT_LOADER_ITERS iterations over [train_loop]'s split, before [gen_xyz]
+    writes its pickles, so that every sample's XYZ renders on B2 (at least
+    once a sample the loop consumed); --audit at BT_BATCH, its mfu and
+    hbm_frac in (0, 1], its FLOP counts logged beside [train_time]'s step.
+    Returns B2's launches in the loader leg."""
+    (step,) = bench_train_tool.main(["--batch-sizes", str(BT_BATCH), "--iters",
+                                     str(BT_STEP_ITERS)])
+    if not (step["value"] > 0 and np.isfinite(step["loss"])):
+        raise AssertionError(f"bench_train step: {step}")
+    log("bench_train_step", card=repr(card), batch=BT_BATCH, rois_per_s=step["value"],
+        ms_per_step=step["ms_per_step"], train_time_ms=f"{train_ms.get(BT_BATCH, 0):.3f}",
+        loss=step["loss"], check="ok")
+
+    kernels.nn_min_dist.launches = 0
+    kernels.rasterize_xyz.launches = 0
+    (row,) = bench_train_tool.main([
+        "--with-loader", "--config-file", FLAGSHIP, "--data-root", root,
+        "--batch-sizes", str(BT_BATCH), "--workers", str(BT_WORKERS),
+        "--iters", str(BT_LOADER_ITERS), "DATASETS.TRAIN=('loop_train',)"])
+    launches = kernels.rasterize_xyz.launches
+    consumed = (BT_LOADER_ITERS + 2) * BT_BATCH  # the first batch, the warm-up's next, the loop's
+    if launches < consumed or not (row["value"] > 0 and np.isfinite(row["loss"])):
+        raise AssertionError(f"bench_train loader: B2 launched {launches} times for {consumed} "
+                             f"samples; {row}")
+    log("bench_train_loader", card=repr(card), batch=BT_BATCH, workers=BT_WORKERS,
+        iterations=BT_LOADER_ITERS, rois_per_s=row["value"], ms_per_step=row["ms_per_step"],
+        data_ms_per_step=row["data_ms_per_step"], records=row["records"],
+        build_s=row["build_s"], launches_rasterize_xyz=launches,
+        launches_per_sample=f"{launches / consumed:.2f}", check="ok")
+
+    (audit,) = bench_train_tool.main(["--audit", "--batch-sizes", str(BT_BATCH), "--iters",
+                                      str(BT_STEP_ITERS)])
+    if not (0 < audit["mfu"] <= 1 and 0 < audit["hbm_frac"] <= 1):
+        raise AssertionError(f"bench_train audit: mfu {audit['mfu']}, hbm_frac "
+                             f"{audit['hbm_frac']}")
+    log("bench_train_audit", card=repr(card), batch=BT_BATCH,
+        step_gflops=audit["step_gflops"], fwd_gflops=audit["fwd_gflops"],
+        fwd_gflops_on_input=audit["fwd_gflops_on_input"],
+        step_fwd_flop_ratio=audit["step_fwd_flop_ratio"], step_eager_gb=audit["step_eager_gb"],
+        step_aten_ops=audit["step_aten_ops"], ms_per_step=audit["ms_per_step"],
+        train_time_ms=f"{train_ms.get(BT_BATCH, 0):.3f}",
+        achieved_tflops=audit["achieved_tflops"], mfu=audit["mfu"],
+        achieved_hbm_gbs=audit["achieved_hbm_gbs"], hbm_frac=audit["hbm_frac"],
+        peak_bf16_tflops=audit["peak_bf16_tflops"],
+        peak_hbm_gbs=audit["peak_hbm_gbs"], check="ok")
+    return launches
+
+
+EXPORT_CHILD = """
+import sys, time, numpy as np, torch
+t0 = time.perf_counter()
+# the parent's TF32 settings: an exported program records no process flag
+torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
+    flag == "1" for flag in sys.argv[2])
+args = np.load(sys.argv[1])
+for name in sys.argv[3:]:
+    fwd = torch.export.load(name + ".pt2").module()
+    with torch.no_grad():
+        r, t = fwd(*[torch.from_numpy(args[f"arr_{i}"]).cuda() for i in range(8)])
+    np.savez(name + ".out.npz", r=r.float().cpu().numpy(), t=t.float().cpu().numpy())
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("gdrnet_tpu_torch", "gdrnet_tpu"))
+assert not bad, bad
+print(f"EXPORT_CHILD loaded={len(sys.argv) - 3} s={time.perf_counter() - t0:.1f}")
+"""
+
+
+def phase_export(weights: str, root: str, card: str) -> None:
+    """[export]: tools/export_model on the card at EXPORT_BATCH over
+    [train_loop]'s checkpoint, bf16 (the flagship's PARALLEL.DTYPE) and
+    --int8; both artifacts loaded and run in one child process that
+    imports only torch (gdrnet_tpu_torch must not be in its sys.modules)
+    under this process's TF32 settings, while this process runs the serving
+    forwards; the bf16 artifact's poses equal the in-process forward's bit
+    for bit, the int8 one's within the EXPORT_INT8_* rule."""
+    out = Path(root) / "export"
+    t0 = time.perf_counter()
+    metas = {}
+    for label, extra in (("bf16", []), ("int8", ["--int8"])):
+        metas[label] = export_tool.main(["--out", str(out / f"{label}.pt2"), "--ckpt", weights,
+                                         "--config", FLAGSHIP, "--batch", str(EXPORT_BATCH)]
+                                        + extra)
+    export_s = time.perf_counter() - t0
+    cfg = export_tool.export_config(FLAGSHIP)
+    batch = export_tool.export_batch(cfg, EXPORT_BATCH, DEV)
+    np.savez(out / "args.npz", *[batch[k].cpu().numpy() for k in export_tool.ARG_NAMES])
+    t0 = time.perf_counter()
+    tf32 = "".join(str(int(flag)) for flag in (torch.backends.cudnn.allow_tf32,
+                                                torch.backends.cuda.matmul.allow_tf32))
+    proc = subprocess.Popen([sys.executable, "-c", EXPORT_CHILD, str(out / "args.npz"), tf32]
+                            + [str(out / label) for label in metas], cwd=out,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        model = load_weights(build_model(cfg, device=DEV), weights)
+        want = {}
+        for label in metas:
+            with torch.no_grad():
+                rot, trans = export_tool.serving_forward(model, batch, int8=label == "int8")(
+                    *[batch[k] for k in export_tool.ARG_NAMES])
+            want[label] = (rot.float().cpu().numpy(), trans.float().cpu().numpy())
+        stdout, stderr = proc.communicate(timeout=EXPORT_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"export: the torch-only child exited {proc.returncode}\n"
+                             f"{stderr[-3000:]}")
+    for label, meta in metas.items():
+        got = np.load(out / f"{label}.out.npz")
+        r_want, t_want = want[label]
+        deg = rot_deg(got["r"], r_want)
+        t_rel = np.abs(got["t"] - t_want).max(1) / np.maximum(np.abs(t_want).max(1), 1e-3)
+        differ = (got["r"] != r_want).any((1, 2)) | (got["t"] != t_want).any(1)
+        n = int(differ.sum())
+        if n and (label != "int8" or n > EXPORT_INT8_MAX_CROPS
+                  or deg[differ].max() > EXPORT_INT8_MAX_DEG
+                  or t_rel[differ].max() > EXPORT_INT8_TRANS_REL):
+            raise AssertionError(f"export {label}: the loaded program's poses differ from the "
+                                 f"in-process forward at {n} of {len(deg)} crops, by up to "
+                                 f"{deg.max()} degrees, translations {t_rel.max()} relative")
+        log("export", card=repr(card), variant=label, batch=EXPORT_BATCH, int8=meta["int8"],
+            mb=f"{meta['bytes'] / 2**20:.1f}", platforms=",".join(meta["platforms"]),
+            bitwise_equal=not n, crops_differing=n, rot_deg_max=f"{deg.max():.4f}",
+            trans_rel_max=f"{t_rel.max():.3e}", export_s=f"{export_s:.1f}",
+            child_s=f"{child_s:.1f}", child=stdout.strip().splitlines()[-1], check="ok")
+
+
+def phase_strip_ckpt(weights: str, root: str, request: dict) -> None:
+    """[strip_ckpt]: tools/strip_ckpt over [train_loop]'s checkpoint
+    directory; the slim file is smaller, holds only the model and the
+    iteration, and its weights serve the same poses bit for bit."""
+    slim_dir = Path(root) / "ckpt_slim"
+    path = strip_tool.main(["--ckpt-dir", weights, "--out", str(slim_dir)])
+    src = CheckpointManager(weights)
+    src_path = src.path(src.latest_step())
+    slim = torch.load(path, weights_only=True)
+    if set(slim) != {"model", "iteration"} or Path(path).stat().st_size >= Path(
+            src_path).stat().st_size:
+        raise AssertionError(f"strip_ckpt: keys {sorted(slim)}, {Path(path).stat().st_size} "
+                             f"bytes against {Path(src_path).stat().st_size}")
+    cfg = merged_config(FLAGSHIP)
+    batch = to_device(request, DEV)
+    poses = [make_predict_step(load_weights(build_model(cfg, device=DEV), w))(batch)
+             for w in (weights, str(slim_dir))]
+    if not all(torch.equal(poses[0][k], poses[1][k]) for k in ("rot", "trans")):
+        raise AssertionError("strip_ckpt: the slim checkpoint serves other poses")
+    log("strip_ckpt", iteration=slim["iteration"], mb=f"{Path(path).stat().st_size / 2**20:.1f}",
+        source_mb=f"{Path(src_path).stat().st_size / 2**20:.1f}", crops=len(request["roi_img"]),
+        poses_bitwise_equal=True, check="ok")
+
+
+def phase_pvnet(card: str) -> None:
+    """[pvnet]: PVNet-34 (models/pvnet.py, 65 bins, the reference's widths)
+    at PVNET_RES^2 in f32 with TF32 off, seeded: PVNET_CPU_CROPS crops on
+    the card against the CPU within PVNET_REL of each output's scale; then
+    its ms a call at PVNET_BATCH (CUDA events)."""
+    torch.manual_seed(0)
+    net = PVNet(depth=34).eval()
+    x = torch.rand(PVNET_CPU_CROPS, PVNET_RES, PVNET_RES, 3,
+                   generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = net(x)
+            net = net.to(DEV)
+            got = net(x.to(DEV))
+            worst = max(float((g.cpu() - w).abs().max() / w.abs().max().clamp_min(1e-12))
+                        for g, w in zip(got, want))
+            if worst > PVNET_REL or not all(torch.isfinite(g).all() for g in got):
+                raise AssertionError(f"pvnet: card against CPU {worst} of the scale")
+            xb = torch.rand(PVNET_BATCH, PVNET_RES, PVNET_RES, 3, device=DEV)
+            reset_peak()
+            ms = cuda_times(lambda: net(xb), PVNET_TIMED)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    log("pvnet", card=repr(card), depth=34, res=PVNET_RES, dtype="float32", vs="cpu",
+        crops=PVNET_CPU_CROPS, max_rel=f"{worst:.3e}", batch=PVNET_BATCH,
+        ms_median=f"{np.median(ms):.3f}", crops_per_s=f"{PVNET_BATCH / np.median(ms) * 1e3:.1f}",
+        peak_mem_gib=f"{peak_gib():.2f}", check="ok")
+
+
 def check_rotations(R: np.ndarray, where: str) -> None:
     if not np.all(np.isfinite(R)):
         raise AssertionError(f"{where}: non-finite rotations")
@@ -3559,7 +3831,7 @@ def main() -> int:
         raster_launches, scored = phase_bop_score(cfg, split, R, t, root)
         del model, m32, predict
         phase_train_f32(cfg32, state_dict)
-        train = phase_train(cfg, state_dict, card)
+        train, train_ms = phase_train(cfg, state_dict, card)
         loop_launches, loader_rate = phase_train_loop(cfg, state_dict, gsd, root, card)
         ckpt = str(Path(root) / "train_out" / "ckpt")
         dets = write_detections(split, str(Path(root) / "est_dets.json"))
@@ -3569,6 +3841,7 @@ def main() -> int:
         pnp_launches = phase_pnp(cfg, split, dets, ckpt, root, card)
         # before [gen_xyz] writes the train split's pickles: its XYZ renders on B2
         tv_launches = phase_train_variant(root, dets, card)
+        bt_launches = phase_bench_train(root, card, train_ms)
         ddp_launches = phase_ddp(cfg, split, dets, ckpt, tested, root, card)
         overfit = phase_overfit(gsd, root, card)
         phase_render_attr(gsd)
@@ -3584,6 +3857,10 @@ def main() -> int:
         lmo_launches = phase_train_lmo(gsd, root, card, loader_rate)
         phase_variants(card)
         phase_solvers(state_dict, card)
+        phase_bench(ckpt, card)
+        phase_export(ckpt, root, card)
+        phase_strip_ckpt(ckpt, root, requests[0])
+        phase_pvnet(card)
         phase_profile(cfg, split, scored, raster_timed, train, serving)
     test_launches = tested[2]
 
@@ -3599,7 +3876,7 @@ def main() -> int:
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:140",
          "launches": raster_launches + loop_launches + test_launches[1] + gen_launches
          + csv_launches[1] + xyz_launches + lmo_launches[1] + tv_launches[1] + pnp_launches[1]
-         + ddp_launches[1],
+         + ddp_launches[1] + bt_launches,
          **raster_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

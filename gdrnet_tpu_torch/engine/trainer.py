@@ -41,6 +41,7 @@ does with DEVICE_COLOR_AUG off, and warns once.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import os.path as osp
 import signal
@@ -56,6 +57,7 @@ from gdrnet_tpu_torch.data.mapper import GDRNTrainMapper
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.engine.checkpoint import CheckpointManager, init_model_weights
 from gdrnet_tpu_torch.engine.decode import get_out_coor, get_out_mask
+from gdrnet_tpu_torch.engine import profiling
 from gdrnet_tpu_torch.engine.precise_bn import update_bn_stats
 from gdrnet_tpu_torch.engine.steps import (
     _autocast,
@@ -302,24 +304,17 @@ def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir,
     skipped_boundaries = 0  # consecutive print boundaries with a skip
 
     def stop_profiler():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        prof.stop()
-        os.makedirs(prof_dir, exist_ok=True)
-        rank = mh.get_rank()
-        path = osp.join(prof_dir, f"trace.rank{rank}.json" if rank else "trace.json")
-        prof.export_chrome_trace(path)
-        logger.info(f"profiler trace written to {path}")
+        prof.close()  # engine/profiling.trace writes the trace as it exits
+        logger.info(f"profiler trace written to {osp.join(prof_dir, trace_name)}")
 
     try:
         for it in range(start_iter, total_iters):
             # profiler window: trace a few steady-state iters (TRAIN.PROFILE_*)
             if prof_dir and it == cfg.TRAIN.PROFILE_START and prof is None:
-                acts = [torch.profiler.ProfilerActivity.CPU]
-                if device.type == "cuda":
-                    acts.append(torch.profiler.ProfilerActivity.CUDA)
-                prof = torch.profiler.profile(activities=acts)
-                prof.start()
+                rank = mh.get_rank()
+                trace_name = f"trace.rank{rank}.json" if rank else "trace.json"
+                prof = contextlib.ExitStack()
+                prof.enter_context(profiling.trace(prof_dir, device, trace_name))
             if prof is not None and it == cfg.TRAIN.PROFILE_STOP:
                 stop_profiler()
                 prof, prof_dir = None, ""

@@ -1,5 +1,30 @@
 """Offline tools of the port, run as `python -m gdrnet_tpu_torch.tools.<name>`:
-bench_pnp, compute_fps, eval_csv, gen_scale_dataset, gen_xyz and predict
-(the counterparts of the repository's tools/*.py)."""
+bench (serving crops/s), bench_pnp, bench_train (the train step, the
+loader and the FLOP audit), compute_fps, dryrun_multichip, eval_csv,
+export_model (torch.export of the serving forward), gen_det_fuse,
+gen_scale_dataset, gen_test_targets, gen_xyz, predict and strip_ckpt (the
+counterparts of the repository's bench.py and tools/*.py)."""
 
-__all__ = ["bench_pnp", "compute_fps", "eval_csv", "gen_scale_dataset", "gen_xyz", "predict"]
+from __future__ import annotations
+
+import torch
+
+__all__ = ["bench", "bench_pnp", "bench_train", "compute_fps", "dryrun_multichip", "eval_csv",
+           "export_model", "gen_det_fuse", "gen_scale_dataset", "gen_test_targets", "gen_xyz",
+           "predict", "strip_ckpt"]
+
+
+class NoCardError(SystemExit, RuntimeError):
+    """A tool was asked for the card where there is none: the process exits
+    with the message, as a SystemExit does; a caller may catch it as a
+    RuntimeError."""
+
+
+def entry_device(tool: str, device) -> torch.device:
+    """The device a tool runs on; raises NoCardError, whose message names
+    --device cpu, when it is a CUDA device and no card is available."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise NoCardError(f"gdrnet_tpu_torch.tools.{tool}: no CUDA card is available "
+                          "(torch.cuda.is_available() is false); pass --device cpu")
+    return device

@@ -28,6 +28,7 @@ import torch
 from gdrnet_tpu_torch.data.synthetic import synthetic_decoded_maps
 from gdrnet_tpu_torch.eval.pnp import correspondences_from_maps, pnp_ransac
 from gdrnet_tpu_torch.ops.device_pnp import MODES, pnp_from_maps_batch
+from gdrnet_tpu_torch.tools import entry_device
 
 
 def host_rate(maps: tuple) -> float:
@@ -109,10 +110,8 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--skip-host", action="store_true")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = p.parse_args(argv)
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("gdrnet_tpu_torch.tools.bench_pnp: no CUDA card is available "
-                         "(torch.cuda.is_available() is false); pass --device cpu")
-    rows = run(args.batch, args.iters, args.modes, not args.skip_host, args.device)
+    rows = run(args.batch, args.iters, args.modes, not args.skip_host,
+               entry_device("bench_pnp", args.device))
     for row in rows:
         print(json.dumps(row), flush=True)
     return rows

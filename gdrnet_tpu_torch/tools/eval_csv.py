@@ -31,6 +31,7 @@ from gdrnet_tpu_torch.eval.bop_score import bop19_average_recall, score_results
 from gdrnet_tpu_torch.eval.bop_writer import load_bop_results
 from gdrnet_tpu_torch.eval.custom_evaluator import plain_table
 from gdrnet_tpu_torch.eval.report import write_latex_report
+from gdrnet_tpu_torch.tools import entry_device
 
 
 def parse_args(argv=None):
@@ -65,10 +66,7 @@ def score_table(scores: dict) -> str:
 def main(argv=None, device="cuda") -> dict:
     """Prints the table and returns the scores; `device` unless --device names one."""
     args = parse_args(argv)
-    device = torch.device(args.device or device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("gdrnet_tpu_torch.tools.eval_csv: no CUDA card is available "
-                           "(torch.cuda.is_available() is false); pass --device cpu")
+    device = entry_device("eval_csv", args.device or device)
     meta = ref_meta.meta_by_name(args.dataset, args.data_root)
     gts = load_bop_scene_dicts(meta, args.split, with_masks=False, with_xyz=False)
     models = ObjectModels(meta)

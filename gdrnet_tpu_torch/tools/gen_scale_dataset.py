@@ -46,6 +46,7 @@ from gdrnet_tpu_torch.data.ply import save_ply
 from gdrnet_tpu_torch.data.scene_renderer import random_rotation
 from gdrnet_tpu_torch.ops import kernels
 from gdrnet_tpu_torch.ops.rasterizer import render_phong_xyz_roi_many, window_origin
+from gdrnet_tpu_torch.tools import entry_device
 from gdrnet_tpu_torch.tools.compute_fps import compute_fps_dict
 
 W_DEF, H_DEF = 640, 480
@@ -561,12 +562,9 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="where the renders run: cuda (the default) or cpu")
     args = p.parse_args(argv)
-    device = torch.device(args.device)
     # thousands of renders: without the card, stop here rather than fall
     # back to the host
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("gen_scale_dataset: no CUDA card is available "
-                           "(torch.cuda.is_available() is false); pass --device cpu")
+    device = entry_device("gen_scale_dataset", args.device)
 
     zoo = mesh_zoo()
     colors = _object_colors(len(zoo))

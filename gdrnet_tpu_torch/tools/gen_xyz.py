@@ -34,6 +34,7 @@ from gdrnet_tpu_torch.data import ref_meta
 from gdrnet_tpu_torch.data.ply import load_ply
 from gdrnet_tpu_torch.ops import kernels
 from gdrnet_tpu_torch.ops.rasterizer import render_xyz, render_xyz_roi_many, xyz_crop_from_render
+from gdrnet_tpu_torch.tools import entry_device
 
 TILES = (128, 256)
 
@@ -139,10 +140,7 @@ def main(argv=None, device="cuda") -> int:
     p.add_argument("--device", default=None,
                    help="where the renders run: cuda (the default) or cpu")
     args = p.parse_args(argv)
-    device = torch.device(args.device or device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("gdrnet_tpu_torch.tools.gen_xyz: no CUDA card is available "
-                           "(torch.cuda.is_available() is false); pass --device cpu")
+    device = entry_device("gen_xyz", args.device or device)
     meta = ref_meta.meta_by_name(args.dataset, args.data_root)
     before = kernels.rasterize_attr.launches
     n = gen_split_xyz(meta, args.split, args.scenes, args.overwrite, args.chunk, device)

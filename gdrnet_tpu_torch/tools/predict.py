@@ -52,6 +52,7 @@ from gdrnet_tpu_torch.engine.pnp_refine import refine_bucket_poses
 from gdrnet_tpu_torch.engine.tester import _to_device, bucket_predictor, check_supported
 from gdrnet_tpu_torch.eval.bop_writer import save_bop_results
 from gdrnet_tpu_torch.models.gdrn import build_model
+from gdrnet_tpu_torch.tools import entry_device
 
 
 def parse_args(argv=None):
@@ -86,10 +87,7 @@ def _rgb_path(image_root: str, scene_id: int, im_id: int) -> str:
 def main(argv=None, device="cuda") -> list[dict]:
     """Writes the CSV and returns its rows; `device` unless --device names one."""
     args = parse_args(argv)
-    device = torch.device(args.device or device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("gdrnet_tpu_torch.tools.predict: no CUDA card is available "
-                           "(torch.cuda.is_available() is false); pass --device cpu")
+    device = entry_device("predict", args.device or device)
     cfg = Config(merge_dict(base_config().to_dict(), load_config(args.config_file).to_dict()))
     if args.opts:
         apply_opts(cfg, args.opts)

@@ -23,6 +23,12 @@ conv0_a's input width); trans_head/conv<i> -> trans_head_net.features.<3i>
 package's torch_convert reads the reference; the point heads' Dense layers
 keep their names (pnp_net.conv1, ..., pnp_net.fc_pose); the MTL
 log-variances log_var_<name> keep theirs.
+
+PVNet (models/pvnet.py) has its own: pvnet_jax_to_torch maps conv1 / bn1
+and layer<s>_<b>/{convK, bnK, downsample, downsample_bn} into
+resnet<depth>_8s.{conv1, bn1, layer<s>.<b>.{convK, bnK, downsample.0 / .1}},
+fc_conv / fc_bn into resnet<depth>_8s.fc.{0,1}, conv8s / conv4s / conv2s /
+convraw _conv / _bn into <name>.{0,1}, and head into head.
 """
 
 from __future__ import annotations
@@ -192,6 +198,45 @@ def jax_to_torch(params: dict, batch_stats: dict | None = None,
         key, kind = module_key(path[:-1])
         name = {"mean": "running_mean", "var": "running_var"}[path[-1]]
         out[f"{key}.{name}"] = torch.from_numpy(v.copy())
+        out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return out
+
+
+def _pvnet_key(path: tuple[str, ...], depth: int) -> tuple[str, str]:
+    """A flax module path of the JAX PVNet -> (the port's module name, kind)."""
+    trunk = f"resnet{depth}_8s"
+    top = path[0]
+    if top in ("conv1", "bn1"):
+        return f"{trunk}.{top}", "conv" if top == "conv1" else "bn"
+    if top.startswith("layer"):  # layer<s>_<b>/{conv1,bn1,conv2,bn2,downsample,downsample_bn}
+        stage, block = top[5:].split("_")
+        sub = {"downsample": "downsample.0", "downsample_bn": "downsample.1"}.get(path[1], path[1])
+        return f"{trunk}.layer{stage}.{block}.{sub}", "bn" if "bn" in path[1] else "conv"
+    if top == "head":
+        return "head", "conv"
+    name, _, part = top.rpartition("_")  # fc_conv, conv8s_bn, ...
+    seq = f"{trunk}.fc" if name == "fc" else name
+    return f"{seq}.{0 if part == 'conv' else 1}", part
+
+
+def pvnet_jax_to_torch(params: dict, batch_stats: dict | None = None,
+                       depth: int = 18) -> dict[str, torch.Tensor]:
+    """gdrnet_tpu PVNet (params, batch_stats) -> the port's PVNet state_dict
+    (models/pvnet.py's keys); BatchNorm layers also get num_batches_tracked
+    = 0, so the result loads with strict=True."""
+    out: dict[str, torch.Tensor] = {}
+    for path, v in _leaves(params):
+        key, kind = _pvnet_key(path[:-1], depth)
+        if path[-1] == "kernel":
+            out[f"{key}.weight"] = torch.from_numpy(np.ascontiguousarray(_conv_w(v)))
+        elif path[-1] in ("scale", "bias"):
+            out[f"{key}.{'weight' if path[-1] == 'scale' else 'bias'}"] = torch.from_numpy(v.copy())
+        else:
+            raise KeyError(f"unknown param field: {'/'.join(path)}")
+    for path, v in _leaves(batch_stats or {}):
+        key, _ = _pvnet_key(path[:-1], depth)
+        out[f"{key}.{ {'mean': 'running_mean', 'var': 'running_var'}[path[-1]]}"] = \
+            torch.from_numpy(v.copy())
         out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return out
 

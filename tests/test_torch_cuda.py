@@ -736,3 +736,119 @@ def test_dryrun_multichip_on_the_card(cuda_device):
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1].split(" ", 1)[1])
     assert res["ok"] and res["device"] == "cuda" and res["ranks_equal"]
+
+
+# ---------------------------------------------------------------------------
+# the bench leg and the serving tools on the card (plain PyTorch, no kernel
+# of their own)
+# ---------------------------------------------------------------------------
+
+SMALL_TOOL_CFG = (
+    "MODEL = dict(CDPN=dict(BACKBONE=dict(NUM_LAYERS=18, INPUT_RES=64, OUTPUT_RES=16),\n"
+    "    ROT_HEAD=dict(NUM_FILTERS=32, NUM_REGIONS=8),\n"
+    "    PNP_NET=dict(PNP_HEAD_CFG=dict(featdim=32), NUM_PM_POINTS=300)))\n")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", [["--bf16"], []])
+def test_bench_on_the_card_prints_its_line(cuda_device, tmp_path, path):
+    from gdrnet_tpu_torch.tools import bench
+
+    (tmp_path / "cfg.py").write_text(SMALL_TOOL_CFG)
+    rec = bench.main(["--config", str(tmp_path / "cfg.py"), "--batch", "64", "--iters", "3"]
+                     + path)
+    assert rec["metric"] == "roi_pose_crops_per_sec_per_chip" and rec["value"] > 0
+    if not path:
+        assert np.isfinite(rec["int8_rot_drift_deg_mean"])
+        assert np.isfinite(rec["int8_trans_rel_drift_max"])
+
+
+@pytest.mark.cuda
+def test_bench_train_audit_on_the_card_gives_shares_of_the_peaks(cuda_device, monkeypatch):
+    """The audit's mfu and hbm_frac on the card lie in (0, 1], beside the
+    card's name and power limit."""
+    from gdrnet_tpu_torch.tools import bench_train
+
+    plain = bench_train.step_config
+
+    def small():
+        cfg = plain()
+        net = cfg.MODEL.CDPN
+        net.BACKBONE.NUM_LAYERS, net.BACKBONE.INPUT_RES, net.BACKBONE.OUTPUT_RES = 18, 64, 16
+        net.ROT_HEAD.NUM_FILTERS, net.PNP_NET.PNP_HEAD_CFG.featdim = 32, 32
+        net.PNP_NET.NUM_PM_POINTS = 300
+        return cfg
+
+    monkeypatch.setattr(bench_train, "step_config", small)
+    (row,) = bench_train.main(["--audit", "--batch-sizes", "32", "--iters", "3"])
+    assert 0 < row["mfu"] <= 1 and 0 < row["hbm_frac"] <= 1 and row["backend"] == "cuda"
+    assert row["card"] == torch.cuda.get_device_name(0) and row["power_limit"]
+    (step,) = bench_train.main(["--batch-sizes", "32", "--iters", "3"])
+    assert step["value"] > 0 and np.isfinite(step["loss"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_export_on_the_card_loads_in_a_torch_only_process(cuda_device, tmp_path, int8):
+    """The artifact exported on the card (bf16 autocast, or int8 on
+    torch._int_mm) runs in a child process that imports only torch, and
+    gives the in-process forward's poses bit for bit, under the same TF32
+    settings (at this size and seed no int8 input sits on a rounding
+    half-way point; chip_smoke.py's EXPORT_INT8_* rule is for the flagship's
+    trained weights)."""
+    from gdrnet_tpu_torch.tools import export_model
+
+    (tmp_path / "cfg.py").write_text(SMALL_TOOL_CFG + "PARALLEL = dict(DTYPE='bfloat16')\n")
+    out = str(tmp_path / "m.pt2")
+    export_model.main(["--out", out, "--config", str(tmp_path / "cfg.py"), "--batch", "32"]
+                      + (["--int8"] if int8 else []))
+    cfg = export_model.export_config(str(tmp_path / "cfg.py"))
+    from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
+
+    model = init_weights(build_model(cfg, device="cuda"), torch.Generator().manual_seed(0))
+    batch = export_model.export_batch(cfg, 32, "cuda")
+    with torch.no_grad():
+        rot, trans = export_model.serving_forward(model, batch, int8=int8)(
+            *[batch[k] for k in export_model.ARG_NAMES])
+    np.savez(tmp_path / "args.npz", *[batch[k].cpu().numpy() for k in export_model.ARG_NAMES])
+    child = (  # under this process's TF32 settings: an exported program records none
+        "import sys, numpy as np, torch\n"
+        f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}\n"
+        f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}\n"
+        f"fwd = torch.export.load({out!r}).module()\n"
+        f"a = np.load({str(tmp_path / 'args.npz')!r})\n"
+        "with torch.no_grad():\n"
+        "    r, t = fwd(*[torch.from_numpy(a[f'arr_{i}']).cuda() for i in range(8)])\n"
+        "assert 'gdrnet_tpu_torch' not in sys.modules\n"
+        f"np.savez({str(tmp_path / 'out.npz')!r}, r=r.float().cpu().numpy(), "
+        "t=t.float().cpu().numpy())\n")
+    proc = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True,
+                          timeout=300, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = np.load(tmp_path / "out.npz")
+    assert np.array_equal(got["r"], rot.float().cpu().numpy())
+    assert np.array_equal(got["t"], trans.float().cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_pvnet_on_the_card_equals_the_cpu(cuda_device):
+    """PVNet-34 at 64x64 in f32 with TF32 off: every output within 1e-3 of
+    the CPU's."""
+    from gdrnet_tpu_torch.models import PVNet
+
+    net = PVNet(depth=34)
+    for p in net.parameters():
+        p.data.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(p.numel()))
+    net.eval()
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = net(x)
+            got = net.to(cuda_device)(x.to(cuda_device))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-3, rtol=1e-3)

@@ -301,7 +301,10 @@ def test_port_imports_no_jax():
         "for mod in ('utils.fold_bn', 'models.quantize', 'eval.pose_matching', 'eval.report',\n"
         "            'data.jpeg', 'data.jpeg_cases', 'data.render_dataset',\n"
         "            'models.point_pnp_net', 'engine.precise_bn', 'parallel.multihost',\n"
-        "            'parallel.mesh', 'parallel.sync_bn', 'tools.dryrun_multichip'):\n"
+        "            'parallel.mesh', 'parallel.sync_bn', 'tools.dryrun_multichip',\n"
+        "            'engine.profiling', 'tools.bench', 'tools.bench_train', 'tools.export_model',\n"
+        "            'tools.strip_ckpt', 'tools.gen_test_targets', 'tools.gen_det_fuse',\n"
+        "            'models.pvnet'):\n"
         "    assert 'gdrnet_tpu_torch.' + mod in names, names\n"
         "from gdrnet_tpu_torch import merged_config\n"
         f"merged_config({FLAGSHIP!r})\n"
