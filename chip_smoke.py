@@ -50,8 +50,10 @@ nearest-neighbour kernel, VSD on the z-buffer kernel), and training with
 TRAIN.VIS_IMG. Then data parallelism ([ddp]): the engine.train CLI under
 python -m torch.distributed.run as one NCCL rank (train, then --eval-only
 on its checkpoint), and two gloo ranks on the one card (a DDP train step
-of the flagship against one process, then do_test sharded over the ranks
-against [do_test]'s one process). Then the bench leg and the serving tools,
+of the flagship against one process, then the model axis: the flagship
+tensor-sharded over the two ranks as a (1, 2) grid, its steps, gathered
+gradients, checkpoint and resume against one process, then do_test sharded
+over the ranks against [do_test]'s one process). Then the bench leg and the serving tools,
 each tool's main called in this process as `python -m` calls it:
 [bench_train] (tools/bench_train.py: the train step, the loader leg over
 the train loop's split, whose XYZ renders on the z-buffer kernel, and the
@@ -371,6 +373,16 @@ DDP_BATCH, DDP_STEPS, DDP_TIMEOUT_S, DDP_CLI_TIMEOUT_S, DDP_CLI_ITERS = 32, 3, 3
 # two runs are two states a rounding apart, held by the loss terms and the
 # ranks' equal BN buffers
 DDP_GRAD_ALL_REL, DDP_GRAD_TENSOR_REL = 5e-3, 0.05
+# (b)'s model axis, in the same two ranks after their DDP steps: the flagship
+# at PARALLEL.MODEL_PARALLEL=2 on a (1, 2) grid, MP_STEPS f32 steps at a global
+# MP_BATCH against one process: the loss terms within TRAIN_LOSS_RTOL at each
+# step, the first step's gathered gradients within the DDP_GRAD_* bounds, the
+# replicated parameters bitwise equal on both ranks, pnp_net.fc1.weight held
+# as [512, 8192], a rank's parameters and optimizer state at most MP_BYTES_SHARE
+# of one process's (17,684,174 of 35,054,094 values: 0.5045), the gathered
+# checkpoint one process's keys and shapes, and its resume the ranks' slices
+MP_BATCH, MP_STEPS, MP_BYTES_SHARE = 8, 3, 0.51
+MP_FC1_SHAPE = (512, 8192)
 
 # the PnP slice: (a) ops/device_pnp.pnp_from_maps_batch on the card against the
 # CPU with the same minimal sets, on synthetic_decoded_maps of PNP_B ROIs at
@@ -3055,8 +3067,9 @@ def ddp_rank_child(argv: list) -> None:
     `go` file (written once the card is free of leg (a) and of the
     one-process run; "abort" ends it). Then it takes DDP_STEPS f32 train
     steps on its rows of the global batches, times a
-    gradient-sized all_reduce and runs do_test sharded over the ranks;
-    pickles what it measured beside the job."""
+    gradient-sized all_reduce, runs the model-axis leg (model_axis_rank) and
+    do_test sharded over the ranks; pickles what it measured beside the
+    job."""
     import argparse
     import hashlib
 
@@ -3121,6 +3134,8 @@ def ddp_rank_child(argv: list) -> None:
         ms.append((time.perf_counter() - t0) * 1e3)
     out["allreduce_ms"] = float(np.median(ms[1:]))
     out["allreduce_mb"] = flat.numel() * 4 / 2 ** 20
+    del res
+    out["model_axis"] = model_axis_rank(job, cfg32, state_dict, args.rank)
     out["parts_s"]["to_test"] = time.perf_counter() - t_go
     # the sharded test
     c = merged_config(FLAGSHIP)
@@ -3141,13 +3156,75 @@ def ddp_rank_child(argv: list) -> None:
         pickle.dump(out, f)
 
 
+def state_bytes(model: torch.nn.Module, optimizer) -> int:
+    """Bytes of the model's parameters and of its optimizer's state (every
+    per-parameter tensor and the shared counters), as this process holds
+    them."""
+    tensors = list(model.parameters()) + [
+        v for st in optimizer.state.values() for v in st.values() if torch.is_tensor(v)]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def model_axis_rank(job: dict, cfg32, state_dict: dict, rank: int) -> dict:
+    """[ddp] (b)'s model-axis leg on one of the two gloo ranks: MP_STEPS f32
+    steps of the flagship on a (1, 2) grid (tools/dryrun_multichip.
+    train_steps: the model sharded, the optimizer over its slices), the
+    gathered checkpoint written and resumed onto the grid. Returns the
+    rank's terms, step ms, slices' shapes, replicated parameters' digest,
+    bytes, the first step's gradients against one process's (rank 0) and
+    whether the resume gave its slices back bit for bit."""
+    import hashlib
+
+    from gdrnet_tpu_torch.engine.train_state import create_train_state
+    from gdrnet_tpu_torch.parallel import tensor_parallel
+    from gdrnet_tpu_torch.solver.optimizers import build_optimizer
+
+    t0 = time.perf_counter()
+    cfg = merged_config(FLAGSHIP)
+    cfg.PARALLEL.DTYPE, cfg.PARALLEL.MODEL_PARALLEL = "float32", 2
+    batches = [train_batch(cfg, MP_BATCH, seed=s) for s in job["mp_seeds"]]
+    res = train_steps(cfg, state_dict, batches, device=DEV, keep_steps=True)
+    model, opt = res["model"], res["optimizer"]
+    sharded = {f"{n}.weight" for n, _ in tensor_parallel.sharded_modules(model)}
+    replicated = [p for k, p in model.named_parameters() if k not in sharded]
+    out = {"metrics": res["metrics"], "step_ms": res["step_ms"],
+           "fc1": tuple(model.pnp_net.fc1.weight.shape), "sharded": len(sharded),
+           "bytes": state_bytes(model, opt), "grid": (mh.data_size(), mh.model_size()),
+           "replicated": hashlib.sha256(b"".join(
+               p.detach().cpu().numpy().tobytes() for p in replicated)).hexdigest()}
+    if rank == 0:
+        ref = torch.load(job["mp_ref_path"], weights_only=True)
+        names = [k for k, _ in model.named_parameters()]
+        sizes = [res["state"][k].numel() for k in names]  # the parameters' whole sizes
+        got = dict(zip(names, res["grads"][0].split(sizes)))
+        want = dict(zip(names, ref.split(sizes)))
+        per = {k: rel_l2(got[k], want[k]) for k in names}
+        worst = max(per, key=per.get)
+        out["grads"] = {"all": rel_l2(res["grads"][0], ref), "worst": worst,
+                        "worst_rel": per[worst]}
+    t_ckpt = time.perf_counter()
+    state = create_train_state(model, opt)
+    CheckpointManager(job["mp_ckpt"]).save(state, MP_STEPS)
+    fresh = tensor_parallel.shard_model(build_model(cfg, device=DEV))
+    fresh_opt = build_optimizer(cfg, fresh)
+    CheckpointManager(job["mp_ckpt"]).resume_or_load(create_train_state(fresh, fresh_opt))
+    local, back = opt.state_dict()["state"], fresh_opt.state_dict()["state"]
+    out["resume_bitwise"] = all(
+        torch.equal(v, fresh.state_dict()[k]) for k, v in model.state_dict().items()) and \
+        local.keys() == back.keys() and all(
+            torch.equal(v, back[i][n]) for i, st in local.items() for n, v in st.items())
+    out.update(ckpt_s=time.perf_counter() - t_ckpt, leg_s=time.perf_counter() - t0)
+    mh.set_model_parallel(1)  # the sharded test that follows runs on the plain world
+    return out
+
+
 def phase_ddp(cfg, split, dets: dict, weights: str, tested: tuple, root: str,
               card: str) -> tuple[int, int]:
     """[ddp]: data-parallel training and sharded testing, (a) one NCCL rank
     through the CLI (ddp_nccl), (b) two gloo ranks on the one card
-    (ddp_gloo). (b)'s rank processes start with (a) and build their model,
-    then wait for the card before their timed work. Returns their (B1, B2)
-    launches."""
+    (ddp_gloo; after their DDP steps the model axis, model_axis_rank). (b)'s
+    rank processes start with (a) and build their model, then wait for the
+    card before their timed work. Returns their (B1, B2) launches."""
     t0 = time.perf_counter()
     job: dict = {}
     try:
@@ -3233,6 +3310,8 @@ def start_gloo_ranks(cfg, split, dets: dict, weights: str, root: str) -> dict:
     job_dir.mkdir()
     job = {"seeds": [300 + i for i in range(DDP_STEPS)], "init_path": str(job_dir / "init.pt"),
            "ref_path": str(job_dir / "ref_grads.pt"), "go": str(job_dir / "go"),
+           "mp_seeds": [350 + i for i in range(MP_STEPS)],
+           "mp_ref_path": str(job_dir / "mp_ref_grads.pt"), "mp_ckpt": str(job_dir / "mp_ckpt"),
            "test_opts": [f"PARALLEL.DTYPE={cfg.PARALLEL.DTYPE!r}",
                          f"DATASETS.DET_FILES_TEST=({dets['path']!r},)"],
            "meta": split["models"].meta, "records": split["records"], "weights": weights,
@@ -3270,10 +3349,12 @@ def ddp_gloo(cfg, split, dets: dict, tested: tuple, job: dict, card: str) -> tup
     DDP_BATCH from the same weights and batches: every loss term of every
     step within TRAIN_LOSS_RTOL, the first step's gradients within
     DDP_GRAD_ALL_REL overall and DDP_GRAD_TENSOR_REL a tensor, every BN
-    buffer equal on both ranks. Then do_test sharded over the ranks against
-    [do_test]'s one process: the same rows and keys, recalls equal but for
-    counted threshold flips, B1 on each rank, B2 on rank 0. The ranks share
-    one card: their step times are no scaling figure. Returns (B1, B2)
+    buffer equal on both ranks. Then the model axis's gates
+    (model_axis_gates) against one process's MP_STEPS at MP_BATCH, run here
+    before the go. Then do_test sharded over the ranks against [do_test]'s
+    one process: the same rows and keys, recalls equal but for counted
+    threshold flips, B1 on each rank, B2 on rank 0. The ranks share one
+    card: their step times are no scaling figure. Returns (B1, B2)
     launches."""
     torch.backends.cudnn.allow_tf32 = False  # f32 as the ranks run it
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3286,7 +3367,16 @@ def ddp_gloo(cfg, split, dets: dict, tested: tuple, job: dict, card: str) -> tup
                       [train_batch(cfg32, DDP_BATCH, seed=s) for s in job["seeds"]],
                       device=DEV, keep_steps=True)
     torch.save(one["grads"][:1], job["ref_path"])  # the first step's
-    del one["grads"], one["states"]
+    del one["grads"], one["states"], one["model"], one["optimizer"]
+    one_mp = train_steps(cfg32, job["state_dict"],  # the model axis's one process
+                         [train_batch(cfg32, MP_BATCH, seed=s) for s in job["mp_seeds"]],
+                         device=DEV, keep_steps=True)
+    torch.save(one_mp["grads"][0], job["mp_ref_path"])
+    one_mp.update(bytes=state_bytes(one_mp["model"], one_mp["optimizer"]),
+                  opt_shapes={i: {n: tuple(v.shape) for n, v in st.items()} for i, st in
+                              one_mp["optimizer"].state_dict()["state"].items()})
+    for k in ("grads", "states", "model", "optimizer"):
+        del one_mp[k]
     torch.cuda.empty_cache()
     c = test_cfg(cfg, dets)
     t0 = time.perf_counter()
@@ -3327,6 +3417,7 @@ def ddp_gloo(cfg, split, dets: dict, tested: tuple, job: dict, card: str) -> tup
             r1["b1"] < 1 or r0["b2"] < 1:
         raise AssertionError(f"ddp do_test: rank 1 wrote a CSV or scored BOP, or launches "
                              f"B1 {r0['b1']}, {r1['b1']}, B2 {r0['b2']}, {r1['b2']}")
+    model_axis_gates(ranks, one_mp, job, card)
     flips = threshold_flips(c, rows_b, want_rows, split["records"], split["models"])
     differ = recalls_differ("ddp do_test", res_b, want, flips)
     one_ms = np.median(one["step_ms"][1:])
@@ -3356,6 +3447,55 @@ def ddp_gloo(cfg, split, dets: dict, tested: tuple, job: dict, card: str) -> tup
             **r0["parts_s"]),
         check="ok")
     return r0["b1"] + r1["b1"], r0["b2"] + r1["b2"]
+
+
+def model_axis_gates(ranks: list, one: dict, job: dict, card: str) -> None:
+    """[ddp] (b)'s model-axis leg against one process (MP_* above); logs
+    `ddp_model_axis`."""
+    mp = [r["model_axis"] for r in ranks]
+    if [m["grid"] for m in mp] != [(1, 2)] * 2 or mp[0]["metrics"] != mp[1]["metrics"]:
+        raise AssertionError(f"ddp model axis: grids {[m['grid'] for m in mp]}, or the ranks' "
+                             "logged terms differ")
+    loss_rel = 0.0
+    for i, (g, w) in enumerate(zip(mp[0]["metrics"], one["metrics"])):
+        for k in w:
+            np.testing.assert_allclose(g[k], w[k], rtol=TRAIN_LOSS_RTOL, atol=1e-6,
+                                       err_msg=f"ddp model axis step {i} {k}")
+            loss_rel = max(loss_rel, abs(g[k] - w[k]) / max(abs(w[k]), 1e-12))
+    g = mp[0]["grads"]
+    if g["all"] > DDP_GRAD_ALL_REL or g["worst_rel"] > DDP_GRAD_TENSOR_REL:
+        raise AssertionError(f"ddp model axis: the first step's gradients {g}")
+    share = [m["bytes"] / one["bytes"] for m in mp]
+    if mp[0]["replicated"] != mp[1]["replicated"] or any(
+            m["fc1"] != MP_FC1_SHAPE for m in mp) or max(share) > MP_BYTES_SHARE:
+        raise AssertionError(f"ddp model axis: replicated parameters equal "
+                             f"{mp[0]['replicated'] == mp[1]['replicated']}, fc1 "
+                             f"{[m['fc1'] for m in mp]}, bytes share {share}")
+    step = max(CheckpointManager(job["mp_ckpt"]).steps())
+    saved = torch.load(CheckpointManager(job["mp_ckpt"]).path(step), map_location="cpu",
+                       weights_only=True, mmap=True)
+    shapes = [(k, tuple(v.shape)) for k, v in saved["model"].items()]
+    opt_shapes = {i: {n: tuple(v.shape) for n, v in st.items()}
+                  for i, st in saved["optimizer"]["state"].items()}
+    if shapes != [(k, tuple(v.shape)) for k, v in one["state"].items()] or \
+            opt_shapes != one["opt_shapes"] or not all(m["resume_bitwise"] for m in mp):
+        raise AssertionError(f"ddp model axis: the checkpoint's keys or shapes differ from one "
+                             f"process's, or its resume {[m['resume_bitwise'] for m in mp]}")
+    log("ddp_model_axis", card=repr(card), backend="gloo", ranks="2 on one card", grid="1x2",
+        dtype="float32", global_batch=MP_BATCH, steps=MP_STEPS,
+        sharded_weights=mp[0]["sharded"], fc1_local=",".join(map(str, mp[0]["fc1"])),
+        loss_max_rel=f"{loss_rel:.3e}", step1_grad_all_rel_l2=f"{g['all']:.3e}",
+        step1_grad_worst_rel_l2=f"{g['worst_rel']:.3e}", step1_grad_worst_tensor=g["worst"],
+        replicated="bitwise equal on both ranks",
+        state_bytes_share=",".join(f"{x:.4f}" for x in share),
+        state_mib=",".join(f"{m['bytes'] / 2 ** 20:.1f}" for m in mp),
+        one_process_state_mib=f"{one['bytes'] / 2 ** 20:.1f}",
+        checkpoint="one process's keys and shapes", resume="bitwise",
+        rank_step_ms=",".join(f"{np.median(m['step_ms'][1:]):.1f}" for m in mp),
+        one_process_step_ms=f"{np.median(one['step_ms'][1:]):.1f}",
+        ckpt_s=",".join(f"{m['ckpt_s']:.1f}" for m in mp),
+        leg_s=",".join(f"{m['leg_s']:.1f}" for m in mp),
+        scaling="none: both ranks share one card, over gloo", check="ok")
 
 
 def rot_deg(Ra, Rb) -> np.ndarray:

@@ -15,7 +15,9 @@ Under data parallelism (rank r of N) every rank walks the same sample stream
 [r*b, (r+1)*b) of each global batch of B, b = B / N: the ranks' batches
 together are the one-process global batch, at 1/N of the host work each.
 (The JAX package has every process map the whole global batch,
-gdrnet_tpu/engine/trainer.py:256-263.)
+gdrnet_tpu/engine/trainer.py:256-263.) r and N are the data axis's
+(engine/trainer.py passes parallel/multihost.data_rank and data_size): model
+peers map the same rows.
 """
 
 from __future__ import annotations

@@ -15,7 +15,9 @@ SyncBatchNorm2d (engine/trainer.py), whose batch statistics are the global
 batch's: every rank averages the same statistics over the same number of
 batches, as the JAX package's precise BN over its sharded batch does
 (gdrnet_tpu/engine/precise_bn.py:16-47), and every rank must call this
-with the same num_iters.
+with the same num_iters. The statistics are the data group's (model peers
+see the same rows; parallel/sync_bn.py), and on a model axis the sharded
+layers gather in the forward, so every model peer calls this too.
 """
 
 from __future__ import annotations

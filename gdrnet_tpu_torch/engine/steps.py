@@ -13,7 +13,15 @@ losses are its share of the global terms (losses/gdrn_loss.py), DDP
 averages the gradients, and the logged metrics and the non-finite flag are
 reduced over the ranks, so every rank takes or skips the same update and
 logs the global values, as the JAX package's one program over the sharded
-batch does.
+batch does. On a (data, model) grid (PARALLEL.MODEL_PARALLEL) the row blocks,
+BatchNorms, loss normalisers and DDP are the data group's, the sharded
+layers gather their outputs over the model group (parallel/
+tensor_parallel.py), and the optimizer's whole-tensor reductions sum over it
+(solver/optimizers.py): model peers compute the same replicated values, the
+replicated parameters' gradients are averaged over the model group (equal
+on the CPU; a card's backward may part them in the last bits), so those
+parameters stay equal on the peers, and each holds its slice of the sharded
+ones.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from gdrnet_tpu_torch.engine.train_state import TrainState
 from gdrnet_tpu_torch.losses.gdrn_loss import gdrn_loss
 from gdrnet_tpu_torch.ops.rotation import rot_angle_deg
 from gdrnet_tpu_torch.parallel import multihost as mh
+from gdrnet_tpu_torch.parallel import tensor_parallel
 
 _MODEL_KWARG_KEYS = (
     "roi_classes", "roi_coord_2d", "roi_cams", "roi_centers", "roi_whs",
@@ -60,6 +69,26 @@ def _restore_where_not(ok: torch.Tensor, tensors: list[torch.Tensor],
                                    zip(keep.split([t.numel() for t in tensors]), tensors)])
 
 
+class _TieOutputs(torch.autograd.Function):
+    """The loss in the forward; in the backward, its gradient, and a zero
+    gradient into each of the model's other outputs. DDP's static graph
+    (parallel/mesh.ddp_model) ties the outputs of its first step to the
+    loss so, and records every parameter behind them as used: an output the
+    loss leaves out (the translation where its losses are off) must then
+    reach the backward at every later step too, or DDP waits for those
+    parameters' gradients. Zeros change no update: the optimizer takes a
+    missing gradient as zeros."""
+
+    @staticmethod
+    def forward(ctx, total, *outputs):
+        ctx.shapes = [(o.shape, o.dtype, o.device) for o in outputs]
+        return total.view_as(total)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, *(torch.zeros(s, dtype=d, device=v) for s, d, v in ctx.shapes)
+
+
 def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     dropblock_nr_steps: int = 5000) -> Callable:
     """Returns train_step(state, batch, generator) -> (state, metrics), on the
@@ -84,7 +113,7 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
     is the same mean."""
     module = model.module if isinstance(model, DistributedDataParallel) else model
     ddp = module is not model
-    world = mh.get_world_size() if ddp else 1
+    world, data_world = mh.get_world_size(), mh.data_size() if ddp else 1
     device = next(module.parameters()).device
     skip_nonfinite = bool(cfg.SOLVER.get("SKIP_NONFINITE", True))
     buffers = list(module.buffers())  # BN running stats; torch updates them in the forward
@@ -94,9 +123,9 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
 
     first = [True]
 
-    def rank_mean(t: torch.Tensor) -> None:
-        dist.all_reduce(t)
-        t.div_(world)
+    def rank_mean(t: torch.Tensor) -> None:  # over the ranks that split the batch
+        dist.all_reduce(t, group=mh.data_group())
+        t.div_(data_world)
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator | None):
         batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
@@ -115,7 +144,10 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
             with torch.autocast(device.type, enabled=False):
                 loss_dict = gdrn_loss(cfg, out, batch)
             total = sum(loss_dict[k] for k in sorted(loss_dict))  # the JAX package's leaf order
+            if ddp:  # every output in the backward at every step, as at DDP's first
+                total = _TieOutputs.apply(total, *[v for v in out.values() if v.requires_grad])
             total.backward()
+        tensor_parallel.sync_replicated_grads(module)
         metrics = {k: v.detach() for k, v in loss_dict.items()}
         metrics["total_loss"] = total.detach()
         with torch.no_grad():  # train-time pose errors, as the reference logs them

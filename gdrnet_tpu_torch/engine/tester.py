@@ -21,7 +21,10 @@ and the shards' predictions are gathered to every rank before scoring
 TEST.LOCAL_DEVICES splits each bucket over replicas of the model on this
 process's cards (parallel/mesh.local_dp_setup; -1, the default, takes every
 visible card of a single process, and a rank's own card under a process
-group). TEST.USE_PNP refines each bucket's net poses from
+group). A model sharded on a model axis (parallel/tensor_parallel.py, the
+model do_train leaves with PARALLEL.MODEL_PARALLEL) tests as a gathered
+replica on every rank, as JAX's do_test runs replicated parameters on a
+1-D mesh (gdrnet_tpu/engine/tester.py:106-112). TEST.USE_PNP refines each bucket's net poses from
 its decoded maps (engine/pnp_refine.py: TEST.PNP_TYPE's mode, on the device
 with TEST.DEVICE_PNP, else the per-ROI host loop) inside the compute
 window, as JAX does (gdrnet_tpu/engine/tester.py:229-236). TEST.FOLD_BN folds the BN
@@ -58,6 +61,7 @@ from gdrnet_tpu_torch.eval.bop_writer import save_bop_results
 from gdrnet_tpu_torch.eval.custom_evaluator import CustomEvaluator
 from gdrnet_tpu_torch.models.quantize import calibrate_act_scales
 from gdrnet_tpu_torch.parallel import local_dp_setup, split_predict
+from gdrnet_tpu_torch.parallel.tensor_parallel import full_replica
 from gdrnet_tpu_torch.parallel import multihost as mh
 from gdrnet_tpu_torch.utils.fold_bn import fold_batch_norms
 
@@ -162,8 +166,10 @@ def do_test(cfg, model: torch.nn.Module, models, records: list[dict],
     predictions are gathered over the process group before scoring. Called
     in one process with num_shards > 1, it scores its shard alone, as JAX's
     does. data_root is accepted for the JAX package's signature; records
-    already hold their paths."""
+    already hold their paths. A sharded model is gathered first (a
+    collective: every model peer calls do_test)."""
     del data_root
+    model = full_replica(model)
     shard = mh.get_rank() if shard is None else shard
     num_shards = mh.get_world_size() if num_shards is None else num_shards
     device = torch.device(device)

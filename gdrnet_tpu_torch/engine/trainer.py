@@ -31,6 +31,14 @@ seed, writes the checkpoints, the console and metrics.json lines and
 tensorboard; every rank logs to its own file and stops at the same
 iteration on SIGTERM; eval_fn tests sharded (engine/tester.py).
 
+The model axis (PARALLEL.MODEL_PARALLEL = m > 1): the world is a (d, m)
+grid (parallel/multihost.py), the batch is split over d, and the model is
+sharded (parallel/tensor_parallel.shard_model) before the optimizer is
+built, so that each rank holds and updates its 1/m of every large weight and
+of its optimizer state (gdrnet_tpu/engine/trainer.py:267-299). Checkpoints
+hold the gathered weights and state, one process's file (engine/
+checkpoint.py); the test after training runs on a gathered replica.
+
 The JAX package's device-resident pool, device preprocessing and device
 colour jitter (TRAIN.DEVICE_RESIDENT_POOL, POOL_REFRESH,
 INPUT.DEVICE_PREPROCESS, INPUT.DEVICE_COLOR_AUG) are TPU placement choices
@@ -74,7 +82,7 @@ from gdrnet_tpu_torch.engine.writers import (
     setup_logger,
 )
 from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
-from gdrnet_tpu_torch.parallel import ddp_model, resolve_world
+from gdrnet_tpu_torch.parallel import ddp_model, resolve_world, shard_model
 from gdrnet_tpu_torch.parallel import multihost as mh
 from gdrnet_tpu_torch.solver.optimizers import build_optimizer
 from gdrnet_tpu_torch.solver.schedulers import build_lr_schedule
@@ -145,7 +153,7 @@ def vis_panels(cfg, model: torch.nn.Module, batch: dict) -> dict:
 
 def build_input_pipeline(cfg, records, records2, mapper, seed: int, device="cuda"):
     """The training input path: (loader, to_device). The loader yields host
-    batches, the rank's rows of each global batch; to_device(batch) moves one
+    batches, the rank's rows of each global batch (the data axis's); to_device(batch) moves one
     to `device`, through pinned host memory and a copy that does not block
     the host on a CUDA device."""
     loader = TrainLoader(
@@ -154,7 +162,7 @@ def build_input_pipeline(cfg, records, records2, mapper, seed: int, device="cuda
         repeat_thresh=cfg.DATALOADER.REPEAT_THRESHOLD,
         num_workers=cfg.DATALOADER.NUM_WORKERS, seed=seed,
         records2=records2, ratio2=cfg.DATASETS.TRAIN2_RATIO,
-        rank=mh.get_rank(), world_size=mh.get_world_size())
+        rank=mh.data_rank(), world_size=mh.data_size())
     device = torch.device(device)
 
     def to_device(batch: dict) -> dict:
@@ -243,12 +251,14 @@ def do_train(cfg, resume: bool = False, data_root: str = "datasets/BOP_DATASETS"
 def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir, logger,
            preempted: _Preemption):
     ims_per_batch = cfg.SOLVER.IMS_PER_BATCH
-    world = resolve_world(cfg, ims_per_batch, mh.get_world_size(), logger)
+    d, m = resolve_world(cfg, ims_per_batch, mh.get_world_size(), logger)
+    mh.set_model_parallel(m)
     meta, records, records2, models, mapper = build_train_objects(cfg, data_root, device)
     iters_per_epoch = max(len(records) // ims_per_batch, 1)
     total_iters = max_iters_override or iters_per_epoch * cfg.SOLVER.TOTAL_EPOCHS
     logger.info(f"{len(records)} records, {iters_per_epoch} iters/epoch, "
-                f"{total_iters} total iters, on {device}, rank {mh.get_rank()} of {world}")
+                f"{total_iters} total iters, on {device}, rank {mh.get_rank()} of {d * m} "
+                f"(data {mh.data_rank()} of {d}, model {mh.model_rank()} of {m})")
 
     # SEED < 0 means fully randomize (reference common_base.py SEED=-1),
     # masked to 31 bits; every rank takes rank 0's (the same loader stream
@@ -257,6 +267,7 @@ def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir,
     seed = mh.broadcast_int(seed)
     loader, to_device = build_input_pipeline(cfg, records, records2, mapper, seed, device)
     model = init_weights(build_model(cfg, device=device), torch.Generator().manual_seed(seed))
+    shard_model(model)  # before the optimizer: its state is then the rank's slice
     base_lr = dict(cfg.SOLVER.OPTIMIZER_CFG).get("lr", 1e-4)
     # with gradient accumulation the schedule advances once per k train
     # iterations — built over optimizer UPDATES so warmup/anneal land where
@@ -358,9 +369,11 @@ def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir,
                 ev.put(**{"time/step": step_time, "time/data": data_time})
                 for w in writers:
                     w.write(ev)
-                if cfg.TRAIN.VIS_IMG and tb is not None:
+                # on a model axis every rank runs the forward: its layers gather
+                if cfg.TRAIN.VIS_IMG and (tb is not None or m > 1):
                     for tag, (img, fmt) in vis_panels(cfg, model, batch).items():
-                        tb.tb.add_image(tag, img, it, dataformats=fmt)
+                        if tb is not None:
+                            tb.tb.add_image(tag, img, it, dataformats=fmt)
             if ckpt_every and (it + 1) % ckpt_every == 0:
                 ckpt.save(state, it + 1)
             if eval_every and (it + 1) % eval_every == 0 and eval_fn is not None:

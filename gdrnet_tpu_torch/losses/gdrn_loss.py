@@ -14,7 +14,8 @@ over the sharded batch: the mask-sum denominators are summed over the ranks
 scaled by N, while the plain means are taken over equal row blocks. So the
 mean of the ranks' values is the global term, and DDP's mean of the ranks'
 gradients is its gradient; MTL's weighting is linear in a term, so it
-keeps both.
+keeps both. N is the data axis's ranks and the sums run over the data group
+(parallel/multihost.py): with a model axis, model peers hold the same rows.
 """
 
 from __future__ import annotations
@@ -54,12 +55,12 @@ def gdrn_loss(cfg, out: dict, batch: dict) -> dict[str, torch.Tensor]:
     out_mask, out_region = out["mask"], out["region"]
     coors = (out["coor_x"], out["coor_y"], out["coor_z"])
     out_rot, out_trans, pred_t_ = out["rot"], out["trans"], out["pred_t_"]
-    world = mh.get_world_size()
+    world = mh.data_size()  # the ranks that split the batch (model peers hold the same rows)
 
     def over_mask(total: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """A masked sum over the mask's pixel count, both of the global batch
         (gdrnet_tpu/losses/gdrn_loss.py:54,100): the rank's share."""
-        denom = mh.all_reduce_sum(mask.sum()).clamp_min(1.0)
+        denom = mh.all_reduce_sum(mask.sum(), group=mh.data_group()).clamp_min(1.0)
         return total * world / denom if world > 1 else total / denom
 
     if not rh.FREEZE:

@@ -58,10 +58,11 @@ class DropBlock2D(nn.Module):
     probability ramps from 0 to drop_prob as `progress` goes from 0 to 1.
     At train time the seeds are a Bernoulli draw with gamma = drop_prob *
     clip(progress, 0, 1) / block_size^2 from `generator` (on x's device).
-    `shard` = (rank, world), set by parallel/mesh.ddp_model, draws for the
-    global batch (every rank's generator has the same seed) and keeps the
-    rank's row block, so that N ranks drop what one process at the global
-    batch drops."""
+    `shard` = (data rank, data ranks), set by parallel/mesh.ddp_model,
+    draws for the global batch (every rank's generator has the same seed)
+    and keeps the rank's row block, so that N ranks drop what one process
+    at the global batch drops (model peers, which hold the same rows, draw
+    the same)."""
 
     def __init__(self, drop_prob: float = 0.0, block_size: int = 5):
         super().__init__()

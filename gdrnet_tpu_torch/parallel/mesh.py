@@ -1,19 +1,19 @@
-"""Data-parallel layout: the training world from the config, the per-rank
-batch, and local data parallelism for testing and serving (counterpart of
-the data-parallel part of gdrnet_tpu/parallel/mesh.py and of
-gdrnet_tpu/engine/trainer.py:72-104's resolve_mesh_spec).
+"""The training layout: the world and its (data, model) grid from the config,
+the model axis's partition rule, the per-rank batch, and local data
+parallelism for testing and serving (counterpart of
+gdrnet_tpu/parallel/mesh.py and of gdrnet_tpu/engine/trainer.py:72-104's
+resolve_mesh_spec).
 
-The JAX package lays a 1-D `data` mesh over every chip and lets GSPMD split
-the batch. Here training runs one process a GPU (torch.distributed, DDP),
-so the world size is the launcher's; resolve_world checks it against
-PARALLEL.MESH_SHAPE and the batch. Testing and serving in one process over
-several local cards (TEST.LOCAL_DEVICES) put one replica of the model on
-each card and split every bucket between them, the counterpart of
-shard_batch plus GSPMD.
-
-Not here: the model axis (PARALLEL.MODEL_PARALLEL > 1, JAX's 2-D mesh with
-tensor-sharded kernels, gdrnet_tpu/parallel/mesh.py:28-69), ROADMAP.md
-queue A item 10 (A10's model axis).
+The JAX package lays a `data` mesh over every chip, or with
+PARALLEL.MODEL_PARALLEL = m a 2-D (data, model) mesh, and lets GSPMD split
+the batch and the large kernels. Here training runs one process a GPU
+(torch.distributed): resolve_world checks the launcher's world against
+PARALLEL.MESH_SHAPE, the model axis and the batch; parallel/multihost.py
+lays the grid; param_partition picks the weights the model axis shards
+(parallel/tensor_parallel.py shards them); ddp_model wraps the model in DDP
+over the data group. Testing and serving in one process over several local
+cards (TEST.LOCAL_DEVICES) put one replica of the model on each card and
+split every bucket between them, the counterpart of shard_batch plus GSPMD.
 """
 
 from __future__ import annotations
@@ -28,17 +28,20 @@ from torch.nn.parallel import DistributedDataParallel
 from gdrnet_tpu_torch.models.layers import DropBlock2D
 from gdrnet_tpu_torch.parallel import multihost as mh
 from gdrnet_tpu_torch.parallel.sync_bn import convert_sync_bn
+from gdrnet_tpu_torch.parallel.tensor_parallel import SHARDED
 
 
 def resolve_world(cfg, ims_per_batch: int, world_size: int,
-                  logger: logging.Logger | None = None) -> int:
-    """The number of data-parallel ranks for training: the launcher's world
-    size, checked as JAX's resolve_mesh_spec checks its mesh. PARALLEL.
-    MESH_SHAPE (-1,) takes every rank; (n,) asks for n, clamped with a
-    warning to the ranks there are; the count then shrinks to the largest
-    divisor of the batch (the reference asserts divisibility,
-    dataset_utils.py:196-198). Where JAX would then use fewer devices than it
-    has, the port raises: a launcher's rank cannot sit out."""
+                  logger: logging.Logger | None = None) -> tuple[int, int]:
+    """The training grid (data ranks d, model ranks m) for the launcher's
+    world, as JAX's resolve_mesh_spec picks its mesh. PARALLEL.MESH_SHAPE
+    (-1,) takes every rank; (n,) asks for n, clamped with a warning to the
+    ranks there are. m is PARALLEL.MODEL_PARALLEL; d is the largest divisor
+    of the batch no greater than the budget over m (the reference asserts
+    divisibility, dataset_utils.py:196-198), and a budget below m raises
+    JAX's ValueError. Where JAX would then use fewer devices than it has,
+    the port raises and names the count to start: a launcher's rank cannot
+    sit out."""
     mesh_shape = tuple(cfg.PARALLEL.get("MESH_SHAPE", (-1,)))
     if len(mesh_shape) != 1:
         raise ValueError(f"only 1-D data meshes are supported (DP, like the reference; "
@@ -48,43 +51,63 @@ def resolve_world(cfg, ims_per_batch: int, world_size: int,
         raise ValueError(f"PARALLEL.MESH_SHAPE={mesh_shape} must be (-1,) or a positive "
                          "device count")
     mp = int(cfg.PARALLEL.get("MODEL_PARALLEL", 1) or 1)
-    if mp > 1:
-        raise NotImplementedError(
-            f"PARALLEL.MODEL_PARALLEL={mp}: the model axis (tensor-sharded kernels) is not "
-            "ported yet (ROADMAP.md queue A item 10, A10's model axis)")
     budget = world_size
     if mesh_shape[0] != -1:
         if mesh_shape[0] > world_size and logger is not None:
             logger.warning(f"PARALLEL.MESH_SHAPE={mesh_shape} asks for more devices than the "
                            f"{world_size} rank(s) there are; training on {world_size}")
         budget = min(world_size, mesh_shape[0])
-    n = max(d for d in range(1, budget + 1) if ims_per_batch % d == 0)
-    if n != world_size:
+    if budget // mp < 1:
+        raise ValueError(f"MODEL_PARALLEL={mp} exceeds {budget} devices")
+    d = max(n for n in range(1, budget // mp + 1) if ims_per_batch % n == 0)
+    if d * mp != world_size:
         raise ValueError(
-            f"{world_size} ranks were started, but PARALLEL.MESH_SHAPE={mesh_shape} and "
-            f"SOLVER.IMS_PER_BATCH={ims_per_batch} allow {n}: start {n} processes")
-    return n
+            f"{world_size} ranks were started, but PARALLEL.MESH_SHAPE={mesh_shape}, "
+            f"PARALLEL.MODEL_PARALLEL={mp} and SOLVER.IMS_PER_BATCH={ims_per_batch} allow "
+            f"{d * mp}: start {d * mp} processes")
+    return d, mp
+
+
+def param_partition(model: torch.nn.Module, m: int, min_size: int = 1 << 16) -> dict:
+    """The weights a model axis of m ranks shards, JAX's param_partition_spec
+    (gdrnet_tpu/parallel/mesh.py:45-57) read in torch's layout: name -> the
+    dim it is split on, for each Conv2d, ConvTranspose2d and Linear weight of
+    at least 2 dims and `min_size` values whose output dim (0; 1 for a
+    ConvTranspose2d's [in, out, kh, kw], where flax puts it last in all
+    three) m divides. Every other parameter (biases, norms, the MTL
+    log-variances) stays whole; {} for m = 1."""
+    if m <= 1:
+        return {}
+    out = {}
+    for name, layer in model.named_modules():
+        if type(layer) not in SHARDED:
+            continue
+        w, dim = layer.weight, SHARDED[type(layer)][1]
+        if w.dim() >= 2 and w.numel() >= min_size and w.shape[dim] % m == 0:
+            out[f"{name}.weight"] = dim
+    return out
 
 
 def ddp_model(model: torch.nn.Module) -> torch.nn.Module:
-    """The model as the train step takes it: the model itself in one process;
-    under a process group of more than one rank, its BatchNorm2d layers
-    swapped for SyncBatchNorm2d and each DropBlock2D given the rank's share
-    of the batch (in place), and the model wrapped in
-    DistributedDataParallel, without the per-step buffer broadcast (the
-    synced buffers are equal on every rank) and with static_graph: some
-    configurations leave parameters out of the loss (R_ONLY's translation
-    head, USE_MTL's unused log-variances, BACKBONE.FREEZE's backbone), the
-    same ones at every step, which DDP then finds once, at the first step,
-    rather than by a walk of the graph at every step."""
-    world = mh.get_world_size()
-    if world == 1:
+    """The model as the train step takes it: the model itself where the data
+    axis has one rank; else its BatchNorm2d layers swapped for
+    SyncBatchNorm2d (statistics over the data group) and each DropBlock2D
+    given the rank's share of the batch, in place, and the model wrapped in
+    DistributedDataParallel over the data group, so that a sharded weight's
+    gradient is averaged with its data peers' slices only, never across the
+    model axis. Without the per-step buffer broadcast (the synced buffers are
+    equal on every rank) and with static_graph: some configurations leave
+    parameters out of the loss (R_ONLY's translation head, USE_MTL's unused
+    log-variances, BACKBONE.FREEZE's backbone), the same ones at every step,
+    which DDP then finds once, at the first step, rather than by a walk of
+    the graph at every step."""
+    if mh.data_size() == 1:
         return model
     for m in model.modules():
         if isinstance(m, DropBlock2D):
-            m.shard = (mh.get_rank(), world)
+            m.shard = (mh.data_rank(), mh.data_size())
     return DistributedDataParallel(convert_sync_bn(model), broadcast_buffers=False,
-                                   static_graph=True)
+                                   static_graph=True, process_group=mh.data_group())
 
 
 def local_batch_size(global_batch: int, world_size: int) -> int:

@@ -15,6 +15,17 @@ backend. Host values (pickled objects, barriers, the SIGTERM flag, host
 scalars) go over `host_group()`, a gloo group of the same ranks: gloo carries
 CPU tensors, NCCL does not. Nothing here picks a backend on its own beyond
 maybe_init_distributed's default.
+
+PARALLEL.MODEL_PARALLEL = m lays the ranks out as the JAX package's 2-D
+(data, model) mesh (gdrnet_tpu/parallel/mesh.py:28-43), the model axis
+fastest: rank r sits at data index r // m and model index r % m.
+set_model_parallel makes the two kinds of group once a process group: the
+data group of r holds the ranks with its model index (they split the batch;
+DDP, the BatchNorm statistics and the loss normalisers reduce over it), the
+model group the m ranks [i m, (i + 1) m) of its data index (they hold the
+slices of the sharded weights, parallel/tensor_parallel.py, and see the
+same rows). Without it the data group is the whole world and the model
+group one rank.
 """
 
 from __future__ import annotations
@@ -25,6 +36,9 @@ import torch
 import torch.distributed as dist
 
 _HOST_GROUP: list = [None, None]  # (the default group, its gloo twin for host values)
+# the (data, model) grid of set_model_parallel: the default group it was laid
+# over, the model axis's size, this rank's data group and model group
+_GRID: dict = {"world": None, "m": 1, "data": None, "model": None}
 
 
 def maybe_init_distributed(backend: str | None = None, init_method: str | None = None,
@@ -68,6 +82,70 @@ def get_world_size() -> int:
 
 def is_main_process() -> bool:
     return get_rank() == 0
+
+
+def set_model_parallel(m: int) -> None:
+    """Lay the world out as a (world / m, m) grid (module docstring): every
+    data group and every model group made with dist.new_group, in the same
+    order on every rank, once for this default group and m. m = 1 (or no
+    process group) is the plain data world."""
+    m = int(m or 1)
+    if m == 1 or not _active():
+        if m > 1:
+            raise ValueError(f"a model axis of {m} needs a process group of {m} or more ranks")
+        _GRID.update(world=None, m=1, data=None, model=None)
+        return
+    world, rank = get_world_size(), get_rank()
+    if world % m:
+        raise ValueError(f"{world} ranks do not divide into a model axis of {m}")
+    if _grid() is not None and _GRID["m"] == m:
+        return
+    data = model = None
+    for j in range(m):
+        group = dist.new_group(list(range(j, world, m)))
+        data = group if rank % m == j else data
+    for i in range(world // m):
+        group = dist.new_group(list(range(i * m, (i + 1) * m)))
+        model = group if rank // m == i else model
+    _GRID.update(world=dist.group.WORLD, m=m, data=data, model=model)
+
+
+def _grid() -> dict | None:
+    """The grid laid over the current default group, if any."""
+    return _GRID if _active() and _GRID["world"] is dist.group.WORLD else None
+
+
+def model_size() -> int:
+    """Ranks on the model axis (1 without one)."""
+    grid = _grid()
+    return grid["m"] if grid else 1
+
+
+def model_rank() -> int:
+    return get_rank() % model_size()
+
+
+def data_size() -> int:
+    """Ranks on the data axis: the ranks that split each global batch."""
+    return get_world_size() // model_size()
+
+
+def data_rank() -> int:
+    return get_rank() // model_size()
+
+
+def data_group():
+    """The process group of the rank's data axis (None, the default group,
+    without a model axis)."""
+    grid = _grid()
+    return grid["data"] if grid else None
+
+
+def model_group():
+    """The process group of the rank's model peers (None without a model
+    axis)."""
+    grid = _grid()
+    return grid["model"] if grid else None
 
 
 def host_group():
@@ -129,10 +207,10 @@ def broadcast_int(value: int) -> int:
     return int(t.item())
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum over ranks of a device tensor, as a new detached tensor (the
-    default group; no host sync)."""
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over the ranks of `group` (default: every rank) of a device
+    tensor, as a new detached tensor (no host sync)."""
     t = t.detach().clone()
-    if get_world_size() > 1:
-        dist.all_reduce(t)
+    if _active() and dist.get_world_size(group) > 1:
+        dist.all_reduce(t, group=group)
     return t

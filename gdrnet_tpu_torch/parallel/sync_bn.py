@@ -3,15 +3,20 @@ JAX package's BN under GSPMD: its train step is one program over the
 global batch sharded on the `data` axis, gdrnet_tpu/engine/steps.py:101-124,
 so flax BN's batch mean and variance are global reductions).
 
+The batch is split over the data group (parallel/multihost.py): on a grid
+with a model axis, model peers hold the same rows, so the statistics are
+reduced over the data group alone (a sum over the whole world would count
+each row m times, m the model axis's ranks).
+
 SyncBatchNorm2d is an nn.BatchNorm2d whose train-mode forward normalises by
 the statistics of the batch of every rank: the per-channel count and sum,
 then the sum of squared deviations from the global mean, each all-reduced
-over the default process group; its backward all-reduces the per-channel
+over the data group; its backward all-reduces the per-channel
 sums of dy and dy * x_hat. Its running statistics update as torch's BN
 updates them (momentum, or the cumulative average with momentum None, and
 the unbiased variance over the global count), so every rank holds the same
-buffers. In eval mode, with running statistics, or without a process group
-of more than one rank, it is the plain BN.
+buffers. In eval mode, with running statistics, or without a data group of
+more than one rank, it is the plain BN.
 
 It uses all_reduce alone, so it runs on NCCL and on gloo, on the card and
 on the CPU (torch.nn.SyncBatchNorm needs CUDA tensors). Plain PyTorch: it
@@ -38,18 +43,19 @@ class _SyncBatchNormFn(torch.autograd.Function):
     and the backward's sums in f32, y in x's dtype."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, group):
         xf = x.float()
         local = torch.cat([xf.new_full((1,), xf.numel() // xf.shape[1]), xf.sum(_DIMS)])
-        dist.all_reduce(local)
+        dist.all_reduce(local, group=group)
         count, mean = local[0], local[1:] / local[0]
         centred = xf - _per_channel(mean)
         sq = centred.square().sum(_DIMS)
-        dist.all_reduce(sq)
+        dist.all_reduce(sq, group=group)
         invstd = torch.rsqrt(sq / count + eps)
         x_hat = centred * _per_channel(invstd)
         y = x_hat * _per_channel(weight) + _per_channel(bias) if weight is not None else x_hat
         ctx.save_for_backward(x_hat, invstd, weight, count)
+        ctx.group = group
         ctx.mark_non_differentiable(mean, sq, count)
         return y.to(x.dtype), mean, sq, count
 
@@ -59,7 +65,7 @@ class _SyncBatchNormFn(torch.autograd.Function):
         dyf = dy.float()
         sums = torch.cat([dyf.sum(_DIMS), (dyf * x_hat).sum(_DIMS)])
         local_db, local_dw = sums.clone().chunk(2)
-        dist.all_reduce(sums)
+        dist.all_reduce(sums, group=ctx.group)
         sum_dy, sum_dy_xhat = sums.chunk(2)
         scale = invstd if weight is None else invstd * weight.float()
         dx = _per_channel(scale) * (dyf - _per_channel(sum_dy / count)
@@ -67,19 +73,20 @@ class _SyncBatchNormFn(torch.autograd.Function):
         # the affine parameters' gradients stay local: DDP averages them
         dw = local_dw.to(weight.dtype) if weight is not None and ctx.needs_input_grad[1] else None
         db = local_db.to(weight.dtype) if weight is not None and ctx.needs_input_grad[2] else None
-        return dx.to(dy.dtype), dw, db, None
+        return dx.to(dy.dtype), dw, db, None, None
 
 
 class SyncBatchNorm2d(nn.BatchNorm2d):
-    """nn.BatchNorm2d with global batch statistics under a process group of
+    """nn.BatchNorm2d with global batch statistics under a data group of
     more than one rank (module docstring); the same parameters, buffers and
     state_dict keys."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         use_batch = self.training or self.running_mean is None
-        if not use_batch or mh.get_world_size() == 1:
+        if not use_batch or mh.data_size() == 1:
             return super().forward(x)
-        y, mean, sq, count = _SyncBatchNormFn.apply(x, self.weight, self.bias, self.eps)
+        y, mean, sq, count = _SyncBatchNormFn.apply(x, self.weight, self.bias, self.eps,
+                                                    mh.data_group())
         if self.training and self.track_running_stats:
             with torch.no_grad():  # torch's update (its batch_norm_update_stats)
                 self.num_batches_tracked.add_(1)

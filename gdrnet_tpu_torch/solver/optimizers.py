@@ -32,6 +32,15 @@ running mean of k gradients, one update on the k-th), SOLVER.GRAD_CLIP
 (a global-norm clip), gradient centralisation, one param group per LR
 multiplier, Lookahead, and the update count that the LR schedule reads.
 
+On a model axis (PARALLEL.MODEL_PARALLEL, parallel/tensor_parallel.py) a
+rank holds the slices of the sharded weights and their state; every
+reduction over a whole tensor or over all parameters (the global norm of the
+clip and of the finite check, LAMB's trust ratio, AdamP / SGDP's norms, dot
+product and size, a centralisation across the shard dim) sums a sharded
+tensor's part over the model group and counts a whole one once, so that
+each rank takes its slice of one process's step. full_state_dict gathers the
+state whole; load_state_dict takes a whole or a sliced state.
+
 A step never waits for the device. The update count lives on the device,
 because a step whose gradients are not finite must leave it (and every other
 piece of state) unchanged. The per-update scalars (the learning rate from the
@@ -52,6 +61,8 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 import torch.nn as nn
+
+from gdrnet_tpu_torch.parallel import tensor_parallel
 
 
 def radam_step_scalars(t: int, b1: float, b2: float, sma_threshold: float
@@ -85,6 +96,9 @@ class TableOptimizer(torch.optim.Optimizer):
     ConvTranspose2d [in, out, kh, kw]); the tensors in `transposed` over
     dims (0, 2, 3), per output channel as the JAX package centralises flax
     kernels (the parity tests pass them). `lookahead` is (alpha, k) or None.
+    `shards` is parallel/tensor_parallel.shards(model) on a model axis: (the
+    ModelAxis, {parameter: its shard dim}) for the reductions over whole
+    tensors; None elsewhere.
 
     step(finite=flag) makes the update only where the device flag `flag` and
     every gradient are finite, and otherwise leaves the parameters and every
@@ -102,7 +116,7 @@ class TableOptimizer(torch.optim.Optimizer):
     def __init__(self, params: Iterable, lr: float | Callable[[int], float] = 1e-3, *,
                  grad_clip: float = 0.0, accum_steps: int = 1, gc: str | None = None,
                  transposed: Iterable[torch.Tensor] = (),
-                 lookahead: tuple[float, int] | None = None):
+                 lookahead: tuple[float, int] | None = None, shards: tuple | None = None):
         super().__init__(params, dict(lr_mult=1.0))
         self.lr = lr
         self.grad_clip = grad_clip
@@ -129,6 +143,11 @@ class TableOptimizer(torch.optim.Optimizer):
         self._gc_dims = [] if min_dim is None else [
             (i, (0, 2, 3) if id(p) in transposed_ids else tuple(range(1, p.dim())))
             for i, p in enumerate(self._params) if p.dim() > min_dim]
+        # the model axis: (its ModelAxis, each parameter's shard dim or None)
+        self._axis, dims = shards if shards is not None else (None, {})
+        self._shard_dims = [dims.get(p) for p in self._params]
+        self._sharded = [i for i, d in enumerate(self._shard_dims) if d is not None]
+        self._numels = numels
         self._n_scalars = len(self.IDENTITY) + (2 if lookahead else 0)
         n_groups = len(self.param_groups)
         self._identity = torch.tensor(
@@ -193,7 +212,58 @@ class TableOptimizer(torch.optim.Optimizer):
             return 0
         return int(self._init_state()["mini_step"])
 
+    def _full_shape(self, i: int) -> tuple:
+        shape = list(self._params[i].shape)
+        if self._shard_dims[i] is not None:
+            shape[self._shard_dims[i]] *= self._axis.size
+        return tuple(shape)
+
+    @torch.no_grad()
+    def full_state_dict(self) -> dict:
+        """state_dict() with each sharded parameter's state, and the
+        accumulator's part of it, gathered whole over the model group: what
+        one process holds (a collective: every model peer calls it)."""
+        sd = self.state_dict()
+        if self._axis is None:
+            return sd
+        state = sd["state"]
+        for i in self._sharded:
+            if i in state:
+                shape = self._params[i].shape
+                state[i] = {k: self._axis.gather(v, self._shard_dims[i])
+                            if torch.is_tensor(v) and v.shape == shape else v
+                            for k, v in state[i].items()}
+        shared = state.get("shared", {})
+        if "acc" in shared:
+            parts = list(shared["acc"].split(self._numels))
+            for i in self._sharded:
+                parts[i] = self._axis.gather(parts[i].view_as(self._params[i]),
+                                             self._shard_dims[i]).reshape(-1)
+            state["shared"] = dict(shared, acc=torch.cat(parts))
+        return sd
+
+    def _slice_state(self, state_dict: dict) -> dict:
+        """A whole state (full_state_dict's, or one process's) cut to this
+        rank's slices; a sliced one as it is."""
+        state = dict(state_dict["state"])
+        for i in self._sharded:
+            if i in state:
+                full, dim = self._full_shape(i), self._shard_dims[i]
+                state[i] = {k: self._axis.slice(v, dim) if torch.is_tensor(v)
+                            and tuple(v.shape) == full else v for k, v in state[i].items()}
+        shared = state.get("shared", {})
+        full_numels = [math.prod(self._full_shape(i)) for i in range(len(self._params))]
+        if "acc" in shared and shared["acc"].numel() == sum(full_numels) != len(self._grad):
+            parts = list(shared["acc"].split(full_numels))
+            for i in self._sharded:
+                parts[i] = self._axis.slice(parts[i].view(self._full_shape(i)),
+                                            self._shard_dims[i]).reshape(-1)
+            state["shared"] = dict(shared, acc=torch.cat(parts))
+        return dict(state_dict, state=state)
+
     def load_state_dict(self, state_dict: dict) -> None:
+        if self._axis is not None:
+            state_dict = self._slice_state(state_dict)
         super().load_state_dict(state_dict)
         shared = self.state.pop("shared", None)
         if shared:  # the counters and accumulator are not a parameter's state: move them here
@@ -204,11 +274,45 @@ class TableOptimizer(torch.optim.Optimizer):
         return [self.state[p][name] for p in self._params]
 
     def _centralize(self, tensors: list[torch.Tensor]) -> None:
-        """Gradient centralisation of `tensors` (one a parameter), in place."""
-        if self._gc_dims:
-            views = [tensors[i] for i, _ in self._gc_dims]
-            torch._foreach_sub_(views, [tensors[i].mean(d, keepdim=True)
-                                        for i, d in self._gc_dims])
+        """Gradient centralisation of `tensors` (one a parameter), in place;
+        a mean across a shard dim over the model group."""
+        if not self._gc_dims:
+            return
+        means = [tensors[i].mean(d, keepdim=True) for i, d in self._gc_dims]
+        across = [j for j, (i, d) in enumerate(self._gc_dims) if self._shard_dims[i] in d]
+        if across:  # the whole tensor's sum over those dims, over its count
+            sums = torch.cat([means[j].reshape(-1) for j in across])
+            self._axis.all_reduce(sums).div_(self._axis.size)
+            for j, v in zip(across, sums.split([means[j].numel() for j in across])):
+                means[j] = v.view_as(means[j])
+        torch._foreach_sub_([tensors[i] for i, _ in self._gc_dims], means)
+
+    def _norms(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+        """The L2 norm of each whole tensor (tensors[i] shaped as parameter
+        i), in f64: a sharded one's over the model group."""
+        norms = _tensor_norms(tensors)
+        if self._sharded:
+            sq = torch.stack([norms[i] for i in self._sharded]).square()
+            for i, v in zip(self._sharded, self._axis.all_reduce(sq).sqrt()):
+                norms[i] = v
+        return norms
+
+    def _sums(self, values: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Per-parameter scalars, a sharded parameter's summed over the model
+        group."""
+        if not self._sharded:
+            return values
+        values = list(values)
+        summed = self._axis.all_reduce(torch.stack([values[i] for i in self._sharded]))
+        for i, v in zip(self._sharded, summed):
+            values[i] = v
+        return values
+
+    def _global_norm(self, flat: torch.Tensor, views: list[torch.Tensor]) -> torch.Tensor:
+        """The L2 norm of all the (whole) parameters' values in `flat`."""
+        if self._axis is None:
+            return torch.linalg.vector_norm(flat, dtype=torch.float64)
+        return torch.stack(self._norms(views)).square().sum().sqrt()
 
     @torch.no_grad()
     def step(self, finite: torch.Tensor | None = None,
@@ -228,7 +332,7 @@ class TableOptimizer(torch.optim.Optimizer):
         if finite is None:
             ok = torch.ones((), dtype=torch.bool, device=self._device)
         else:
-            ok = finite & torch.isfinite(torch.linalg.vector_norm(self._grad))
+            ok = finite & torch.isfinite(self._global_norm(self._grad, self._grad_views))
         if self.accum_steps > 1:  # optax.MultiSteps: a running mean of the k gradients
             n, acc = shared["mini_step"], shared["acc"]
             if reduce is not None:
@@ -244,7 +348,7 @@ class TableOptimizer(torch.optim.Optimizer):
         work.masked_fill_(~commit, 0.0)  # what follows is then finite, and a no-op
 
         if self.grad_clip > 0:  # optax.clip_by_global_norm
-            norm = torch.linalg.vector_norm(work)
+            norm = self._global_norm(work, self._work_views)
             work.mul_(torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm))
         self._centralize_grads()
 
@@ -276,27 +380,41 @@ class TableOptimizer(torch.optim.Optimizer):
         self._centralize(self._work_views)
 
 
-def _trust_ratio(update: list, params: list) -> None:
+def _tensor_norms(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Each tensor's L2 norm, summed in f64: an f32 sum over millions of
+    values drifts by up to 1e-4 relative (PyTorch's CPU norm of 4M values),
+    which would swamp the order in which a model axis sums a tensor's
+    shards."""
+    return list(torch._foreach_norm(tensors, 2, dtype=torch.float64))
+
+
+def _trust_ratio(update: list, params: list, norms: Callable = _tensor_norms) -> list:
     """LAMB's per-tensor clip(|p|, 0, 10) / (|u| + 1e-8), 1 where either
-    norm is 0, in place."""
-    pn = torch._foreach_norm(params)
-    un = torch._foreach_norm(update)
+    norm is 0, in place; returns the ratios. norms(tensors) gives each
+    whole tensor's norm (the optimizer's _norms on a model axis)."""
+    pn, un = norms(params), norms(update)
+    ratios = []
     for u, a, b in zip(update, pn, un):
         a = a.clamp(0.0, 10.0)
-        u.mul_(torch.where((a > 0) & (b > 0), a / (b + 1e-8), 1.0))
+        ratios.append(torch.where((a > 0) & (b > 0), a / (b + 1e-8), 1.0))
+        u.mul_(ratios[-1])
+    return ratios
 
 
 def _project(update: list, params: list, delta: float, wd_ratio: float,
-             weight_decay: float) -> list:
+             weight_decay: float, opt: TableOptimizer) -> list:
     """AdamP / SGDP: where the update is nearly orthogonal to the parameter
     (|cos| < delta / sqrt(dim)), drop its radial part and scale the decay by
-    wd_ratio."""
+    wd_ratio. `opt` gives the whole tensors' norms, dot products and sizes
+    (over the model group for a sharded one)."""
+    pns = [p / (n + 1e-12) for p, n in zip(params, opt._norms(params))]
+    dots = opt._sums([(pn * u).sum() for pn, u in zip(pns, update)])
+    unorms = opt._norms(update)
+    numels = [math.prod(opt._full_shape(i)) for i in range(len(params))]
     out = []
-    for u, p in zip(update, params):
-        pn = p / (torch.linalg.vector_norm(p) + 1e-12)
-        dot = (pn * u).sum()
-        cos = dot.abs() / (torch.linalg.vector_norm(u) + 1e-12)
-        small = cos < delta / math.sqrt(p.numel())
+    for u, p, pn, dot, un, n in zip(update, params, pns, dots, unorms, numels):
+        cos = dot.abs() / (un + 1e-12)
+        small = cos < delta / math.sqrt(n)
         v = torch.where(small, u - dot * pn, u)
         if weight_decay > 0:
             v = v + weight_decay * torch.where(small, wd_ratio, 1.0) * p
@@ -359,7 +477,7 @@ class RAdam(TableOptimizer):
             if self.weight_decay > 0:
                 torch._foreach_add_(update, params, alpha=self.weight_decay)
         if self.trust_ratio:
-            _trust_ratio(update, params)
+            _trust_ratio(update, params, self._norms)
         return update
 
 
@@ -372,10 +490,10 @@ class Ranger(RAdam):
                  weight_decay: float = 0.0, alpha: float = 0.5, k: int = 6,
                  use_gc: bool = True, gc_conv_only: bool = False,
                  sma_threshold: float = 5.0, grad_clip: float = 0.0, accum_steps: int = 1,
-                 transposed: Iterable[torch.Tensor] = ()):
+                 transposed: Iterable[torch.Tensor] = (), shards: tuple | None = None):
         super().__init__(params, lr, betas=betas, eps=eps, weight_decay=weight_decay,
                          sma_threshold=sma_threshold, grad_clip=grad_clip,
-                         accum_steps=accum_steps, transposed=transposed,
+                         accum_steps=accum_steps, transposed=transposed, shards=shards,
                          gc=("conv" if gc_conv_only else "all") if use_gc else None,
                          lookahead=(alpha, k))
 
@@ -417,7 +535,7 @@ class Adam(TableOptimizer):
         torch._foreach_add_(denom, self.eps)
         update = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
         if self.decay == "project":
-            return _project(update, params, self.delta, self.wd_ratio, self.weight_decay)
+            return _project(update, params, self.delta, self.wd_ratio, self.weight_decay, self)
         if self.decay == "decoupled" and self.weight_decay > 0:
             torch._foreach_add_(update, params, alpha=self.weight_decay)
         return update
@@ -491,7 +609,7 @@ class SGD(TableOptimizer):
         else:
             update = [g.clone() for g in grads]
         if self.project:
-            return _project(update, params, self.delta, self.wd_ratio, self.weight_decay)
+            return _project(update, params, self.delta, self.wd_ratio, self.weight_decay, self)
         return update
 
 
@@ -611,7 +729,8 @@ def build_optimizer(cfg, model: nn.Module,
     shared = dict(grad_clip=cfg.SOLVER.get("GRAD_CLIP", 0.0),
                   accum_steps=int(cfg.SOLVER.get("GRAD_ACCUM_STEPS", 1) or 1),
                   transposed=[m.weight for m in model.modules()
-                              if jax_deconv_gc and isinstance(m, nn.ConvTranspose2d)])
+                              if jax_deconv_gc and isinstance(m, nn.ConvTranspose2d)],
+                  shards=tensor_parallel.shards(model))
     lr = lr_schedule if lr_schedule is not None else oc.get("lr", 1e-4)
     return _BUILDERS[name]([{"params": ps, "lr_mult": m} for m, ps in groups.items()],
                            oc, lr, shared)

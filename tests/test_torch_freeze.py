@@ -58,6 +58,16 @@ def _cfg(flag: str):
     return cfg
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: under xdist each worker shares the machine's
+    cores with five others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _batches():
     return [synthetic_roi_batch(batch_size=4, input_res=64, out_res=16, num_classes=10,
                                 num_points=64, num_regions=8, seed=60 + i)

@@ -1,10 +1,13 @@
 """The port's data parallelism on the CPU (gdrnet_tpu_torch/parallel, the
-rank-sliced loader, DDP in the train step and do_train, the dry run).
+rank-sliced loader, DDP in the train step and do_train, the dry run), and
+do_train on a model axis (PARALLEL.MODEL_PARALLEL; the rest of the model
+axis is tests/test_torch_parallel_model.py's).
 
-Rank processes run tests/torch_ddp_worker.py under a gloo process group on
-a free localhost port: one launch of two ranks serves every case of the
-file (the helpers, the BatchNorm cases, the accumulated steps, R_ONLY,
-do_train), started with the file's first test and run beside the
+Rank processes run tests/torch_ddp_worker.py under a gloo process group
+that meets at a rendezvous file: one launch of two ranks serves every case
+of the file (the helpers, the BatchNorm cases, the accumulated steps,
+R_ONLY, an output the loss leaves out, do_train as 2 data ranks and as a
+(1, 2) grid), started with the file's first test and run beside the
 one-process tests, whose results the rank tests at the end compare with.
 Tolerances:
 - SyncBatchNorm2d in 2 ranks against nn.BatchNorm2d in one process on the
@@ -23,9 +26,12 @@ Tolerances:
   gradients (a ReLU unit near 0 flips). Only the first update is compared:
   from there the two runs are two states a rounding apart.
 - R_ONLY (a parameter left out of the loss) in 2 ranks: the first step's
-  terms at rtol 1e-4 against one process, the second step finite.
+  terms at rtol 1e-4 against one process, the second step finite; the
+  same for the translation's losses off (fc_t runs, no loss reads it), 3
+  steps.
 - do_train in 2 ranks against one process, 3 iterations of the small
-  flagship on tests/fixture_bop.py: total_loss at rtol 1e-4 at each.
+  flagship on tests/fixture_bop.py: total_loss at rtol 1e-4 at each; the
+  same on a (1, 2) grid, whose checkpoint is one process's.
 - The loader's ranks: bitwise.
 """
 
@@ -61,6 +67,7 @@ from gdrnet_tpu_torch.tools import dryrun_multichip
 from gdrnet_tpu_torch.tools.dryrun_multichip import train_steps
 from test_torch_trainer import _losses, _train_cfg, fixture_records  # noqa: F401
 from torch_ddp_worker import start_ranks
+from test_torch_parallel_model import tiny_cfg
 from torch_parity import small_flagship_cfg
 
 BN_CASES = {"momentum": dict(momentum=0.1, passes=2), "cumulative": dict(momentum=None, passes=3),
@@ -112,20 +119,35 @@ def r_only_job():
     return cfg, model.state_dict(), batches
 
 
+def unused_output_job():
+    """JAX's _tiny_setup config (tests/test_torch_parallel_model.py), whose
+    losses leave the translation out: fc_t runs in the forward and feeds no
+    loss term, so DDP must take the parameters behind an output the loss
+    leaves out at every step (engine/steps._TieOutputs)."""
+    cfg = tiny_cfg()
+    model = init_weights(build_model(cfg, device="cpu"), torch.Generator().manual_seed(6))
+    batches = [synthetic_roi_batch(batch_size=4, input_res=64, out_res=16, num_points=64,
+                                   num_regions=4, seed=65 + i) for i in range(3)]
+    return cfg, model.state_dict(), batches
+
+
 def do_train_cfgs(root) -> tuple:
-    """(the ranks' config, the one-process config): ITERS iterations of
-    tests/test_torch_trainer.py's train config, checkpoints every 2."""
+    """(the ranks' config, the one-process config, the (1, 2) grid's
+    config): ITERS iterations of tests/test_torch_trainer.py's train config,
+    checkpoints every 2."""
     cfgs = []
-    for name, mesh_shape in (("ranks", (-1,)), ("one", (1,))):
+    for name, mesh_shape in (("ranks", (-1,)), ("one", (1,)), ("grid", (-1,))):
         cfg = _train_cfg(str(root / name), "")
         cfg.SOLVER.CHECKPOINT_PERIOD = 2
         cfg.PARALLEL.MESH_SHAPE = mesh_shape
+        cfg.PARALLEL.MODEL_PARALLEL = 2 if name == "grid" else 1
         cfgs.append(cfg)
     return tuple(cfgs)
 
 
 ITERS = 3
-SCENARIOS = ["helpers", *(f"sync_bn_{c}" for c in BN_CASES), "accum", "r_only", "do_train"]
+SCENARIOS = ["helpers", *(f"sync_bn_{c}" for c in BN_CASES), "accum", "r_only",
+             "unused_output", "do_train", "do_train_grid"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -140,13 +162,13 @@ def ranks_job(fixture_records, tmp_path_factory):  # noqa: F811
     for case in BN_CASES.values():
         x, dy, state = bn_inputs()
         scenarios.append(("sync_bn", dict(x=x, dy=dy, state=state, **case)))
-    for job in (accum_job, r_only_job):
+    for job in (accum_job, r_only_job, unused_output_job):
         cfg, sd, batches = job()
         scenarios.append(("train", dict(cfg=cfg.to_dict(), state_dict=sd, batches=batches)))
     meta, records = dataset_factory.resolve("trajfix_train")
-    scenarios.append(("do_train", dict(cfg=do_train_cfgs(root)[0].to_dict(),
-                                       dataset="trajfix_train", meta=meta, records=records,
-                                       iters=ITERS)))
+    for cfg in do_train_cfgs(root)[::2]:
+        scenarios.append(("do_train", dict(cfg=cfg.to_dict(), dataset="trajfix_train",
+                                           meta=meta, records=records, iters=ITERS)))
     return {"root": root, "future": start_ranks(root, scenarios)}
 
 
@@ -173,7 +195,7 @@ def test_multihost_helpers_identity_in_one_process():
     assert mh.maybe_init_distributed() is False  # no launcher, no init method
 
 
-def test_host_group_is_a_gloo_twin_made_once_a_process_group(monkeypatch):
+def test_host_group_is_a_gloo_twin_made_once_a_process_group(monkeypatch, tmp_path):
     """Under a default group that is not gloo (NCCL on the card; here a
     1-rank gloo group that says it is NCCL), host_group makes one gloo
     group and reuses it, and a process group made again after
@@ -183,10 +205,9 @@ def test_host_group_is_a_gloo_twin_made_once_a_process_group(monkeypatch):
                         lambda group=None: "nccl" if group is None else backend(group))
     twins = []
     try:
-        for _ in range(2):
+        for i in range(2):
             torch.distributed.init_process_group(
-                "gloo", init_method=f"tcp://127.0.0.1:{dryrun_multichip.free_port()}",
-                world_size=1, rank=0)
+                "gloo", init_method=f"file://{tmp_path / f'rendezvous{i}'}", world_size=1, rank=0)
             first = mh.host_group()
             assert first is not torch.distributed.group.WORLD and mh.host_group() is first
             assert backend(first) == "gloo"
@@ -305,15 +326,15 @@ def test_split_predict_gives_unsplit_poses():
                                    err_msg=k)
 
 
-RESOLVE_CASES = {  # (MESH_SHAPE, MODEL_PARALLEL, batch, world): ranks, or the error
-    "all": ((-1,), 1, 8, 2, 2),
-    "one_of_one": ((1,), 1, 8, 1, 1),
-    "four_on_one_warns": ((4,), 1, 8, 1, 1),
+RESOLVE_CASES = {  # (MESH_SHAPE, MODEL_PARALLEL, batch, world): (data, model) ranks, or the error
+    "all": ((-1,), 1, 8, 2, (2, 1)),
+    "one_of_one": ((1,), 1, 8, 1, (1, 1)),
+    "four_on_one_warns": ((4,), 1, 8, 1, (1, 1)),
     "fewer_than_started": ((1,), 1, 8, 2, ValueError),
     "batch_not_divisible": ((-1,), 1, 3, 2, ValueError),
     "two_d": ((2, 2), 1, 8, 2, ValueError),
     "zero": ((0,), 1, 8, 1, ValueError),
-    "model_axis": ((-1,), 2, 8, 2, NotImplementedError),
+    "model_axis": ((-1,), 2, 8, 2, (1, 2)),
 }
 
 
@@ -324,7 +345,7 @@ def test_resolve_world(case, caplog):
     cfg.PARALLEL.MESH_SHAPE, cfg.PARALLEL.MODEL_PARALLEL = mesh, mp
     logger = logging.getLogger("gdrnet_tpu_torch.test")
     if isinstance(want, type):
-        with pytest.raises(want, match="A10's model axis" if mp > 1 else None):
+        with pytest.raises(want):
             resolve_world(cfg, batch, world, logger)
         return
     with caplog.at_level(logging.WARNING, logger=logger.name):
@@ -453,13 +474,55 @@ def test_ddp_takes_parameters_left_out_of_the_loss(ranks_job):
         np.testing.assert_allclose(got["metrics"][0][k], w, rtol=1e-4, atol=1e-6, err_msg=k)
 
 
-def test_do_train_two_ranks_match_one_process(ranks_job):
+def test_ddp_takes_outputs_left_out_of_the_loss(ranks_job):
+    """The translation's losses off (JAX's _tiny_setup config): the three
+    steps run in 2 ranks (DDP's static graph used to stop at the second:
+    its first step reaches fc_t through the output, the later ones did not),
+    the ranks log the same global terms, at the first step those of one
+    process (rtol 1e-4), and fc_t, which no loss reaches, stays as it was."""
+    cfg, sd, batches = unused_output_job()
+    one = train_steps(cfg, sd, batches[:1], device="cpu")
+    got, other = results(ranks_job, "unused_output")
+    assert other["metrics"] == got["metrics"] and len(got["metrics"]) == 3
+    assert all(np.isfinite(v) for m in got["metrics"] for v in m.values())
+    assert got["state"]["pnp_net.fc_t.weight"].equal(sd["pnp_net.fc_t.weight"])
+    for k, w in one["metrics"][0].items():
+        np.testing.assert_allclose(got["metrics"][0][k], w, rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def one_do_train(ranks_job):
+    """do_train in this process on the ranks' data: the state it returns."""
+    np.random.seed(5)
+    state, _, _ = trainer.do_train(do_train_cfgs(ranks_job["root"])[1],
+                                   max_iters_override=ITERS, device="cpu")
+    return state
+
+
+def test_do_train_on_a_model_axis_matches_one_process(ranks_job, one_do_train):
+    """do_train at PARALLEL.MODEL_PARALLEL=2 in the 2 ranks, a (1, 2) grid:
+    the losses are the one-process run's (rtol 1e-4, as the data-parallel
+    ranks'), and rank 0 writes one process's checkpoint: its keys and whole
+    shapes, loadable by load_weights into one process's model."""
+    _, one, cfg = do_train_cfgs(ranks_job["root"])
+    assert results(ranks_job, "do_train_grid") == [{"step": ITERS, "preempted": False}] * 2
+    np.testing.assert_allclose(_losses(cfg.OUTPUT_DIR), _losses(one.OUTPUT_DIR), rtol=1e-4)
+    with open(osp.join(cfg.OUTPUT_DIR, "log.rank1.txt")) as f:
+        assert "model 1 of 2" in f.read()
+    got, want = (torch.load(osp.join(c.OUTPUT_DIR, "ckpt", "model_0000003.pth"),
+                            weights_only=True) for c in (cfg, one))
+    assert [(k, v.shape) for k, v in got["model"].items()] == [
+        (k, v.shape) for k, v in want["model"].items()]
+    assert got["optimizer"]["state"].keys() == want["optimizer"]["state"].keys()
+    checkpoint.load_weights(build_model(cfg, device="cpu"), osp.join(cfg.OUTPUT_DIR, "ckpt"))
+
+
+def test_do_train_two_ranks_match_one_process(ranks_job, one_do_train):
     """Rank 0 writes metrics.json and the checkpoints (state_dict keys
     without DDP's `module.`, loadable by load_weights), every rank its log;
     the losses are the one-process run's at the same global batch of 4."""
-    cfg, one = do_train_cfgs(ranks_job["root"])
-    np.random.seed(5)
-    state, _, _ = trainer.do_train(one, max_iters_override=ITERS, device="cpu")
+    cfg, one, _ = do_train_cfgs(ranks_job["root"])
+    state = one_do_train
     assert results(ranks_job, "do_train") == [{"step": ITERS, "preempted": False}] * 2
     got, want = _losses(cfg.OUTPUT_DIR), _losses(one.OUTPUT_DIR)
     assert len(got) == len(want) == ITERS

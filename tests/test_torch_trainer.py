@@ -433,15 +433,16 @@ def test_do_train_writes_the_vis_img_panels(fixture_records, reference_pth, tmp_
         assert [e.step for e in acc.Images(tag)] == [0, 1], tag
 
 
-@pytest.mark.parametrize("setting,item", [("PARALLEL.MESH_SHAPE", "A10")])
+@pytest.mark.parametrize("setting,item", [("PARALLEL.MESH_SHAPE", "exceeds 1 devices")])
 def test_what_waits_raises(setting, item, tmp_path):
-    """A mesh with a model axis (PARALLEL.MODEL_PARALLEL > 1) waits for
-    ROADMAP.md queue A item 10, A10's model axis; MESH_SHAPE=(8,) alone now
-    trains on the ranks there are (tests/test_torch_parallel.py)."""
+    """A model axis (PARALLEL.MODEL_PARALLEL = 2) in a world of one rank:
+    do_train raises the ValueError JAX's resolve_mesh_spec raises with one
+    device ("MODEL_PARALLEL=2 exceeds 1 devices"), whatever MESH_SHAPE=(8,)
+    asks for; the model axis itself trains in tests/test_torch_parallel*.py."""
     cfg = _train_cfg(str(tmp_path), "")
-    cfg.set_path(setting, (8,) if setting == "PARALLEL.MESH_SHAPE" else True)
+    cfg.set_path(setting, (8,))
     cfg.PARALLEL.MODEL_PARALLEL = 2
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         trainer.do_train(cfg, max_iters_override=1, device="cpu")
 
 
