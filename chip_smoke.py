@@ -20,8 +20,12 @@ SOLVER.IMS_PER_BATCH=128 on synthetic batches, and then the flagship trains
 as a researcher runs it: engine/trainer.do_train from a BOP train split of
 the ten meshes on disk, whose XYZ ground truth the loader threads render
 with the z-buffer kernel on their own CUDA streams, with a checkpoint and a
-resume. Last, the rendering slice: the z-buffer kernel with the 12 per-pose
-attribute channels of the Phong + XYZ pass, the renders on the card against
+resume; then every COLOR_AUG_TYPE of the JAX package on that split
+([color_aug]: ROI10D, SSD and the albumentations pipeline on data/cv_ops's
+numpy HSV, L*a*b*, CLAHE and filter2D, the mapper on the card against the
+CPU, the host cost of each, a short do_train with the default type, and
+P3P and se3 on a machine without cv2). Last, the rendering slice: the
+z-buffer kernel with the 12 per-pose attribute channels of the Phong + XYZ pass, the renders on the card against
 the CPU, and the flagship's synth dataset written by the port's generator
 (python -m gdrnet_tpu_torch.tools.gen_scale_dataset) as a user runs it.
 Then serving from images as a user of a trained model runs it: BN folded
@@ -29,7 +33,8 @@ into the convs (utils/fold_bn.py) and int8 (models/quantize.py: im2col and
 torch._int_mm), the predict CLI over the split's images and detections, the
 eval_csv CLI re-scoring its CSV (ADD-S on the nearest-neighbour kernel, VSD
 on the z-buffer kernel), and gen_xyz writing the train split's XYZ ground
-truth with the z-buffer kernel. Then the LM-O slice: the port's JPEG codec
+truth with the z-buffer kernel, each CLI's main called in this process as
+`python -m` calls it. Then the LM-O slice: the port's JPEG codec
 (gdrnet_tpu_torch/csrc/jpeg_codec.cpp, host C++ built with g++) against
 the digests cv2 gives, and the LM-O config
 (configs/gdrn/lmo/a6_cPnP_AugAAETrunc_BG0.5_lmo_real_pbr0.1_40e.py) at full
@@ -74,7 +79,16 @@ versions on the CPU; the train step (one f32 step on the card against the
 CPU, 30 bf16 steps, a skipped NaN step, its time per step and split); the
 train loop (the mapper on the card against the CPU, the loader alone,
 do_train to a checkpoint, the resumed state against it, do_train resumed,
-with its step, data and loader times and B2's launches a step); the test
+with its step, data and loader times and B2's launches a step); [color_aug]
+(for ROI10D, SSD and ALBU at COLOR_AUG_PROB=1 the train loop's 16 mapped
+records on the card against the CPU, bit for bit, every frame jittered, B2
+at least once a sample; each augmentor's and cv_ops stand-in's host ms on
+one thread beside the mapper's ms a sample; do_train at B=128 for 3
+iterations with ROI10D at 0.8: losses finite, no step skipped, B2 at least
+once a sample, ROIs/s and data-wait share beside the train loop's; P3P on
+64 exact sets within 1e-9 rad and m, pnp_ransac(method="p3p") on 30 %
+outliers within 1 degree and 1 cm, the se3 functions card against CPU
+within 1e-6); the test
 path ([do_test], [do_test_vs_cpu], [cli]) and the learning check
 ([overfit]); the rendering slice: [render_attr] (B2 at C = 12 against its
 plain version, bitwise, over 15 cases, and its time at the generator's
@@ -86,9 +100,9 @@ render, and agrees with the same scene written on the CPU); serving from
 images: [fold_bn] (folded f32 forward against unfolded, bf16 crops/s
 folded beside unfolded), [int8] (calibration, every layer's int32
 accumulators against the plain version, int8 against bf16, crops/s of int8
-and int8 + folded, _int_mm alone beside a bf16 matmul), [predict] (the CLI
-in a subprocess, scene 1 in f32 on the card against the CPU, FOLD_BN + INT8
-through its options), [eval_csv] (the CLI, its recalls against
+and int8 + folded, _int_mm alone beside a bf16 matmul), [predict] (the CLI's
+main, scene 1 in f32 on the card against the CPU, FOLD_BN + INT8
+through its options), [eval_csv] (the CLI's main, its recalls against
 score_results, B1 and B2 launches, cus / cou_bb_proj card against CPU),
 [gen_xyz] (the CLI over the train split, scene 1 against the CPU, the
 mapper from its pickles), [loader_pkl] (the loader alone with them); the
@@ -138,6 +152,9 @@ It needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and scipy.
 
 from __future__ import annotations
 
+import contextlib
+import importlib
+import io
 import json
 import pickle
 import re
@@ -163,10 +180,12 @@ from gdrnet_tpu_torch import (
     merged_config,
 )
 from gdrnet_tpu_torch.config.config import apply_opts
-from gdrnet_tpu_torch.data import jpeg, jpeg_cases, ref_meta
+from gdrnet_tpu_torch.data import augment as augment_mod
+from gdrnet_tpu_torch.data import cv_ops, jpeg, jpeg_cases, ref_meta
+from gdrnet_tpu_torch.data.augment import build_color_augmentor
 from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts, load_detections
 from gdrnet_tpu_torch.data.dataset_factory import resolve
-from gdrnet_tpu_torch.data.io import read_png, write_png
+from gdrnet_tpu_torch.data.io import read_image, read_png, write_png
 from gdrnet_tpu_torch.data.mapper import GDRNTestMapper, GDRNTrainMapper, collate
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.data.ply import save_ply
@@ -182,9 +201,11 @@ from gdrnet_tpu_torch.data.synthetic import (
 )
 from gdrnet_tpu_torch.engine import build_test_items, do_test, steps
 from gdrnet_tpu_torch.engine.checkpoint import CheckpointManager, load_weights
+from gdrnet_tpu_torch.engine import train as train_cli
 from gdrnet_tpu_torch.engine.steps import make_predict_step
 from gdrnet_tpu_torch.engine.trainer import build_input_pipeline, build_train_objects, do_train
 from gdrnet_tpu_torch.eval import bop_score, cv_pnp
+from gdrnet_tpu_torch.eval import pnp as pnp_mod
 from gdrnet_tpu_torch.eval import vsd as vsd_mod
 from gdrnet_tpu_torch.eval import pose_errors as PE
 from gdrnet_tpu_torch.eval.bop_writer import load_bop_results, save_bop_results
@@ -194,14 +215,13 @@ from gdrnet_tpu_torch.models import quantize as Q
 from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
 from gdrnet_tpu_torch.models.pvnet import PVNet
 from gdrnet_tpu_torch.solver.optimizers import OPTIMIZER_NAMES
-from gdrnet_tpu_torch.ops import device_pnp, kernels
+from gdrnet_tpu_torch.ops import device_pnp, kernels, se3
 from gdrnet_tpu_torch.ops.rasterizer import render_phong_xyz_roi_many, vertex_normals
 from gdrnet_tpu_torch.ops.symmetry import get_closest_rot_batch, identity_padded_sym_arrays
 from gdrnet_tpu_torch.parallel import multihost as mh
 from gdrnet_tpu_torch.tools import bench as bench_tool
 from gdrnet_tpu_torch.tools import bench_pnp
 from gdrnet_tpu_torch.tools import bench_train as bench_train_tool
-from gdrnet_tpu_torch.tools import eval_csv as eval_csv_tool
 from gdrnet_tpu_torch.tools import export_model as export_tool
 from gdrnet_tpu_torch.tools.compute_fps import compute_fps_dict
 from gdrnet_tpu_torch.tools import gen_xyz as gen_xyz_tool
@@ -266,7 +286,7 @@ LOOP_LOADER_BATCHES, LOOP_MAPPED = 8, 16
 # the card against the CPU: rotations within DO_TEST_ROT_ATOL, translations
 # within DO_TEST_TRANS_RTOL of their norm (the forward's tolerance above)
 DET_JITTER_PX, DET_DROP_EVERY, DET_SECOND_EVERY = 4, 16, 10
-DO_TEST_ROT_ATOL, DO_TEST_TRANS_RTOL, CLI_TIMEOUT_S = 1e-3, 1e-3, 300
+DO_TEST_ROT_ATOL, DO_TEST_TRANS_RTOL = 1e-3, 1e-3
 # the learning check (tools/validate_overfit.py): OVERFIT_STEPS updates on one
 # batch of the 2-object split, then do_test; loose gates, the TPU tool's
 # docstring expects about 2 degrees
@@ -290,10 +310,23 @@ GEN_TIMEOUT_S = 300
 # bf16 within INT8_VS_BF16_DEG and INT8_VS_BF16_TRANS_REL
 # (tests/test_quantize.py:97-113), calibrated on one bucket; the int8
 # accumulators card against CPU for INT8_CHECK_CROPS crops of that bucket;
-# serving timed at SERVE_BATCHES, SERVE_ITERS calls each; the tools' CLIs in
-# subprocesses within TOOL_TIMEOUT_S; cus / cou_bb_proj on SIL_PAIRS pairs
+# serving timed at SERVE_BATCHES, SERVE_ITERS calls each; the tools' mains in
+# this process; cus / cou_bb_proj on SIL_PAIRS pairs
 FOLD_POSE_ATOL, INT8_VS_BF16_DEG, INT8_VS_BF16_TRANS_REL = 2e-4, 1.0, 0.05
-INT8_CHECK_CROPS, SERVE_ITERS, TOOL_TIMEOUT_S, SIL_PAIRS = 2, {64: 20, 1024: 6}, 300, 8
+INT8_CHECK_CROPS, SERVE_ITERS, SIL_PAIRS = 2, {64: 20, 1024: 6}, 8
+# every COLOR_AUG_TYPE on the card: [train_loop]'s LOOP_MAPPED records mapped
+# with each of COLOR_TYPES at COLOR_AUG_PROB 1 on the card and on the CPU;
+# each augmentor and new cv_ops stand-in timed on one host thread
+# over COLOR_TIMED calls; do_train at the flagship's batch for COLOR_ITERS
+# iterations with the default type at COLOR_TRAIN_PROB; P3P on COLOR_P3P
+# exact sets of 4 within P3P_RAD / P3P_M, pnp_ransac(method="p3p") on 30 %
+# outliers within P3P_RANSAC_DEG / P3P_RANSAC_M; se3 card vs CPU within
+# SE3_ATOL. MAPPER_MS: the mapper's host ms a sample on the H100's host
+# (scripts/probe_torch_loader.py, PERF.md section 5)
+COLOR_TYPES, COLOR_TIMED = ("ROI10D", "SSD", "ALBU"), 5
+COLOR_ITERS, COLOR_TRAIN_PROB, COLOR_P3P = 3, 0.8, 64
+P3P_RAD, P3P_M, P3P_RANSAC_DEG, P3P_RANSAC_M, SE3_ATOL = 1e-9, 1e-9, 1.0, 0.01, 1e-6
+MAPPER_MS = 66.24
 # the JPEG codec: the case list of data/jpeg_cases.py against cv2's digests,
 # then a 640x480 q95 4:2:0 frame timed JPEG_TIMED times on one thread and
 # JPEG_THREADS threads
@@ -1236,16 +1269,21 @@ def loop_cfg(root: str, weights: str):
     return c
 
 
-def check_card_mapper(cfg, root: str) -> None:
+def check_card_mapper(cfg, root: str) -> dict:
     """(b) LOOP_MAPPED records mapped with the kernel on the card equal the
     same records mapped with the plain rasterizer on the CPU, same seeds:
-    every array bit for bit (so the hit masks too)."""
+    every array bit for bit (so the hit masks too). Returns the records,
+    the models, the background replacer and the CPU's renders, which
+    [color_aug] maps again."""
     _, records, _, models, mapper = build_train_objects(cfg, root, DEV)
     np.random.seed(0)  # GaussianBlur(1.2*np.random.rand()) draws when a mapper is built
     card = GDRNTrainMapper(cfg, models, bg_replacer=mapper.bg, device=DEV)
     np.random.seed(0)
     cpu = GDRNTrainMapper(cfg, models, bg_replacer=mapper.bg, device="cpu")
-    for i, rec in enumerate(records[::max(1, len(records) // LOOP_MAPPED)][:LOOP_MAPPED]):
+    renders: dict = {}
+    cpu._render_xyz = cached_renders(cpu._render_xyz, renders)
+    recs = records[::max(1, len(records) // LOOP_MAPPED)][:LOOP_MAPPED]
+    for i, rec in enumerate(recs):
         got, want = card(dict(rec), np.random.RandomState(i)), cpu(dict(rec), np.random.RandomState(i))
         for k in want:
             if not np.array_equal(got[k], want[k]):
@@ -1253,6 +1291,7 @@ def check_card_mapper(cfg, root: str) -> None:
                                      f"{np.abs(got[k].astype(np.float64) - want[k]).max()}")
     log("train_loop_mapper", records=LOOP_MAPPED, vs="cpu", arrays=len(want), bitwise_equal=True,
         check="ok")
+    return {"records": recs, "models": models, "bg": mapper.bg, "renders": renders}
 
 
 def time_loader(cfg, root: str) -> float:
@@ -1290,7 +1329,7 @@ def phase_train_loop(cfg, state_dict: dict, gsd, root: str, card: str) -> tuple[
     log("train_loop_split", scenes=LOOP_SCENES, images=LOOP_SCENES * LOOP_IMAGES,
         instances=n, size=f"{gsd.W_DEF}x{gsd.H_DEF}", xyz_crop_pickles=0,
         write_s=f"{time.perf_counter() - t0:.2f}")
-    check_card_mapper(c, root)
+    mapped = check_card_mapper(c, root)
     loader_rate = time_loader(c, root)
 
     # the main path: do_train to LOOP_SAVE, then resumed to LOOP_ITERS
@@ -1347,7 +1386,229 @@ def phase_train_loop(cfg, state_dict: dict, gsd, root: str, card: str) -> tuple[
         launches_rasterize_xyz=launches, launches_per_step=f"{launches / LOOP_ITERS:.1f}",
         launches_run1=launches_a, wall_s=f"{run_a_s:.1f}+{run_b_s:.1f}",
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", check="ok")
-    return launches, loader_rate
+    return launches, loader_rate, dict(
+        mapped, weights=weights, data_share=data_ms.sum() / step_ms.sum(),
+        rois_per_s=c.SOLVER.IMS_PER_BATCH / np.median(step_ms) * 1e3)
+
+
+def cached_renders(render, cache: dict):
+    """A mapper's _render_xyz that renders each instance once: the plain
+    rasterizer's XYZ of one record is the same for every colour type."""
+    def fn(rec, im_h, im_w):
+        key = (rec["rgb_path"], rec["R"].tobytes(), rec["t"].tobytes())
+        if key not in cache:
+            cache[key] = render(rec, im_h, im_w)
+        return cache[key].copy()
+    return fn
+
+
+def color_aug_mappers(root: str, loop: dict) -> None:
+    """(a) of [color_aug]: for each of COLOR_TYPES at COLOR_AUG_PROB 1,
+    [train_loop]'s LOOP_MAPPED records mapped on the card and on the CPU
+    with the same seeds, LOOP_WORKERS records at a time (the CPU's renders
+    are [train_loop]'s, which are the same for every type): every array bit
+    for bit, every frame changed by the jitter (the frame it was given is
+    what COLOR_AUG_PROB=0 would crop, on the same draws), B2 launched at
+    least once a sample."""
+    recs, models, bg = loop["records"], loop["models"], loop["bg"]
+    for kind in COLOR_TYPES:
+        ck = loop_cfg(root, loop["weights"])
+        ck.INPUT.COLOR_AUG_TYPE, ck.INPUT.COLOR_AUG_PROB = kind, 1.0
+        ck.INPUT.COLOR_AUG_SYN_ONLY = False
+        np.random.seed(0)
+        card = GDRNTrainMapper(ck, models, bg_replacer=bg, device=DEV)
+        np.random.seed(0)
+        cpu = GDRNTrainMapper(ck, models, bg_replacer=bg, device="cpu")
+        cpu._render_xyz = cached_renders(cpu._render_xyz, loop["renders"])
+        changed = []
+
+        def recording(img, rng, aug=card.color_aug):
+            out = aug(img, rng)
+            changed.append(not np.array_equal(out, img))
+            return out
+
+        card.color_aug = recording
+
+        def compare(i, rec, card=card, cpu=cpu, kind=kind):
+            got = card(dict(rec), np.random.RandomState(i))
+            want = cpu(dict(rec), np.random.RandomState(i))
+            for k in want:
+                if not np.array_equal(got[k], want[k]):
+                    raise AssertionError(f"color_aug {kind}: record {i} {k} card vs CPU differ")
+            return len(want)
+
+        before = kernels.rasterize_xyz.launches
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(LOOP_WORKERS) as pool:  # as the loader's threads map
+            arrays = list(pool.map(compare, range(len(recs)), recs))
+        launches = kernels.rasterize_xyz.launches - before
+        if len(changed) != len(recs) or not all(changed) or launches < len(recs):
+            raise AssertionError(f"color_aug {kind}: {sum(changed)} of {len(changed)} frames "
+                                 f"jittered for {len(recs)} records, B2 launched {launches}")
+        log("color_aug_mapper", type=kind, records=len(recs), vs="cpu", arrays=arrays[0],
+            bitwise_equal=True, frames_jittered=sum(changed), b2_launches=launches,
+            wall_s=f"{time.perf_counter() - t0:.1f}", check="ok")
+
+
+def color_aug_host_ms(frame: np.ndarray, code: str) -> None:
+    """(b) of [color_aug]: the host ms a call (median of COLOR_TIMED, one
+    thread) of each augmentor on a 640x480 frame (seeds 0.. so that the
+    branches vary) and of each new cv_ops stand-in, beside the mapper's
+    ms a sample."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        seeds = iter(range(10 ** 6))
+        augs = {kind: build_color_augmentor(kind, code)
+                for kind in ("ROI10D", "SSD", "ALBU", "AAE", "code")}
+        aug_ms = {k: float(np.median(host_times(
+            lambda a=a: a(frame, np.random.RandomState(next(seeds))), COLOR_TIMED, warmup=1)))
+            for k, a in augs.items()}
+        gray = cv_ops.bgr_to_lab(frame)[..., 0]
+        mask = (gray > 128).astype(np.uint8)
+        h, w = gray.shape
+        poly = [np.array([[w // 8, h // 8], [w // 2, h // 16], [7 * w // 8, h // 3],
+                          [3 * w // 4, 7 * h // 8], [w // 3, 3 * h // 4], [w // 16, h // 2]])]
+        motion = np.zeros((5, 5), np.float32)
+        motion[2] = 0.2
+        crop = frame.astype(np.float32)
+        M = np.array([[0.5, 0.0, -100.0], [0.0, 0.5, -60.0]])
+        ops = {"bgr_to_hsv": lambda: cv_ops.bgr_to_hsv(frame),
+               "hsv_to_bgr": lambda: cv_ops.hsv_to_bgr(frame),
+               "bgr_to_lab": lambda: cv_ops.bgr_to_lab(frame),
+               "lab_to_bgr": lambda: cv_ops.lab_to_bgr(frame),
+               "clahe": lambda: cv_ops.clahe(gray, 2.0),
+               "filter2d_u8_motion5": lambda: cv_ops.filter2d_u8(frame, motion),
+               "filter2d_u8_sharpen": lambda: cv_ops.filter2d_u8(frame, augment_mod._SHARPEN),
+               "box_blur3_u8": lambda: cv_ops.box_blur3_u8(frame),
+               "warp_affine_f32_256": lambda: cv_ops.warp_affine(crop, M, 256),
+               "fill_poly": lambda: cv_ops.fill_poly(np.zeros_like(mask), poly, 1),
+               "dilate3": lambda: cv_ops.dilate(mask, 3), "erode3": lambda: cv_ops.erode(mask, 3)}
+        op_ms = {k: float(np.median(host_times(f, COLOR_TIMED, warmup=1))) for k, f in ops.items()}
+    finally:
+        torch.set_num_threads(threads)
+    fmt = lambda d: json.dumps({k: f"{v:.2f}" for k, v in d.items()}).replace(" ", "")  # noqa: E731
+    log("color_aug_host", frame=f"{w}x{h}", threads=1, calls=COLOR_TIMED,
+        augmentor_ms_median=fmt(aug_ms), cv_ops_ms_median=fmt(op_ms),
+        mapper_ms_per_sample=MAPPER_MS,
+        added_share_of_mapper=fmt({k: v / MAPPER_MS for k, v in aug_ms.items()}))
+
+
+def color_aug_train(root: str, card: str, loop: dict) -> int:
+    """(c) of [color_aug]: do_train at the flagship's batch for COLOR_ITERS
+    iterations with the default COLOR_AUG_TYPE at COLOR_TRAIN_PROB: every
+    loss finite, no step skipped, B2 at least once a sample; ROIs/s and the
+    data-wait share beside [train_loop]'s. Returns B2's launches."""
+    ct = loop_cfg(root, loop["weights"])
+    ct.OUTPUT_DIR = str(Path(root) / "color_out")
+    ct.INPUT.COLOR_AUG_TYPE, ct.INPUT.COLOR_AUG_PROB = "ROI10D", COLOR_TRAIN_PROB
+    kernels.nn_min_dist.launches = 0
+    kernels.rasterize_xyz.launches = 0
+    t0 = time.perf_counter()
+    state, _, preempted = do_train(ct, data_root=root, max_iters_override=COLOR_ITERS, device=DEV)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernels.rasterize_xyz.launches
+    with open(Path(ct.OUTPUT_DIR) / "metrics.json") as f:
+        rows = [json.loads(ln) for ln in f]
+    losses = np.array([r["total_loss"] for r in rows])
+    skips = np.array([r["nonfinite_skip"] for r in rows])
+    samples = COLOR_ITERS * ct.SOLVER.IMS_PER_BATCH
+    if preempted or state.step != COLOR_ITERS or [r["iteration"] for r in rows] != list(
+            range(COLOR_ITERS)) or not np.all(np.isfinite(losses)) or skips.any() \
+            or launches < samples:
+        raise AssertionError(f"color_aug train: step {state.step}, losses {losses.tolist()}, "
+                             f"skips {skips.tolist()}, B2 {launches} for {samples} samples")
+    # the first iteration warms up; the last fetches no next batch, so its
+    # time/step holds no data wait while its time/data is the previous one
+    steady = rows[1:-1]
+    step_ms = np.array([r["time/step"] for r in steady]) * 1e3
+    data_ms = np.array([r["time/data"] for r in steady]) * 1e3
+    log("color_aug_train", card=repr(card), type="ROI10D", prob=COLOR_TRAIN_PROB,
+        batch=ct.SOLVER.IMS_PER_BATCH, iterations=COLOR_ITERS, losses_finite=True,
+        skipped=int(skips.sum()), total_loss_last=f"{losses[-1]:.4f}",
+        step_ms_median=f"{np.median(step_ms):.1f}", data_ms_median=f"{np.median(data_ms):.1f}",
+        rois_per_s=f"{ct.SOLVER.IMS_PER_BATCH / np.median(step_ms) * 1e3:.1f}",
+        data_share=f"{data_ms.sum() / step_ms.sum():.3f}",
+        train_loop_rois_per_s=f"{loop['rois_per_s']:.1f}",
+        train_loop_data_share=f"{loop['data_share']:.3f}",
+        launches_rasterize_xyz=launches, wall_s=f"{wall_s:.1f}", check="ok")
+    return launches
+
+
+def p3p_scene(rng, K: np.ndarray, n: int, noise: float = 0.0, outliers: float = 0.0):
+    """A pose 0.9 m away and n points of a 0.2 m cube, projected with K."""
+    Q, _ = np.linalg.qr(rng.randn(3, 3))
+    R = Q * np.sign(np.linalg.det(Q))
+    t = np.array([0.05, -0.03, 0.9]) + rng.randn(3) * 0.05
+    p3 = (rng.rand(n, 3) - 0.5) * 0.2
+    uv = (p3 @ R.T + t) @ K.T
+    uv = uv[:, :2] / uv[:, 2:3] + rng.randn(n, 2) * noise
+    k = int(n * outliers)
+    if k:
+        uv[n - k:] = rng.rand(k, 2) * [640, 480]
+    return R, t, p3, uv
+
+
+def color_aug_p3p_se3(K: np.ndarray) -> None:
+    """(d) of [color_aug], with no cv2: solve_pnp("p3p") on COLOR_P3P exact
+    sets of 4 within P3P_RAD and P3P_M of the truth; pnp_ransac(method=
+    "p3p") on 30 % outliers within P3P_RANSAC_DEG and P3P_RANSAC_M; the se3
+    functions on CUDA tensors within SE3_ATOL of the CPU."""
+    rng = np.random.RandomState(21)
+    rad, m = [], []
+    for _ in range(COLOR_P3P):
+        R, t, p3, uv = p3p_scene(rng, K, 4)
+        ok, rv, tv = cv_pnp.solve_pnp(p3, uv, K, flags="p3p")
+        if not ok:
+            raise AssertionError("p3p: no root for an exact set")
+        rad.append(np.radians(rot_deg(cv_pnp.rodrigues(rv), R)))
+        m.append(np.abs(tv.ravel() - t).max())
+    deg, dm = [], []
+    for _ in range(4):
+        R, t, p3, uv = p3p_scene(rng, K, 300, noise=0.5, outliers=0.3)
+        pose = pnp_mod.pnp_ransac(p3, uv, K, method="p3p")
+        deg.append(rot_deg(pose[:, :3], R))
+        dm.append(np.linalg.norm(pose[:, 3] - t))
+    u = torch.from_numpy(rng.rand(2, 64, 3).astype(np.float32))
+    t3 = torch.from_numpy(rng.randn(2, 64, 3).astype(np.float32))
+    got = {}
+    for device in ("cpu", DEV):
+        R1, R2 = (se3.rotations_from_uniforms(x.to(device)) for x in u)
+        t1, t2 = t3[0].to(device), t3[1].to(device)
+        outs = [se3.rt_to_mat4(R1, t1), *se3.se3_mul(R1, t1, R2, t2), *se3.se3_inverse(R1, t1),
+                *se3.relative_pose(R1, t1, R2, t2), *se3.interpolate_poses(R1, t1, R2, t2, 0.3)]
+        got[device] = [o.cpu().numpy() for o in outs]
+    se3_err = max(float(np.abs(a - b).max()) for a, b in zip(got["cpu"], got[DEV]))
+    Rg = se3.random_rotations(torch.Generator(device=DEV).manual_seed(0), 64)
+    ortho = float((Rg @ Rg.transpose(-1, -2) - torch.eye(3, device=Rg.device)).abs().max())
+    if max(rad) > P3P_RAD or max(m) > P3P_M or max(deg) > P3P_RANSAC_DEG \
+            or max(dm) > P3P_RANSAC_M or se3_err > SE3_ATOL or ortho > ORTHO_ATOL:
+        raise AssertionError(f"p3p / se3: rad {max(rad)}, m {max(m)}, ransac deg {max(deg)} "
+                             f"m {max(dm)}, se3 {se3_err}, ortho {ortho}")
+    log("color_aug_p3p_se3", p3p_sets=COLOR_P3P, p3p_rad_max=f"{max(rad):.2e}",
+        p3p_m_max=f"{max(m):.2e}", ransac_scenes=len(deg), ransac_outliers=0.3,
+        ransac_deg_max=f"{max(deg):.3f}", ransac_m_max=f"{max(dm):.4f}",
+        se3_card_vs_cpu_max_abs=f"{se3_err:.2e}", random_rotations_ortho=f"{ortho:.1e}",
+        check="ok")
+
+
+def phase_color_aug(root: str, card: str, loop: dict) -> int:
+    """[color_aug]: every COLOR_AUG_TYPE of the host train path on the card
+    over [train_loop]'s 640x480 split with the flagship (a) the mapper per
+    type, card against CPU, (b) the host cost of each augmentor and
+    stand-in, (c) a short training run with the default type, (d) P3P and
+    se3 without cv2. Returns B2's launches in (c)."""
+    t0 = time.perf_counter()
+    color_aug_mappers(root, loop)
+    rec = loop["records"][0]
+    code = loop_cfg(root, loop["weights"]).INPUT.COLOR_AUG_CODE
+    color_aug_host_ms(read_image(rec["rgb_path"]), code)
+    launches = color_aug_train(root, card, loop)
+    color_aug_p3p_se3(rec["K"].astype(np.float64))
+    log("color_aug", types=",".join(COLOR_TYPES), phase_s=f"{time.perf_counter() - t0:.1f}",
+        check="ok")
+    return launches
 
 
 def write_detections(split, path: str, seed: int = 5) -> dict:
@@ -1601,22 +1862,23 @@ def phase_do_test_vs_cpu(cfg32, split, dets: dict, weights: str, root: str) -> N
 
 
 def phase_cli(cfg, split, dets: dict, weights: str, root: str, in_process: tuple) -> None:
-    """`python -m gdrnet_tpu_torch.engine.train --eval-only` on the card over
-    the split as a dataset name (<dir>_test of a directory with meta.json),
-    the detections and the checkpoint: exit code 0, results.json,
-    config_dump.json and the CSV written, recalls equal to [do_test]'s."""
+    """The engine.train CLI's main with --eval-only on the card (what
+    `python -m gdrnet_tpu_torch.engine.train` calls; [train_variant],
+    [train_lmo] and [ddp] run the CLI in processes of its own) over the
+    split as a dataset name (<dir>_test of a directory with meta.json), the
+    detections and the checkpoint: it returns, results.json,
+    config_dump.json and the CSV are written, recalls equal to
+    [do_test]'s."""
     split_dir = Path(split["models"].meta.data_root)
     out = Path(root) / "cli_out"
-    cmd = [sys.executable, "-m", "gdrnet_tpu_torch.engine.train", "--config-file", FLAGSHIP,
-           "--eval-only", "--data-root", str(split_dir.parent),
-           f"DATASETS.TEST=({split_dir.name + '_test'!r},)",
-           f"DATASETS.DET_FILES_TEST=({dets['path']!r},)", f"MODEL.WEIGHTS={weights!r}",
-           f"OUTPUT_DIR={str(out)!r}"]
+    argv = ["--config-file", FLAGSHIP, "--eval-only", "--data-root", str(split_dir.parent),
+            f"DATASETS.TEST=({split_dir.name + '_test'!r},)",
+            f"DATASETS.DET_FILES_TEST=({dets['path']!r},)", f"MODEL.WEIGHTS={weights!r}",
+            f"OUTPUT_DIR={str(out)!r}"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_cli.main(argv, device=DEV)
     wall_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"cli: exit {proc.returncode}\n{proc.stderr[-4000:]}")
     with open(out / "results.json") as f:
         res = json.load(f)
     missing = [p for p in (out / "results.json", out / "config_dump.json",
@@ -1627,7 +1889,7 @@ def phase_cli(cfg, split, dets: dict, weights: str, root: str, in_process: tuple
     rows = load_bop_results(res["_csv_path"])
     flips = threshold_flips(cfg, rows, want_rows, split["records"], split["models"])
     differ = recalls_differ("cli", res, want, flips)
-    log("cli", rc=proc.returncode, wall_s=f"{wall_s:.1f}", csv_rows=len(rows),
+    log("cli", wall_s=f"{wall_s:.1f}", csv_rows=len(rows),
         files="results.json,config_dump.json,csv",
         ar_bop19=f"{res['_bop_average_recall']:.4f}",
         recalls_vs_do_test="equal" if not differ else f"differ at {len(differ)} (flips)",
@@ -2231,24 +2493,25 @@ def scene_dets(dets: dict, path: str, scene_id: int) -> str:
 
 
 def run_tool(name: str, args: list) -> tuple[subprocess.CompletedProcess, float]:
-    """`python -m gdrnet_tpu_torch.tools.<name> ...` on the card; raises
-    unless it exits 0."""
+    """gdrnet_tpu_torch.tools.<name>'s main(args), which `python -m` runs,
+    on the card in this process (a process start costs about 8 s), its
+    standard output captured; raises unless it returns."""
+    module = importlib.import_module(f"gdrnet_tpu_torch.tools.{name}")
+    out = io.StringIO()
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", f"gdrnet_tpu_torch.tools.{name}"] + args,
-                          cwd=REPO, capture_output=True, text=True, timeout=TOOL_TIMEOUT_S)
+    with contextlib.redirect_stdout(out):
+        module.main(list(args), device=DEV)
     wall_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"{name}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
-    return proc, wall_s
+    return subprocess.CompletedProcess([name] + list(args), 0, out.getvalue(), ""), wall_s
 
 
 def phase_predict(cfg, split, dets: dict, weights: str, root: str) -> str:
-    """The predict CLI over the BOP split's images and est_dets.json with
-    [train_loop]'s checkpoint: a subprocess on the card (exit 0, one CSV
-    row a detection, finite rotations and translations); in process on
-    scene 1 in f32 (TF32 off), the card against the CPU within the gates of
-    [do_test_vs_cpu]; in process with TEST.FOLD_BN=True TEST.INT8=True:
-    the same rows, finite. Returns the subprocess's CSV."""
+    """The predict CLI's main over the BOP split's images and est_dets.json
+    with [train_loop]'s checkpoint, on the card (it returns, one CSV row a
+    detection, finite rotations and translations); on scene 1 in f32 (TF32
+    off), the card against the CPU within the gates of [do_test_vs_cpu];
+    with TEST.FOLD_BN=True TEST.INT8=True: the same rows, finite. Returns
+    the first run's CSV."""
     split_dir = Path(split["models"].meta.data_root)
     data = ["--config-file", FLAGSHIP, "--ckpt", weights, "--dataset", split_dir.name,
             "--data-root", str(split_dir.parent), "--image-root", str(split_dir / "test")]
@@ -2302,37 +2565,32 @@ def phase_predict(cfg, split, dets: dict, weights: str, root: str) -> str:
 
 
 def phase_eval_csv(cfg, split, csv: str, root: str) -> tuple[int, int]:
-    """The eval_csv CLI over [predict]'s CSV with the flagship's
-    VAL.ERROR_TYPES: a subprocess on the card (exit 0, --out and --latex
-    written), then the same in process with B1's and B2's launches counted,
-    both equal to score_results on the CSV; then cus and cou_bb_proj on
-    SIL_PAIRS pose pairs on the card equal to the CPU. Returns (B1, B2)
-    launches of the in-process run."""
+    """The eval_csv CLI's main over [predict]'s CSV with the flagship's
+    VAL.ERROR_TYPES on the card, B1's and B2's launches counted: it returns,
+    --out and --latex are written, and its recalls equal score_results on
+    the CSV; then cus and cou_bb_proj on SIL_PAIRS pose pairs on the card
+    equal to the CPU. Returns (B1, B2) launches of the run."""
     split_dir = Path(split["models"].meta.data_root)
     out = Path(root) / "eval_csv"
     args = ["--csv", csv, "--dataset", split_dir.name, "--data-root", str(split_dir.parent),
             "--error-types", cfg.VAL.ERROR_TYPES, "--out", str(out.with_suffix(".json")),
             "--latex", str(out.with_suffix(".tex"))]
+    kernels.nn_min_dist.launches = 0
+    kernels.rasterize_xyz.launches = 0
     proc, wall_s = run_tool("eval_csv", args)
+    launches = kernels.nn_min_dist.launches, kernels.rasterize_xyz.launches
     with open(out.with_suffix(".json")) as f:
         from_cli = json.load(f)
     if not out.with_suffix(".tex").read_text().startswith("\\documentclass"):
         raise AssertionError("eval_csv: no latex report")
-    kernels.nn_min_dist.launches = 0
-    kernels.rasterize_xyz.launches = 0
-    t0 = time.perf_counter()
-    scores = eval_csv_tool.main(args, device=DEV)
-    in_s = time.perf_counter() - t0
-    launches = kernels.nn_min_dist.launches, kernels.rasterize_xyz.launches
     meta = split["models"].meta
     want = bop_score.score_results(load_bop_results(csv), split["records"], ObjectModels(meta),
                                    cfg.VAL.ERROR_TYPES, image_width=meta.width, device=DEV)
-    as_json = json.loads(json.dumps(scores))
-    if as_json != from_cli or json.loads(json.dumps(want)) != from_cli or min(launches) < 1:
-        raise AssertionError(f"eval_csv: CLI, in-process and score_results recalls differ, or "
+    if json.loads(json.dumps(want)) != from_cli or min(launches) < 1:
+        raise AssertionError(f"eval_csv: the CLI's and score_results' recalls differ, or "
                              f"launches {launches}")
-    ar = bop_score.bop19_average_recall(scores)
-    log("eval_csv", rc=proc.returncode, wall_s=f"{wall_s:.1f}", in_process_s=f"{in_s:.2f}",
+    ar = bop_score.bop19_average_recall(want)
+    log("eval_csv", rc=proc.returncode, wall_s=f"{wall_s:.1f}",
         error_types=cfg.VAL.ERROR_TYPES, ar_bop19=f"{ar:.4f}",
         recalls="equal to score_results", launches_nn_min_dist=launches[0],
         launches_rasterize_xyz=launches[1], latex=out.with_suffix(".tex").name,
@@ -2359,8 +2617,8 @@ def phase_eval_csv(cfg, split, csv: str, root: str) -> tuple[int, int]:
 
 
 def phase_gen_xyz(cfg, root: str) -> int:
-    """The gen_xyz CLI on the card over [train_loop]'s train split (written
-    without pickles): exit 0 and one pickle an instance; scene 1 written
+    """The gen_xyz CLI's main on the card over [train_loop]'s train split
+    (written without pickles): one pickle an instance; scene 1 written
     again on the CPU, bitwise equal; then the train mapper maps GEN_MAPPED
     records from the pickles with no B2 launch. Returns the CLI's B2
     launches."""
@@ -3972,7 +4230,8 @@ def main() -> int:
         del model, m32, predict
         phase_train_f32(cfg32, state_dict)
         train, train_ms = phase_train(cfg, state_dict, card)
-        loop_launches, loader_rate = phase_train_loop(cfg, state_dict, gsd, root, card)
+        loop_launches, loader_rate, loop = phase_train_loop(cfg, state_dict, gsd, root, card)
+        color_launches = phase_color_aug(root, card, loop)
         ckpt = str(Path(root) / "train_out" / "ckpt")
         dets = write_detections(split, str(Path(root) / "est_dets.json"))
         tested = phase_do_test(cfg, split, dets, ckpt, root, card)
@@ -4016,7 +4275,7 @@ def main() -> int:
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:140",
          "launches": raster_launches + loop_launches + test_launches[1] + gen_launches
          + csv_launches[1] + xyz_launches + lmo_launches[1] + tv_launches[1] + pnp_launches[1]
-         + ddp_launches[1] + bt_launches,
+         + ddp_launches[1] + bt_launches + color_launches,
          **raster_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -6,16 +6,16 @@ RandomState, so a seeded mapper gives the JAX package's images).
 Covers the reference's augmentation surface (core/base_data_loader.py:154-259
 _get_color_augmentor/_color_aug and :320-419 replace_bg/get_bg_image):
 
+  * ROI10D AugmentRGB-style brightness/contrast/saturation jitter
+    (core/utils/augment.py:7), the SSD photometric distortion and the
+    numpy form of the `code_albu` albumentations pipeline, on data/cv_ops's
+    HSV, LAB, CLAHE, filter2D and blur stand-ins
   * the imgaug code-string DSL ("code", and the built-in "aae" string) that
     every shipped config uses, evaluated against numpy ops in a restricted
     namespace
   * background replacement with aspect-keeping resize and optional
     foreground truncation (TRUNCATE_FG), from PNG or JPEG backgrounds
     (data/jpeg.py) or the gradient fallback
-
-Not ported yet (ROADMAP.md A13, each raises NotImplementedError): the
-ROI10D, SSD and albumentations pipelines and the saturation / hue ops, which
-need OpenCV's HSV, LAB and CLAHE.
 
 Every op takes (img uint8 HWC BGR, rng: np.random.RandomState).
 """
@@ -30,9 +30,6 @@ import numpy as np
 
 from gdrnet_tpu_torch.data import cv_ops
 from gdrnet_tpu_torch.data.io import load_im
-
-_NOT_PORTED = "not ported yet (ROADMAP.md A13: OpenCV's HSV, LAB and CLAHE)"
-
 
 # ---------------------------------------------------------------------------
 # elementary color ops
@@ -82,11 +79,15 @@ def aug_invert_channel(img, rng, p_channel=0.3):
 
 
 def aug_saturation(img, rng, lo=0.5, hi=1.5):
-    raise NotImplementedError(f"aug_saturation: {_NOT_PORTED}")
+    hsv = cv_ops.bgr_to_hsv(img).astype(np.float32)
+    hsv[..., 1] = np.clip(hsv[..., 1] * rng.uniform(lo, hi), 0, 255)
+    return cv_ops.hsv_to_bgr(hsv.astype(np.uint8))
 
 
 def aug_hue(img, rng, delta=18):
-    raise NotImplementedError(f"aug_hue: {_NOT_PORTED}")
+    hsv = cv_ops.bgr_to_hsv(img).astype(np.int32)
+    hsv[..., 0] = (hsv[..., 0] + rng.randint(-delta, delta + 1)) % 180
+    return cv_ops.hsv_to_bgr(hsv.astype(np.uint8))
 
 
 def aug_coarse_dropout(img, rng, p_px=0.05, size_frac=0.05, fill=0):
@@ -99,6 +100,96 @@ def aug_coarse_dropout(img, rng, p_px=0.05, size_frac=0.05, fill=0):
     out = img.copy()
     out[mask.astype(bool)] = fill
     return out
+
+
+def aug_roi10d(img, rng, brightness=18.0, contrast=0.4, saturation=0.4):
+    """AugmentRGB-style jitter (reference core/utils/augment.py:7-60)."""
+    img = aug_brightness_add(img, rng, -brightness, brightness)
+    img = aug_contrast(img, rng, 1 - contrast, 1 + contrast)
+    img = aug_saturation(img, rng, 1 - saturation, 1 + saturation)
+    return img
+
+
+def aug_ssd(img, rng):
+    """SSD-style photometric distortion (reference ColorAugSSDTransform,
+    core/utils/ssd_color_transform.py:10): random brightness, contrast,
+    saturation, hue in randomized order."""
+    if rng.rand() < 0.5:
+        img = aug_brightness_add(img, rng, -32, 32)
+    if rng.rand() < 0.5:  # contrast-first or contrast-last ordering
+        if rng.rand() < 0.5:
+            img = aug_contrast(img, rng, 0.5, 1.5)
+        img = aug_saturation(img, rng, 0.5, 1.5)
+        img = aug_hue(img, rng, 18)
+    else:
+        img = aug_saturation(img, rng, 0.5, 1.5)
+        img = aug_hue(img, rng, 18)
+        if rng.rand() < 0.5:
+            img = aug_contrast(img, rng, 0.5, 1.5)
+    return img
+
+
+_SHARPEN = np.array([[-1, -1, -1], [-1, 9, -1], [-1, -1, -1]], np.float32)
+_EMBOSS = np.array([[-1, -1, 0], [-1, 1, 1], [0, 1, 1]], np.float32)
+
+
+def aug_albu(img, rng):
+    """numpy form of the reference's `code_albu` albumentations pipeline
+    (base_data_loader.py:208-243), as the JAX package composes it: coarse
+    dropout, noise, a blur family, CLAHE/sharpen/emboss/brightness-contrast,
+    invert, RGB shift, contrast, gamma, brightness. Returns floats in
+    [0, 255]: f32, or f64 where RandomBrightness's numpy-scalar factor
+    promotes the frame, as in the JAX package."""
+    img = img.astype(np.float32)
+    if rng.rand() < 0.4:  # CoarseDropout(max 5% holes of 5% size, p=0.4)
+        img = aug_coarse_dropout(img, rng, p_px=0.03, size_frac=0.05)
+    if rng.rand() < 0.2:  # OneOf additive noise
+        img = aug_gaussian_noise(img, rng, scale=10.0)
+    if rng.rand() < 0.2:  # OneOf[MotionBlur | MedianBlur(3) | Blur(3)]
+        u = rng.rand()
+        u8 = np.clip(img, 0, 255).astype(np.uint8)
+        if u < 0.5:  # motion blur: a horizontal or vertical line kernel
+            k = 2 * rng.randint(1, 3) + 1
+            kern = np.zeros((k, k), np.float32)
+            if rng.rand() < 0.5:
+                kern[k // 2, :] = 1.0
+            else:
+                kern[:, k // 2] = 1.0
+            img = cv_ops.filter2d_u8(u8, kern / kern.sum()).astype(np.float32)
+        elif u < 0.75:
+            img = cv_ops.median_blur3(u8).astype(np.float32)
+        else:
+            img = cv_ops.box_blur3_u8(u8).astype(np.float32)
+    if rng.rand() < 0.3:  # OneOf[CLAHE | Sharpen | Emboss | Bright+Contrast]
+        u = rng.rand()
+        u8 = np.clip(img, 0, 255).astype(np.uint8)
+        if u < 0.25:
+            lab = cv_ops.bgr_to_lab(u8)
+            lab[..., 0] = cv_ops.clahe(lab[..., 0], 2.0)
+            img = cv_ops.lab_to_bgr(lab).astype(np.float32)
+        elif u < 0.5:
+            img = cv_ops.filter2d_u8(u8, _SHARPEN).astype(np.float32)
+        elif u < 0.75:  # emboss blended with identity
+            emb = cv_ops.filter2d_u8(u8, _EMBOSS).astype(np.float32)
+            a = rng.uniform(0.2, 0.5)
+            img = (1 - a) * img + a * emb
+        else:
+            img = aug_contrast(aug_brightness_add(img, rng), rng,
+                               lo=0.8, hi=1.2)
+    if rng.rand() < 0.2:  # InvertImg
+        img = 255.0 - img
+    if rng.rand() < 0.5:  # RGBShift(105/45/40) — img is BGR
+        shift = np.array([rng.uniform(-40, 40), rng.uniform(-45, 45),
+                          rng.uniform(-105, 105)], np.float32)
+        img = img + shift[None, None]
+    if rng.rand() < 0.5:  # RandomContrast(0.9)
+        img = aug_contrast(img, rng, lo=0.1, hi=1.9)
+    if rng.rand() < 0.5:  # RandomGamma(80..120)
+        gamma = rng.uniform(0.8, 1.2)
+        img = 255.0 * (np.clip(img, 0, 255) / 255.0) ** gamma
+    if rng.rand() < 0.5:  # RandomBrightness(1.2)
+        img = img * (1.0 + rng.uniform(-0.5, 0.5))
+    return np.clip(img, 0, 255)
 
 
 # ---------------------------------------------------------------------------
@@ -297,12 +388,16 @@ def parse_aug_code(code: str) -> Callable:
 def build_color_augmentor(aug_type: str = "ROI10D",
                           aug_code: str | None = None) -> Callable:
     key = aug_type.lower()
+    if key == "roi10d":
+        return aug_roi10d
     if key == "aae":  # fixed built-in pipeline (base_data_loader.py:168-186)
         return parse_aug_code(AAE_AUG_CODE)
     if key == "code":  # cfg.INPUT.COLOR_AUG_CODE DSL (:196-208)
         return parse_aug_code(aug_code) if aug_code else parse_aug_code(AAE_AUG_CODE)
-    if key in ("roi10d", "albu", "code_albu", "ssd"):
-        raise NotImplementedError(f"COLOR_AUG_TYPE {aug_type!r}: {_NOT_PORTED}")
+    if key in ("albu", "code_albu"):
+        return aug_albu
+    if key == "ssd":
+        return aug_ssd
     raise ValueError(f"Unknown color aug type: {aug_type}")
 
 

@@ -4,8 +4,9 @@ no cv2, as data/io.py needs none for PNG).
 Each function gives what the JAX package's cv2 call gives, as OpenCV 5.0
 computes it:
   warp_affine       cv2.warpAffine(img, M, (size, size), flags, borderValue=0)
-                    (data/mapper.py:crop_resize): bilinear on uint8, nearest
-                    on any dtype; bit for bit.
+                    (data/mapper.py:crop_resize): bilinear on uint8, f32 and
+                    f64 (the albumentations pipeline's frames), nearest on
+                    any dtype; bit for bit.
   gaussian_blur_u8  cv2.GaussianBlur(u8, (k, k), sigma) (augment.py:58,257):
                     the bit-exact 8.8 fixed-point kernel and rounding; bit
                     for bit.
@@ -17,10 +18,31 @@ computes it:
   laplacian         cv2.Laplacian(f32, CV_32F) with ksize=1, BORDER_REFLECT_101
                     (mapper.py:90).
   bgr_to_gray       cv2.cvtColor(u8, COLOR_BGR2GRAY) (augment.py:322).
+  bgr_to_hsv        cv2.cvtColor(u8, COLOR_BGR2HSV) (augment.py:85,89): H in
+                    [0, 180), the integer tables with a 12-bit shift; bit for
+                    bit over all 2^24 colours.
+  hsv_to_bgr        cv2.cvtColor(u8, COLOR_HSV2BGR): f32 with fused steps;
+                    bit for bit over every input, H >= 180 too.
+  bgr_to_lab        cv2.cvtColor(u8, COLOR_BGR2LAB) (augment.py:149): the
+                    fixed-point gamma and cube-root tables; bit for bit over
+                    all 2^24 colours.
+  lab_to_bgr        cv2.cvtColor(u8, COLOR_LAB2BGR) (augment.py:151): the
+                    integer L, a, b tables; bit for bit over every input.
+  clahe             cv2.createCLAHE(clipLimit, (8, 8)).apply(u8)
+                    (augment.py:150); bit for bit.
+  filter2d_u8       cv2.filter2D(u8, -1, f32 kernel) (augment.py:138,156,
+                    160): f32 fused sums in kernel order; bit for bit.
+  box_blur3_u8      cv2.blur(u8, (3, 3)) (augment.py:144); bit for bit.
+  fill_poly         cv2.fillPoly(mask, polys, value) with integer vertices
+                    inside the image (utils/mask_utils.py:119-129); bit for
+                    bit.
+  dilate, erode     cv2.dilate / cv2.erode with a rectangle of ones
+                    (utils/mask_utils.py:144-160); bit for bit.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -65,9 +87,12 @@ def warp_affine(img: np.ndarray, M, size: int, interp: str = INTER_LINEAR) -> np
     Source point of output pixel (x, y): sx = fma(x, m0, y*m1 + m2) in f32
     (the row base rounded twice, then one fused step), the same for sy.
     Nearest takes the pixel at (rint(sx), rint(sy)), ties to even. Bilinear
-    (uint8 only) interpolates in f32 with fused steps, v0 = fma(a, p01 - p00,
-    p00), v1 likewise, v = fma(b, v1 - v0, v0), and rounds to the nearest
-    integer, ties to even."""
+    (uint8 or f32) interpolates in f32 with fused steps, v0 = fma(a, p01 -
+    p00, p00), v1 likewise, v = fma(b, v1 - v0, v0); uint8 rounds that to
+    the nearest integer, ties to even. An f64 image takes OpenCV's older
+    remap path (_warp_affine_remap64)."""
+    if img.dtype == np.float64 and interp == INTER_LINEAR:
+        return _warp_affine_remap64(img, M, size)
     m = _invert_affine(M)
     ys = np.arange(size, dtype=np.float32)[:, None]
     xs = np.arange(size, dtype=np.float64)[None, :]
@@ -75,8 +100,8 @@ def warp_affine(img: np.ndarray, M, size: int, interp: str = INTER_LINEAR) -> np
     sy = _fma32(xs, m[3], ys * m[4] + m[5])
     if interp == INTER_NEAREST:
         return _gather(img, np.rint(sy).astype(np.int64), np.rint(sx).astype(np.int64))
-    if interp != INTER_LINEAR or img.dtype != np.uint8:
-        raise ValueError(f"warp_affine: bilinear takes uint8, got {img.dtype} ({interp})")
+    if interp != INTER_LINEAR or img.dtype not in (np.uint8, np.float32):
+        raise ValueError(f"warp_affine: bilinear takes uint8 or f32, got {img.dtype} ({interp})")
     fx, fy = np.floor(sx), np.floor(sy)
     a, b = sx - fx, sy - fy                                      # exact in f32
     ix, iy = fx.astype(np.int64), fy.astype(np.int64)
@@ -87,7 +112,37 @@ def warp_affine(img: np.ndarray, M, size: int, interp: str = INTER_LINEAR) -> np
     v0 = _fma32(a, p01 - p00, p00)
     v1 = _fma32(a, p11 - p10, p10)
     v = _fma32(b, v1 - v0, v0)
+    if img.dtype == np.float32:
+        return v
     return np.clip(np.rint(v), 0, 255).astype(np.uint8)
+
+
+def _warp_affine_remap64(img: np.ndarray, M, size: int) -> np.ndarray:
+    """Bilinear cv2.warpAffine of an f64 [H,W(,C)] image: the inverse map in
+    f64 scaled to 10-bit fixed point per row and column, source points on a
+    1/32 pixel grid, the four taps weighted by f32 table weights and summed
+    in f64, 0 outside the image."""
+    m = np.asarray(M, np.float64).reshape(2, 3)
+    d = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22, a12, a21 = m[1, 1] * d, m[0, 0] * d, -m[0, 1] * d, -m[1, 0] * d
+    b1, b2 = -a11 * m[0, 2] - a12 * m[1, 2], -a21 * m[0, 2] - a22 * m[1, 2]
+    ab, half = 1 << 10, 1 << 4
+    x = np.arange(size)
+    y = np.arange(size)[:, None]
+    X = (np.rint((a12 * y + b1) * ab).astype(np.int64) + half
+         + np.rint(a11 * x * ab).astype(np.int64)) >> 5
+    Y = (np.rint((a22 * y + b2) * ab).astype(np.int64) + half
+         + np.rint(a21 * x * ab).astype(np.int64)) >> 5
+    fx, fy = (X & 31) / 32.0, (Y & 31) / 32.0
+    ix, iy = X >> 5, Y >> 5
+    taps = ((iy, ix, (1 - fy) * (1 - fx)), (iy, ix + 1, (1 - fy) * fx),
+            (iy + 1, ix, fy * (1 - fx)), (iy + 1, ix + 1, fy * fx))
+    out = 0.0
+    for ty, tx, wgt in taps:
+        wgt = wgt.astype(np.float32).astype(np.float64)
+        out = out + _gather(img, ty, tx) * (wgt[..., None] if img.ndim == 3 else wgt)
+    return out
 
 
 def _reflect101(idx: np.ndarray, n: int) -> np.ndarray:
@@ -192,3 +247,343 @@ def bgr_to_gray(img: np.ndarray) -> np.ndarray:
     (B 3735, G 19235, R 9798), rounded half up."""
     b, g, r = (img[..., c].astype(np.int32) for c in range(3))
     return ((b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15).astype(np.uint8)
+
+
+def _descale(x, n: int):
+    """CV_DESCALE: x / 2^n rounded half up."""
+    return (x + (1 << (n - 1))) >> n
+
+
+# ---------------------------------------------------------------------------
+# HSV (OpenCV's RGB2HSV_b and HSV2RGB_b, H in [0, 180))
+# ---------------------------------------------------------------------------
+
+_HSV_SHIFT = 12
+# the output columns that take v, v(1-s), v(1-s f) and v(1-s(1-f)), per sector
+_HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]],
+                        np.int8)
+# HSV2RGB_b converts blocks of 32 pixels in vector code that truncates, and
+# the rest of a row in scalar code that rounds half to even
+_HSV_VECTOR_BLOCK = 32
+
+
+@functools.lru_cache(maxsize=None)
+def _hsv_div_tables() -> tuple[np.ndarray, np.ndarray]:
+    i = np.arange(1, 256, dtype=np.float64)
+    sdiv = np.zeros(256, np.int32)
+    hdiv = np.zeros(256, np.int32)
+    sdiv[1:] = np.rint((255 << _HSV_SHIFT) / i)
+    hdiv[1:] = np.rint((180 << _HSV_SHIFT) / (6.0 * i))
+    return sdiv, hdiv
+
+
+def bgr_to_hsv(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, COLOR_BGR2HSV) of uint8 BGR [..., 3]."""
+    sdiv, hdiv = _hsv_div_tables()
+    b, g, r = (img[..., c].astype(np.int32) for c in range(3))
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * sdiv[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * hdiv[diff] + half) >> _HSV_SHIFT
+    h += np.where(h < 0, 180, 0)
+    return np.stack([h, s, v], -1).astype(np.uint8)
+
+
+def hsv_to_bgr(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, COLOR_HSV2BGR) of uint8 HSV [H, W, 3]: h = H * 6/180,
+    s and v scaled by 1/255, the sector's products in f32 with the inner
+    1 - s*x fused, times 255."""
+    f32 = np.float32
+    sat = img[..., 1]
+    s = sat.astype(f32) * f32(1.0 / 255.0)
+    v = img[..., 2].astype(f32) * f32(1.0 / 255.0)
+    h = img[..., 0].astype(f32) * f32(6.0 / 180.0)
+    pre = np.floor(h)
+    f = h - pre
+    sector = pre.astype(np.int8) % 6
+    s64 = s.astype(np.float64)
+    tab = (v, v * (f32(1) - s), v * (1.0 - s64 * f).astype(f32),
+           v * (1.0 - s64 * (f32(1) - f)).astype(f32))
+    gray = sat == 0
+    out = np.stack([np.where(gray, v, np.choose(_HSV_SECTORS[sector, c], tab)) for c in range(3)],
+                   -1) * f32(255)
+    nv = img.shape[-2] // _HSV_VECTOR_BLOCK * _HSV_VECTOR_BLOCK
+    out[..., nv:, :] = np.rint(out[..., nv:, :])
+    return out.astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# CIE L*a*b* (OpenCV's RGB2Lab_b and Lab2RGBinteger, sRGB, D65)
+# ---------------------------------------------------------------------------
+
+_LAB_SHIFT, _LAB_SHIFT2, _GAMMA_SHIFT = 12, 15, 3
+_LAB_BASE = 1 << 14
+_MIN_AB = -8145
+_SRGB_TO_XYZ = np.array([[0.412453, 0.357580, 0.180423],
+                         [0.212671, 0.715160, 0.072169],
+                         [0.019334, 0.119193, 0.950227]])
+_XYZ_TO_SRGB = np.array([[3.240479, -1.53715, -0.498535],
+                         [-0.969256, 1.875991, 0.041556],
+                         [0.055648, -0.204043, 1.057311]])
+_D65 = np.array([0.950456, 1.0, 1.088754])
+
+
+@functools.lru_cache(maxsize=None)
+def _lab_forward_tables() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """sRGB gamma of each byte at scale 255 * 2^3, the cube root (linear
+    below (6/29)^3) of each gamma-space index at scale 2^15, and the XYZ rows
+    over the white point at scale 2^12 (columns R, G, B)."""
+    f32 = np.float32
+    x = (np.arange(256, dtype=f32) / f32(255)).astype(np.float64)
+    g = np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4).astype(f32)
+    gamma = np.rint(f32(255 << _GAMMA_SHIFT) * g).astype(np.int32)
+    xs = np.arange(3 * 256 // 2 << _GAMMA_SHIFT) / float(255 << _GAMMA_SHIFT)
+    lin = (xs.astype(f32).astype(np.float64) * (f32(841) / f32(108))
+           + (f32(16) / f32(116))).astype(f32)
+    cbrt = np.where(xs.astype(f32) < f32(216) / f32(24389), lin, np.cbrt(xs).astype(f32))
+    cbrt = np.rint(np.float64(1 << _LAB_SHIFT2) * cbrt).astype(np.int32)
+    coeffs = np.rint((1 << _LAB_SHIFT) * _SRGB_TO_XYZ / _D65[:, None]).astype(np.int32)
+    return gamma, cbrt, coeffs
+
+
+def bgr_to_lab(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, COLOR_BGR2LAB) of uint8 BGR [..., 3]."""
+    gamma, cbrt, c = _lab_forward_tables()
+    b, g, r = (gamma[img[..., k]] for k in range(3))
+    fx, fy, fz = (cbrt[_descale(r * c[k, 0] + g * c[k, 1] + b * c[k, 2], _LAB_SHIFT)]
+                  for k in range(3))
+    l_scale = (116 * 255 + 50) // 100
+    l_shift = -((16 * 255 * (1 << _LAB_SHIFT2) + 50) // 100)
+    ab_bias = 128 << _LAB_SHIFT2
+    lab = np.stack([_descale(l_scale * fy + l_shift, _LAB_SHIFT2),
+                    _descale(500 * (fx - fy) + ab_bias, _LAB_SHIFT2),
+                    _descale(200 * (fy - fz) + ab_bias, _LAB_SHIFT2)], -1)
+    return np.clip(lab, 0, 255).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _lab_inverse_tables() -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Y and f(Y) of each 8-bit L at scale 2^14, X or Z of each f value from
+    _MIN_AB on, the RGB rows times the white point at scale 2^12, and the
+    inverse sRGB gamma of 4096 steps at scale 255."""
+    base = _LAB_BASE
+    y = np.zeros(256, np.int64)
+    fy = np.zeros(256, np.int64)
+    for i in range(256):
+        if i <= 20:  # L = i * 100 / 255 <= 8: the linear segment
+            yy = i * 100 / 255 / 903.3
+            y[i] = round(yy * base)
+            fy[i] = round(base * (7.787 * yy + 16 / 116))
+        else:
+            f = (i * 100 * base / 255 + 16 * base) / 116
+            fy[i] = round(f)
+            y[i] = round(f * f * f / (base * base))
+    v = np.arange(_MIN_AB, base * 9 // 4 + _MIN_AB, dtype=np.int64)
+    lin = np.trunc(v * 108 / 841).astype(np.int64) - base * 16 // 116 * 108 // 841
+    xz = np.where(v <= 3390, lin, v * v // base * v // base)
+    coeffs = np.rint((1 << _LAB_SHIFT) * _XYZ_TO_SRGB * _D65[None, :]).astype(np.int64)
+    f32 = np.float32
+    x = (f32(1) / f32(4096) * np.arange(4096, dtype=f32)).astype(np.float64)
+    g = np.where(x <= 0.0031308, x * 12.92, 1.055 * x ** (1 / 2.4) - 0.055).astype(f32)
+    inv_gamma = np.rint(f32(255) * g).astype(np.uint8)
+    return y, fy, xz, coeffs, inv_gamma
+
+
+def lab_to_bgr(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, COLOR_LAB2BGR) of uint8 L*a*b* [..., 3]."""
+    y_tab, fy_tab, xz, c, inv_gamma = _lab_inverse_tables()
+    L, a, b = (img[..., k].astype(np.int64) for k in range(3))
+    y, fy = y_tab[L], fy_tab[L]
+    adiv = ((5 * a * 53687 + (1 << 7)) >> 13) - 128 * _LAB_BASE // 500
+    bdiv = ((b * 41943 + (1 << 4)) >> 9) - 128 * _LAB_BASE // 200 + 1
+    x, z = xz[fy + adiv - _MIN_AB], xz[fy - bdiv - _MIN_AB]
+    rgb = [inv_gamma[np.clip(_descale(c[k, 0] * x + c[k, 1] * y + c[k, 2] * z, 14), 0, 4095)]
+           for k in range(3)]
+    return np.stack(rgb[::-1], -1)
+
+
+# ---------------------------------------------------------------------------
+# CLAHE, filter2D, box blur
+# ---------------------------------------------------------------------------
+
+
+def clahe(img: np.ndarray, clip_limit: float = 2.0, tiles: tuple[int, int] = (8, 8)) -> np.ndarray:
+    """cv2.createCLAHE(clip_limit, tiles).apply(img) of a uint8 [H, W] image.
+
+    Histograms are taken per tile on the image padded by reflect-101 to a
+    multiple of the grid (OpenCV pads a whole tile where a side already
+    divides); each is clipped at max(int(clip * area / 256), 1), the excess
+    spread over all bins and its residual over every (256 // residual)-th
+    bin; the LUT is the cumulative sum times 255 / area in f32, rounded.
+    Each pixel interpolates its four tiles' LUTs bilinearly in f32."""
+    tx, ty = tiles
+    h, w = img.shape
+    src = img
+    if h % ty or w % tx:
+        src = img[_reflect101(np.arange(h + ty - h % ty), h)][
+            :, _reflect101(np.arange(w + tx - w % tx), w)]
+    th, tw = src.shape[0] // ty, src.shape[1] // tx
+    area = th * tw
+    limit = max(int(clip_limit * area / 256), 1)
+    cells = src.reshape(ty, th, tx, tw).transpose(0, 2, 1, 3).reshape(ty * tx, area)
+    bins = (np.arange(ty * tx) * 256)[:, None] + cells
+    hist = np.bincount(bins.reshape(-1), minlength=ty * tx * 256).reshape(ty * tx, 256)
+    excess = np.maximum(hist - limit, 0).sum(1)
+    hist = np.minimum(hist, limit) + (excess // 256)[:, None]
+    for t, residual in enumerate(excess % 256):
+        if residual:
+            hist[t, 0:256:max(256 // int(residual), 1)][:residual] += 1
+    lut = np.rint(np.cumsum(hist, 1).astype(np.float32) * (np.float32(255) / np.float32(area)))
+    lut = np.clip(lut, 0, 255).astype(np.float32).reshape(ty, tx, 256)
+
+    def taps(n: int, size: int, count: int):
+        t = np.arange(n, dtype=np.float32) * (np.float32(1) / np.float32(size)) - np.float32(0.5)
+        t1 = np.floor(t).astype(np.int64)
+        frac = t - t1.astype(np.float32)
+        return np.maximum(t1, 0), np.minimum(t1 + 1, count - 1), frac, np.float32(1) - frac
+
+    x1, x2, xa, xa1 = taps(w, tw, tx)
+    y1, y2, ya, ya1 = taps(h, th, ty)
+    v = img.astype(np.int64)
+    top = lut[y1[:, None], x1, v] * xa1 + lut[y1[:, None], x2, v] * xa
+    bottom = lut[y2[:, None], x1, v] * xa1 + lut[y2[:, None], x2, v] * xa
+    res = top * ya1[:, None] + bottom * ya[:, None]
+    return np.clip(np.rint(res), 0, 255).astype(np.uint8)
+
+
+def _pad_reflect101(img: np.ndarray, ry: int, rx: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    return img[_reflect101(np.arange(-ry, h + ry), h)][:, _reflect101(np.arange(-rx, w + rx), w)]
+
+
+def filter2d_u8(img: np.ndarray, kernel) -> np.ndarray:
+    """cv2.filter2D(img, -1, kernel) of a uint8 [H, W(, C)] image with an
+    f32 kernel of odd sides, centred anchor, BORDER_REFLECT_101: the nonzero
+    taps in row-major order, each a fused f32 multiply-add, rounded half to
+    even."""
+    k = np.asarray(kernel, np.float32)
+    kh, kw = k.shape
+    h, w = img.shape[:2]
+    if (k == np.round(k)).all() and np.abs(k).sum() * 255 < 1 << 24:
+        # integer taps: every f32 partial sum is an exact integer
+        pad = _pad_reflect101(img, kh // 2, kw // 2).astype(np.int32)
+        acc = sum(int(k[i, j]) * pad[i:i + h, j:j + w]
+                  for i in range(kh) for j in range(kw) if k[i, j] != 0)
+        return np.clip(acc, 0, 255).astype(np.uint8)
+    pad = _pad_reflect101(img, kh // 2, kw // 2).astype(np.float64)
+    acc = np.zeros(img.shape, np.float32)
+    for i in range(kh):
+        for j in range(kw):
+            if k[i, j] != 0:
+                acc = (pad[i:i + h, j:j + w] * float(k[i, j]) + acc).astype(np.float32)
+    return np.clip(np.rint(acc), 0, 255).astype(np.uint8)
+
+
+def box_blur3_u8(img: np.ndarray) -> np.ndarray:
+    """cv2.blur(img, (3, 3)) of a uint8 [H, W(, C)] image, BORDER_REFLECT_101:
+    the 3x3 sum over 9, rounded to nearest (a sum of integers over 9 never
+    ties)."""
+    h, w = img.shape[:2]
+    pad = _pad_reflect101(img, 1, 1).astype(np.int32)
+    rows = pad[:, 0:w] + pad[:, 1:w + 1] + pad[:, 2:w + 2]
+    s = rows[0:h] + rows[1:h + 1] + rows[2:h + 2]
+    return ((2 * s + 9) // 18).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# fillPoly, dilate, erode (drawing.cpp, morph.dispatch.cpp)
+# ---------------------------------------------------------------------------
+
+_XY_SHIFT = 16
+
+
+def _line8(img: np.ndarray, p1, p2, value) -> None:
+    """cv::line with LINE_8 and no shift, drawn left to right (the outline
+    fillPoly draws) between two points inside the image: LineIterator's
+    Bresenham walk."""
+    if p2[0] < p1[0]:
+        p1, p2 = p2, p1
+    dx, dy = p2[0] - p1[0], p2[1] - p1[1]
+    sy = 1 if dy >= 0 else -1
+    dy = abs(dy)
+    vert = dy > dx
+    major, minor = (dy, dx) if vert else (dx, dy)
+    k = np.arange(major + 1)
+    steps = np.empty(major + 1, np.int64)
+    err, step = major - 2 * minor, 0
+    for i in range(major + 1):
+        steps[i] = step
+        if err < 0:
+            step, err = step + 1, err + 2 * major
+        err -= 2 * minor
+    if vert:
+        img[p1[1] + sy * k, p1[0] + steps] = value
+    else:
+        img[p1[1] + sy * steps, p1[0] + k] = value
+
+
+def fill_poly(img: np.ndarray, polys, value) -> np.ndarray:
+    """cv2.fillPoly(img, polys, value) in place, LINE_8, integer vertices
+    inside the image: every polygon's outline drawn by Bresenham, then one
+    scanline fill of all their edges (even-odd), each edge walked in 16.16
+    fixed point from its upper vertex's pixel centre, a span running from
+    floor(x_left) to floor(x_right - 1/2). Returns img.
+
+    A vertex outside the image raises NotImplementedError: OpenCV then
+    clips the edges in a way this stand-in does not reproduce."""
+    h, w = img.shape[:2]
+    half = 1 << (_XY_SHIFT - 1)
+    edges = []
+    for poly in polys:
+        pts = np.asarray(poly, np.int64).reshape(-1, 2)
+        if ((pts < 0) | (pts >= (w, h))).any():
+            raise NotImplementedError(f"fill_poly: a vertex outside the {w}x{h} image "
+                                      "(cv2's edge clipping is not ported)")
+        for i in range(len(pts)):
+            (x0, y0), (x1, y1) = pts[i - 1].tolist(), pts[i].tolist()
+            _line8(img, (x0, y0), (x1, y1), value)
+            if y0 == y1:
+                continue
+            if y0 > y1:
+                (x0, y0), (x1, y1) = (x1, y1), (x0, y0)
+            num = (x1 - x0) << _XY_SHIFT
+            dx = abs(num) // (y1 - y0) * (1 if num >= 0 else -1)  # C division
+            edges.append((y0, y1, (x0 << _XY_SHIFT) + half, dx))
+    if len(edges) < 2:
+        return img
+    e = np.array(edges, np.int64)
+    for y in range(int(e[:, 0].min()), int(e[:, 1].max())):
+        act = e[(e[:, 0] <= y) & (y < e[:, 1])]
+        xs = np.sort(act[:, 2] + (y - act[:, 0]) * act[:, 3])
+        for xa, xb in zip(xs[0::2], xs[1::2]):
+            img[y, int(xa >> _XY_SHIFT):int((xb - half) >> _XY_SHIFT) + 1] = value
+    return img
+
+
+def _ksize(ksize) -> tuple[int, int]:
+    return (ksize, ksize) if np.isscalar(ksize) else tuple(ksize)
+
+
+def _morph(img: np.ndarray, ksize, pick, fill) -> np.ndarray:
+    kw, kh = _ksize(ksize)
+    h, w = img.shape[:2]
+    ax, ay = kw // 2, kh // 2
+    pad = np.full((h + kh - 1, w + kw - 1) + img.shape[2:], fill, img.dtype)
+    pad[ay:ay + h, ax:ax + w] = img
+    rows = functools.reduce(pick, (pad[:, j:j + w] for j in range(kw)))
+    return functools.reduce(pick, (rows[i:i + h] for i in range(kh)))
+
+
+def dilate(img: np.ndarray, ksize) -> np.ndarray:
+    """cv2.dilate(img, np.ones((kh, kw), np.uint8)) of a uint8 image (ksize
+    an int or (kw, kh)): the maximum over the window at anchor (kw // 2,
+    kh // 2); outside the image counts as 0."""
+    return _morph(img, ksize, np.maximum, 0)
+
+
+def erode(img: np.ndarray, ksize) -> np.ndarray:
+    """cv2.erode(img, np.ones((kh, kw), np.uint8)) of a uint8 image: the
+    minimum over the window; outside the image counts as 255."""
+    return _morph(img, ksize, np.minimum, 255)

@@ -214,3 +214,18 @@ def save_json(path: str, obj) -> None:
 
     with open(path, "w") as f:
         json.dump(obj, f, default=_default)
+
+
+def load_cam_params(path: str) -> dict:
+    """Camera json -> {im_size, K, depth_scale?} (reference
+    lib/pysixd/inout.py:204-223)."""
+    c = load_json(path)
+    cam = {
+        "im_size": (c["width"], c["height"]),
+        "K": np.array([[c["fx"], 0.0, c["cx"]],
+                       [0.0, c["fy"], c["cy"]],
+                       [0.0, 0.0, 1.0]]),
+    }
+    if "depth_scale" in c:
+        cam["depth_scale"] = float(c["depth_scale"])
+    return cam

@@ -44,7 +44,9 @@ colour jitter (TRAIN.DEVICE_RESIDENT_POOL, POOL_REFRESH,
 INPUT.DEVICE_PREPROCESS, INPUT.DEVICE_COLOR_AUG) are TPU placement choices
 the port does not need (ROADMAP.md "Do not port"): with them set it trains
 from the host loader, the reference's sampling, jitters on the host as JAX
-does with DEVICE_COLOR_AUG off, and warns once.
+does with DEVICE_COLOR_AUG off, and warns once. Where the JAX device jitter
+refuses COLOR_AUG_TYPE (ssd, albu, code_albu), the port raises its
+ValueError too.
 """
 
 from __future__ import annotations
@@ -94,7 +96,17 @@ _TPU_PLACEMENT = (("TRAIN", "DEVICE_RESIDENT_POOL"), ("TRAIN", "POOL_REFRESH"),
 
 def check_supported(cfg, logger=None) -> None:
     """Warn once for the TPU placement settings, which the port does not
-    need (the world and the model axis are resolve_world's)."""
+    need (the world and the model axis are resolve_world's). Raise where the
+    JAX package's device jitter refuses the colour type: DEVICE_PREPROCESS
+    with DEVICE_COLOR_AUG jitters on the device, which takes aae, code and
+    roi10d only (gdrnet_tpu/data/device_augment.py:337-344)."""
+    inp = cfg.INPUT
+    aug_type = inp.COLOR_AUG_TYPE
+    if (inp.get("DEVICE_PREPROCESS") and inp.get("DEVICE_COLOR_AUG") and aug_type
+            and inp.COLOR_AUG_PROB > 0 and aug_type.lower() not in ("aae", "code", "roi10d")):
+        raise ValueError(
+            f"device color aug supports aae/code/roi10d, got {aug_type!r} "
+            "(keep INPUT.DEVICE_COLOR_AUG=False for ssd/albu)")
     on = [f"{a}.{b}" for a, b in _TPU_PLACEMENT if getattr(cfg, a).get(b)]
     if not cfg.TRAIN.get("DEVICE_RESIDENT_POOL"):  # the refresh is part of the pool
         on = [name for name in on if name != "TRAIN.POOL_REFRESH"]

@@ -1,8 +1,8 @@
 """numpy stand-ins for the OpenCV calls of the host PnP path, which the
 card's machine cannot make (it has no cv2): Rodrigues, solvePnP with
-SOLVEPNP_EPNP and with SOLVEPNP_ITERATIVE, and solvePnPRansac, with no lens
-distortion (the callers pass zeros). tests/test_torch_cv_pnp.py holds each
-against cv2 5.0.
+SOLVEPNP_EPNP, SOLVEPNP_ITERATIVE and SOLVEPNP_P3P, and solvePnPRansac,
+with no lens distortion (the callers pass zeros). tests/test_torch_cv_pnp.py
+holds each against cv2 5.0.
 
 * rodrigues: cv2.Rodrigues's formulas in both directions (the matrix is
   orthonormalised by its SVD first, as cv2 does).
@@ -14,19 +14,25 @@ against cv2 5.0.
 * solve_pnp(flags="iterative"): cvFindExtrinsicCameraParams2's
   Levenberg-Marquardt (CvLevMarq: lambda 10^-3, 20 iterations, a relative
   step below FLT_EPSILON ends it) on the reprojection error over
-  (rvec, tvec), from the extrinsic guess. Without a guess cv2 starts from a
-  DLT or homography; here it starts from EPnP.
+  (rvec, tvec), from the extrinsic guess or, without one, from where cv2
+  starts: the DLT of the 3x4 pose (non-planar points, at least 6) or the
+  homography of the points' plane (here the normalised DLT without
+  findHomography's own LM polish).
+* solve_pnp(flags="p3p"): solveP3P on exactly 4 points: every positive root
+  of the first three (the laws of cosines reduced to a quartic, polished to
+  the last bits), the pose of least squared reprojection error over all
+  four.
 * solve_pnp_ransac: the point-set registrator of ptsetreg.cpp with cv2's
   own random stream (cv::RNG seeded with 2^64 - 1, so each call draws cv2's
-  subsets), minimal sets of 5 solved by EPnP on the points rounded to f32
-  as cv2 rounds them, inliers at squared f32 error <= threshold^2, the
-  adaptive iteration count for confidence 0.99, then a refit on the
-  inliers with `flags` (EPnP, or LM from the best model). A set of exactly
-  4 points, which cv2 solves by P3P (three points exactly, the fourth picks
-  among the roots), is solved here by EPnP polished by LM: the same pose
-  on exact data.
+  subsets), minimal sets of 5 solved by EPnP (of 4 by P3P with P3P flags)
+  on the points rounded to f32 as cv2 rounds them, inliers at squared f32
+  error <= threshold^2, the adaptive iteration count for confidence 0.99,
+  then a refit on the inliers with `flags` (EPnP for EPnP and P3P, or LM
+  from the best model). A set of exactly 4 points is one P3P solve, as in
+  cv2, whatever the flags.
 
-SOLVEPNP_P3P, AP3P and the other solvers are not ported (ROADMAP.md A9).
+SOLVEPNP_AP3P, SQPNP, IPPE and cv2's other solvers raise
+NotImplementedError: no path of the JAX package reaches them.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import numpy as np
 FLT_EPSILON = float(np.finfo(np.float32).eps)
 DBL_EPSILON = float(np.finfo(np.float64).eps)
 _PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
+_NOT_REACHED = "not ported: no path of the JAX package reaches this cv2 solver"
 
 
 class PnPError(ValueError):
@@ -221,6 +228,161 @@ def _solve_epnp(p3: np.ndarray, p2: np.ndarray, cam) -> tuple[np.ndarray, np.nda
 
 
 # ---------------------------------------------------------------------------
+# P3P (solveP3P: the roots of three points, sorted by the error on all four)
+# ---------------------------------------------------------------------------
+
+
+def _p3p_distances(f: np.ndarray, pw: np.ndarray) -> list[np.ndarray]:
+    """Every positive solution (d1, d2, d3) of |d_i f_i - d_j f_j| =
+    |P_i - P_j| for unit bearings f [3, 3] and points pw [3, 3].
+
+    With d2 = u d1 and d3 = v d1 the three laws of cosines give u as a ratio
+    of polynomials in v and a quartic in v; its real roots are polished by
+    Newton steps on the quartic, then (d1, d2, d3) by Newton steps on the
+    three equations, to the last bits of the double."""
+    P = np.polynomial.polynomial
+    c12, c13, c23 = f[0] @ f[1], f[0] @ f[2], f[1] @ f[2]
+    D12, D13, D23 = (float(((pw[i] - pw[j]) ** 2).sum()) for i, j in ((0, 1), (0, 2), (1, 2)))
+    if min(D12, D13, D23) <= 0:
+        return []
+    q13 = np.array([1.0, -2 * c13, 1.0])                 # 1 + v^2 - 2 v c13
+    N = np.array([D13, 0.0, -D13]) + (D23 - D12) * q13   # u = -N / Dd
+    Dd = np.array([-2 * D13 * c12, 2 * D13 * c23])
+    Q = np.array([D13, 0.0, 0.0]) - D12 * q13
+    quartic = P.polyadd(P.polyadd(D13 * P.polymul(N, N), 2 * D13 * c12 * P.polymul(N, Dd)),
+                        P.polymul(Q, P.polymul(Dd, Dd)))
+    if not np.isfinite(quartic).all() or np.abs(quartic).max() == 0:
+        return []
+    roots = np.roots(quartic[::-1])
+    scale = max(1.0, np.abs(roots).max(initial=0.0))
+    dq = P.polyder(quartic)
+    out = []
+    for r in roots[np.abs(roots.imag) <= 1e-6 * scale].real:
+        for _ in range(4):
+            d = P.polyval(r, dq)
+            if d == 0:
+                break
+            r = r - P.polyval(r, quartic) / d
+        den = P.polyval(r, Dd)
+        if den == 0:
+            continue
+        u = -P.polyval(r, N) / den
+        g = 1.0 + u * u - 2.0 * u * c12
+        if u <= 0 or r <= 0 or g <= 0:
+            continue
+        d = np.sqrt(D12 / g) * np.array([1.0, u, r])
+        for _ in range(3):
+            e = np.array([d[0] ** 2 + d[1] ** 2 - 2 * d[0] * d[1] * c12 - D12,
+                          d[0] ** 2 + d[2] ** 2 - 2 * d[0] * d[2] * c13 - D13,
+                          d[1] ** 2 + d[2] ** 2 - 2 * d[1] * d[2] * c23 - D23])
+            J = np.array([[2 * d[0] - 2 * d[1] * c12, 2 * d[1] - 2 * d[0] * c12, 0.0],
+                          [2 * d[0] - 2 * d[2] * c13, 0.0, 2 * d[2] - 2 * d[0] * c13],
+                          [0.0, 2 * d[1] - 2 * d[2] * c23, 2 * d[2] - 2 * d[1] * c23]])
+            if abs(np.linalg.det(J)) < 1e-300:
+                break
+            d = d - np.linalg.solve(J, e)
+        if (d > 0).all() and not any(np.allclose(d, o, rtol=1e-9, atol=0) for o in out):
+            out.append(d)
+    return out
+
+
+def _kabsch(pw: np.ndarray, pc: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The rigid (R, t) that takes pw onto pc in least squares."""
+    cw, cc = pw.mean(0), pc.mean(0)
+    U, _, Vt = np.linalg.svd((pc - cc).T @ (pw - cw))
+    S = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    R = U @ S @ Vt
+    return R, cc - R @ cw
+
+
+def _solve_p3p(p3: np.ndarray, p2: np.ndarray, cam) -> tuple[np.ndarray, np.ndarray] | None:
+    """solvePnP(SOLVEPNP_P3P) on exactly 4 points: every root of the first
+    three, the one of least squared reprojection error over all four (the
+    first of equal errors), or None where the three give no root."""
+    fu, fv, uc, vc = cam
+    pix = _normalized_pixels(p2, cam, p2.dtype)
+    pw = p3.astype(np.float64)
+    rays = np.stack([(pix[:3, 0] - uc) / fu, (pix[:3, 1] - vc) / fv, np.ones(3)], 1)
+    rays /= np.linalg.norm(rays, axis=1, keepdims=True)
+    best = None
+    for d in _p3p_distances(rays, pw[:3]):
+        R, t = _kabsch(pw[:3], rays * d[:, None])
+        pc = pw @ R.T + t
+        err = float((((pix - np.stack([uc + fu * pc[:, 0] / pc[:, 2],
+                                       vc + fv * pc[:, 1] / pc[:, 2]], 1))) ** 2).sum())
+        if best is None or err < best[0]:
+            best = (err, R, t)
+    if best is None:
+        return None
+    return rodrigues(best[1]), best[2].reshape(3, 1)
+
+
+# ---------------------------------------------------------------------------
+# ITERATIVE's start without a guess (cvFindExtrinsicCameraParams2)
+# ---------------------------------------------------------------------------
+
+
+def _homography(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """The least-squares homography src -> dst [n, 2] by the normalised DLT
+    (findHomography's estimator, without its Levenberg-Marquardt polish)."""
+    def norm(p):
+        c = p.mean(0)
+        s = np.abs(p - c).mean(0)
+        s = np.where(s > DBL_EPSILON, 1.0 / np.where(s > DBL_EPSILON, s, 1.0), 0.0)
+        return np.array([[s[0], 0, -c[0] * s[0]], [0, s[1], -c[1] * s[1]], [0, 0, 1.0]])
+
+    T1, T2 = norm(src), norm(dst)
+    a = np.c_[src, np.ones(len(src))] @ T1.T
+    b = np.c_[dst, np.ones(len(dst))] @ T2.T
+    L = np.zeros((2 * len(src), 9))
+    L[0::2, 0:3], L[0::2, 6:9] = a, -b[:, :1] * a
+    L[1::2, 3:6], L[1::2, 6:9] = a, -b[:, 1:2] * a
+    H = np.linalg.svd(L)[2][-1].reshape(3, 3)
+    H = np.linalg.inv(T2) @ H @ T1
+    return H / H[2, 2]
+
+
+def _initial_extrinsics(p3: np.ndarray, p2: np.ndarray, cam) -> tuple[np.ndarray, np.ndarray]:
+    """Where cv2's ITERATIVE starts without a guess: points whose scatter's
+    smallest singular value is below 1e-3 of the middle one are planar, and
+    start from the homography of their plane; otherwise the DLT of the 3x4
+    pose on at least 6 points, projected onto a rotation."""
+    fu, fv, uc, vc = cam
+    mn = np.stack([(p2[:, 0] - uc) / fu, (p2[:, 1] - vc) / fv], 1)
+    M = p3.astype(np.float64)
+    Mc = M.mean(0)
+    _, W, Vt = np.linalg.svd((M - Mc).T @ (M - Mc))
+    if W[2] < 1e-3 * W[1]:
+        Rt = Vt.copy()
+        if Rt[0, 2] ** 2 + Rt[1, 2] ** 2 < 1e-10:
+            Rt = np.eye(3)
+        if np.linalg.det(Rt) < 0:
+            Rt = -Rt
+        Tt = -Rt @ Mc
+        H = _homography((M @ Rt.T + Tt)[:, :2], mn)
+        n1, n2 = np.linalg.norm(H[:, 0]), np.linalg.norm(H[:, 1])
+        h1, h2 = H[:, 0] / max(n1, DBL_EPSILON), H[:, 1] / max(n2, DBL_EPSILON)
+        t = H[:, 2] * (2.0 / max(n1 + n2, DBL_EPSILON))
+        Rh = rodrigues(rodrigues(np.stack([h1, h2, np.cross(h1, h2)], 1)))
+        return rodrigues(Rh @ Rt), (Rh @ Tt + t).reshape(3, 1)
+    if len(M) < 6:
+        raise PnPError(f"solve_pnp: the DLT start needs at least 6 non-planar points, got {len(M)}")
+    L = np.zeros((2 * len(M), 12))
+    Mh = np.c_[M, np.ones(len(M))]
+    L[0::2, 0:4], L[0::2, 8:12] = Mh, -mn[:, :1] * Mh
+    L[1::2, 4:8], L[1::2, 8:12] = Mh, -mn[:, 1:2] * Mh
+    RRt = np.linalg.svd(L.T @ L)[2][-1].reshape(3, 4)
+    if np.linalg.det(RRt[:, :3]) < 0:
+        RRt = -RRt
+    sc = np.linalg.norm(RRt[:, :3])
+    if sc <= DBL_EPSILON:
+        raise PnPError("solve_pnp: degenerate DLT")
+    U, _, Vt = np.linalg.svd(RRt[:, :3])
+    R = U @ Vt
+    return rodrigues(R), (RRt[:, 3] * (np.linalg.norm(R) / sc)).reshape(3, 1)
+
+
+# ---------------------------------------------------------------------------
 # Levenberg-Marquardt (cvFindExtrinsicCameraParams2 with CvLevMarq)
 # ---------------------------------------------------------------------------
 
@@ -284,20 +446,25 @@ def _levmarq(p3, p2, cam, rvec, tvec, max_iter: int = 20) -> tuple[np.ndarray, n
 
 def solve_pnp(object_points, image_points, K, flags: str = "epnp", rvec=None, tvec=None,
               use_extrinsic_guess: bool = False) -> tuple[bool, np.ndarray, np.ndarray]:
-    """cv2.solvePnP(..., flags=SOLVEPNP_EPNP | SOLVEPNP_ITERATIVE) with zero
-    distortion -> (ok, rvec [3, 1], tvec [3, 1])."""
+    """cv2.solvePnP(..., flags=SOLVEPNP_EPNP | SOLVEPNP_ITERATIVE |
+    SOLVEPNP_P3P) with zero distortion -> (ok, rvec [3, 1], tvec [3, 1]).
+    P3P takes exactly 4 points here (cv2 asserts 4 for solvePnP)."""
     p3, p2 = _points(object_points, image_points)
     cam = _camera(K)
+    if flags not in ("epnp", "iterative", "p3p"):
+        raise NotImplementedError(f"solve_pnp flags={flags!r}: {_NOT_REACHED}")
     if len(p3) < 4:
         raise PnPError(f"solve_pnp: {len(p3)} points, at least 4 are needed")
     if flags == "epnp":
         rv, tv = _solve_epnp(p3, p2, cam)
         return True, rv, tv
-    if flags != "iterative":
-        raise NotImplementedError(f"solve_pnp flags={flags!r}: only epnp and iterative are "
-                                  "ported (ROADMAP.md A9)")
+    if flags == "p3p":
+        if len(p3) != 4:
+            raise PnPError(f"solve_pnp: P3P takes 3 or 4 points, got {len(p3)}")
+        sol = _solve_p3p(p3, p2, cam)
+        return (False, rvec, tvec) if sol is None else (True, *sol)
     if not use_extrinsic_guess:
-        rvec, tvec = _solve_epnp(p3, p2, cam)
+        rvec, tvec = _initial_extrinsics(p3, p2, cam)
     elif rvec is None or tvec is None:
         raise PnPError("solve_pnp: use_extrinsic_guess needs rvec and tvec")
     rv, tv = _levmarq(p3.astype(np.float64), p2.astype(np.float64), cam, rvec, tvec)
@@ -346,9 +513,8 @@ def solve_pnp_ransac(object_points, image_points, K, flags: str = "iterative",
                      iterations_count: int = 100, reprojection_error: float = 8.0):
     """cv2.solvePnPRansac with zero distortion and its default confidence
     0.99 -> (ok, rvec [3, 1], tvec [3, 1], inliers [k, 1] int32 or None)."""
-    if flags not in ("epnp", "iterative"):
-        raise NotImplementedError(f"solve_pnp_ransac flags={flags!r}: only epnp and iterative "
-                                  "are ported (ROADMAP.md A9)")
+    if flags not in ("epnp", "iterative", "p3p"):
+        raise NotImplementedError(f"solve_pnp_ransac flags={flags!r}: {_NOT_REACHED}")
     p3, p2 = _points(object_points, image_points)
     cam = _camera(K)
     n = len(p3)
@@ -356,12 +522,13 @@ def solve_pnp_ransac(object_points, image_points, K, flags: str = "iterative",
         raise PnPError(f"solve_pnp_ransac: {n} points, at least 4 are needed")
     # cv2 converts double points to float before the registrator
     p3f, p2f = p3.astype(np.float32), p2.astype(np.float32)
-    model_points = 4 if n == 4 else 5
-    if n == model_points:  # cv2: one solvePnP on all points (P3P for 4, see the docstring)
-        rv, tv = _solve_epnp(p3f, p2f, cam)
-        if n == 4:
-            rv, tv = _levmarq(p3f.astype(np.float64), p2f.astype(np.float64), cam, rv, tv)
-        return True, rv, tv, np.arange(n, dtype=np.int32).reshape(-1, 1)
+    model_points = 4 if n == 4 or flags == "p3p" else 5
+    minimal = _solve_p3p if model_points == 4 else _solve_epnp
+    if n == model_points:  # cv2: one solvePnP on all points
+        sol = minimal(p3f, p2f, cam)
+        if sol is None:
+            return False, rvec, tvec, None
+        return True, *sol, np.arange(n, dtype=np.int32).reshape(-1, 1)
 
     rng = _CvRNG()
     thr = np.float32(reprojection_error * reprojection_error)
@@ -374,19 +541,21 @@ def solve_pnp_ransac(object_points, image_points, K, flags: str = "iterative",
             while i in idx:
                 i = rng.uniform(0, n)
             idx.append(i)
-        model = _solve_epnp(p3f[idx], p2f[idx], cam)
+        it += 1
+        model = minimal(p3f[idx], p2f[idx], cam)
+        if model is None:  # no root: the iteration counts, nothing is scored
+            continue
         last = model
         mask = _projection_sq_errors(*model, p3f, p2f, cam) <= thr
         good = int(mask.sum())
         if good > max(max_good, model_points - 1):
             best, max_good = (model, mask), good
             niters = _update_num_iters(0.99, (n - good) / n, model_points, niters)
-        it += 1
     if best is None:
         return False, rvec, tvec, None
     (rv_b, tv_b), mask = best
     p3_in, p2_in = p3f[mask].astype(np.float64), p2f[mask].astype(np.float64)
-    if flags == "epnp":
+    if flags in ("epnp", "p3p"):  # cv2 refits a P3P consensus by EPnP
         if len(p3_in) < 4:
             raise PnPError(f"solve_pnp_ransac: {len(p3_in)} inliers, at least 4 are needed")
         rv, tv = _solve_epnp(p3_in, p2_in, cam)

@@ -53,17 +53,13 @@ def pnp_ransac(model_points: np.ndarray, image_points: np.ndarray,
                K: np.ndarray, method: str = "epnp", ransac: bool = True,
                reproj_err: float = 3.0, iterations: int = 100) -> np.ndarray | None:
     """Pure PnP (misc.pnp_v2, lib/pysixd/misc.py:145-196). Returns the [3,4]
-    pose, or None on failure. method: epnp, iterative, or dls (EPnP, as
-    getattr(cv2, "SOLVEPNP_DLS", cv2.SOLVEPNP_EPNP) gives in cv2 5.0); p3p
-    is not ported and raises NotImplementedError."""
+    pose, or None on failure. method: epnp, iterative, p3p (RANSAC over
+    minimal sets of 4 refit by EPnP; without RANSAC exactly 4 points, as
+    cv2's solvePnP takes, else None), or dls (EPnP, as getattr(cv2,
+    "SOLVEPNP_DLS", cv2.SOLVEPNP_EPNP) gives in cv2 5.0)."""
     if len(model_points) < 4:
         return None
-    if method not in ("epnp", "iterative", "dls", "p3p"):
-        raise KeyError(method)
-    if method == "p3p":
-        raise NotImplementedError("pnp_ransac(method='p3p'): SOLVEPNP_P3P is not ported "
-                                  "(ROADMAP.md A9)")
-    flags = "iterative" if method == "iterative" else "epnp"
+    flags = {"epnp": "epnp", "iterative": "iterative", "p3p": "p3p", "dls": "epnp"}[method]
     p3 = np.ascontiguousarray(model_points, np.float64)
     p2 = np.ascontiguousarray(image_points, np.float64)
     try:

@@ -7,8 +7,14 @@ Bounds:
   first (cv2's Jacobi SVD, numpy's LAPACK), whose last bits differ, and
   two angles amplify them: near 0 the angle is acos(c) (1e-11 at 1e-4
   rad), at a half turn the axis is sqrt(1 + R_ii) (1e-7).
-- solvePnP ITERATIVE (Levenberg-Marquardt from a guess, or from EPnP where
-  cv2 starts from a DLT) within 1e-3 degrees and 1e-6 m of cv2's pose.
+- solvePnP ITERATIVE (Levenberg-Marquardt from a guess, or from cv2's own
+  start: a DLT, or a homography for planar points) within 1e-3 degrees and
+  1e-6 m of cv2's pose.
+- solvePnP P3P within 1e-6 rad and 1e-6 m of cv2 on 100 well-conditioned
+  sets, exact and noisy; on sets whose roots nearly tie on the fourth point
+  the chosen root may flip, and the flips are counted (at most 3 of 100).
+  A RANSAC call of exactly 4 points is that P3P on f32 points, within the
+  same bound.
 - EPnP exact on clean data (1e-6 degrees, 1e-9 m). On noisy data cv2 5.0's
   EPnP returns other poses than calib3d's epnp.cpp, which the stand-in
   follows, so there both are held to the truth: the stand-in's rotation
@@ -32,6 +38,7 @@ from test_torch_pnp import axis_angle, bucket, refine_both, rot_deg
 K = np.array([[572.4, 0, 325.3], [0, 573.6, 242.0], [0, 0, 1.0]])
 DIST = np.zeros((8, 1))
 ITER_DEG, ITER_M = 1e-3, 1e-6
+P3P_DEG, P3P_M = np.degrees(1e-6), 1e-6
 
 
 def scene(rng, n: int = 300, noise: float = 0.0, outlier_frac: float = 0.0):
@@ -135,7 +142,7 @@ def test_ransac_iterative_flags_and_small_sets_equal_cv2():
         np.testing.assert_array_equal(inl2, inl)
         assert rot_deg(cv_pnp.rodrigues(rv), cv_R(rvec)) < ITER_DEG
         np.testing.assert_allclose(tv, tvec, rtol=0, atol=ITER_M)
-    for n in (5, 4):  # one solve on all points (for 4, cv2 runs P3P and the port EPnP + LM)
+    for n in (5, 4):  # one solve on all points (for 4, P3P whatever the flags)
         R, t, p3, uv = scene(rng, n=n)
         ok, rvec, tvec, inl = cv2.solvePnPRansac(p3, uv, K, DIST, flags=cv2.SOLVEPNP_EPNP)
         ok2, rv, tv, inl2 = cv_pnp.solve_pnp_ransac(p3, uv, K, flags="epnp")
@@ -145,8 +152,108 @@ def test_ransac_iterative_flags_and_small_sets_equal_cv2():
         cv_pnp.solve_pnp_ransac(p3[:3], uv[:3], K)
     with pytest.raises(cv_pnp.PnPError):
         cv_pnp.solve_pnp(p3[:3], uv[:3], K)
-    with pytest.raises(NotImplementedError, match="A9"):
-        cv_pnp.solve_pnp(p3, uv, K, flags="p3p")
+    ok, rvec, tvec = cv2.solvePnP(p3, uv, K, DIST, flags=cv2.SOLVEPNP_P3P)
+    ok2, rv, tv = cv_pnp.solve_pnp(p3, uv, K, flags="p3p")
+    assert ok and ok2 and rot_deg(cv_pnp.rodrigues(rv), cv_R(rvec)) < P3P_DEG
+    np.testing.assert_allclose(tv, tvec, rtol=0, atol=P3P_M)
+    for flags in ("ap3p", "sqpnp", "ippe"):  # cv2's own solvers, reached by no JAX path
+        with pytest.raises(NotImplementedError, match="no path of the JAX package"):
+            cv_pnp.solve_pnp(p3, uv, K, flags=flags)
+
+
+def _p3p_gap(p3, uv) -> tuple[float, float]:
+    """cv2's P3P and the stand-in's on one set of 4: (degrees, metres)."""
+    ok, rvec, tvec = cv2.solvePnP(p3, uv, K, DIST, flags=cv2.SOLVEPNP_P3P)
+    ok2, rv, tv = cv_pnp.solve_pnp(p3, uv, K, flags="p3p")
+    assert ok == ok2
+    if not ok:
+        return 0.0, 0.0
+    return rot_deg(cv_pnp.rodrigues(rv), cv_R(rvec)), float(np.abs(tv - tvec).max())
+
+
+@pytest.mark.parametrize("noise", [0.0, 1.0])
+def test_p3p_equals_cv2(noise):
+    """100 well-conditioned sets of 4; exact ones also hold the truth."""
+    rng = np.random.RandomState(7)
+    for _ in range(100):
+        R, t, p3, uv = scene(rng, n=4, noise=noise)
+        deg, m = _p3p_gap(p3, uv)
+        assert deg < P3P_DEG and m < P3P_M, (deg, m)
+        if noise == 0.0:
+            _, rv, tv = cv_pnp.solve_pnp(p3, uv, K, flags="p3p")
+            assert rot_deg(cv_pnp.rodrigues(rv), R) < P3P_DEG
+            np.testing.assert_allclose(tv.ravel(), t, rtol=0, atol=P3P_M)
+
+
+def test_p3p_root_flips_on_degenerate_sets_are_counted():
+    """Sets of 4 nearly on a line through the first three (roots that nearly
+    tie on the fourth point), with 2 px of noise: the chosen roots that part
+    from cv2's are counted, not hidden."""
+    rng = np.random.RandomState(8)
+    flips = 0
+    for _ in range(100):
+        R, t, p3, uv = scene(rng, n=4, noise=2.0)
+        p3[3] = p3[0] + 0.5 * (p3[1] - p3[0]) + rng.randn(3) * 1e-3
+        pc = (R @ p3[3] + t) @ K.T
+        uv[3] = pc[:2] / pc[2] + rng.randn(2) * 2.0
+        deg, m = _p3p_gap(p3, uv)
+        flips += deg >= P3P_DEG or m >= P3P_M
+    print(f"P3P root flips against cv2 on 100 degenerate sets: {flips}")
+    assert flips <= 3
+
+
+def test_ransac_of_four_points_is_p3p_as_in_cv2():
+    rng = np.random.RandomState(9)
+    for _ in range(10):
+        R, t, p3, uv = scene(rng, n=4, noise=1.0)
+        for flags, name in ((cv2.SOLVEPNP_EPNP, "epnp"), (cv2.SOLVEPNP_ITERATIVE, "iterative"),
+                            (cv2.SOLVEPNP_P3P, "p3p")):
+            ok, rvec, tvec, inl = cv2.solvePnPRansac(p3, uv, K, DIST, flags=flags)
+            ok2, rv, tv, inl2 = cv_pnp.solve_pnp_ransac(p3, uv, K, flags=name)
+            assert ok and ok2
+            np.testing.assert_array_equal(inl2, inl)
+            assert rot_deg(cv_pnp.rodrigues(rv), cv_R(rvec)) < ITER_DEG
+            np.testing.assert_allclose(tv, tvec, rtol=0, atol=ITER_M)
+
+
+def test_ransac_p3p_draws_cv2_minimal_sets():
+    """Minimal sets of 4 by P3P on 30 % gross outliers: cv2's inlier set, and
+    the EPnP refit's rule on the pose."""
+    rng = np.random.RandomState(10)
+    for _ in range(4):
+        R, t, p3, uv = scene(rng, noise=0.5, outlier_frac=0.3)
+        ok, rvec, tvec, inl = cv2.solvePnPRansac(p3, uv, K, DIST, flags=cv2.SOLVEPNP_P3P,
+                                                 reprojectionError=3.0, iterationsCount=100)
+        ok2, rv, tv, inl2 = cv_pnp.solve_pnp_ransac(p3, uv, K, flags="p3p",
+                                                    reprojection_error=3.0, iterations_count=100)
+        assert ok and ok2
+        np.testing.assert_array_equal(inl2, inl)
+        assert epnp_rule(cv_pnp.rodrigues(rv), cv_R(rvec), R)
+        assert np.linalg.norm(tv.ravel() - t) < 0.01
+
+
+def test_iterative_without_guess_starts_as_cv2():
+    """Planar points start from the homography, others from the DLT, which
+    needs 6 (cv2 raises below)."""
+    rng = np.random.RandomState(11)
+    for planar in (False, True):
+        for _ in range(4):
+            R, t, p3, uv = scene(rng, n=50)
+            if planar:
+                p3[:, 2] = 0.0
+            uv = (p3 @ R.T + t) @ K.T
+            uv = uv[:, :2] / uv[:, 2:3] + rng.randn(50, 2) * 0.5
+            ok, rvec, tvec = cv2.solvePnP(p3, uv, K, DIST, flags=cv2.SOLVEPNP_ITERATIVE)
+            ok2, rv, tv = cv_pnp.solve_pnp(p3, uv, K, flags="iterative")
+            assert ok and ok2
+            assert rot_deg(cv_pnp.rodrigues(rv), cv_R(rvec)) < ITER_DEG
+            np.testing.assert_allclose(tv, tvec, rtol=0, atol=ITER_M)
+    with pytest.raises(cv2.error):
+        cv2.solvePnP(p3[:5] + [[0, 0, 0.01]] * np.arange(5)[:, None], uv[:5], K, DIST,
+                     flags=cv2.SOLVEPNP_ITERATIVE)
+    with pytest.raises(cv_pnp.PnPError, match="6 non-planar"):
+        cv_pnp.solve_pnp(p3[:5] + [[0, 0, 0.01]] * np.arange(5)[:, None], uv[:5], K,
+                         flags="iterative")
 
 
 # ---------------------------------------------------------------------------
@@ -181,8 +288,21 @@ def test_pnp_ransac_and_refine_from_net_equal_jax():
     assert rot_deg(got[:, :3], want[:, :3]) < ITER_DEG
     np.testing.assert_allclose(got[:, 3], want[:, 3], rtol=0, atol=ITER_M)
     assert pnp.pnp_ransac(p3[:3], uv[:3], K) is None
-    with pytest.raises(NotImplementedError, match="A9"):
-        pnp.pnp_ransac(p3, uv, K, method="p3p")
+    got, want = (f(p3, uv, K, method="p3p", ransac=True) for f in (pnp.pnp_ransac, jpnp.pnp_ransac))
+    assert epnp_rule(got[:, :3], want[:, :3], R) and got.shape == (3, 4)
+    assert np.linalg.norm(got[:, 3] - t) < 0.01
+    solved = 0
+    for k in range(0, 40, 4):  # P3P without RANSAC: 4 points; some sets have no root
+        got, want = (f(p3[k:k + 4], uv[k:k + 4], K, method="p3p", ransac=False)
+                     for f in (pnp.pnp_ransac, jpnp.pnp_ransac))
+        assert (got is None) == (want is None)
+        if want is not None:
+            solved += 1
+            assert rot_deg(got[:, :3], want[:, :3]) < P3P_DEG
+            np.testing.assert_allclose(got[:, 3], want[:, 3], rtol=0, atol=P3P_M)
+    assert solved >= 5
+    for f in (pnp.pnp_ransac, jpnp.pnp_ransac):  # cv2's solvePnP takes 4 points for P3P
+        assert f(p3[:5], uv[:5], K, method="p3p", ransac=False) is None
 
     Rn = (axis_angle(rng, 8.0) @ R).astype(np.float32)
     tn = (t + [0.02, -0.01, 0.02]).astype(np.float32)

@@ -304,7 +304,8 @@ def test_port_imports_no_jax():
         "            'parallel.mesh', 'parallel.sync_bn', 'tools.dryrun_multichip',\n"
         "            'engine.profiling', 'tools.bench', 'tools.bench_train', 'tools.export_model',\n"
         "            'tools.strip_ckpt', 'tools.gen_test_targets', 'tools.gen_det_fuse',\n"
-        "            'models.pvnet'):\n"
+        "            'models.pvnet', 'ops.se3', 'ops.view_sampler', 'utils.bbox_utils',\n"
+        "            'utils.mask_utils', 'data.dataset_params'):\n"
         "    assert 'gdrnet_tpu_torch.' + mod in names, names\n"
         "from gdrnet_tpu_torch import merged_config\n"
         f"merged_config({FLAGSHIP!r})\n"

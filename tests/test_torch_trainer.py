@@ -370,6 +370,30 @@ def test_pool_settings_warn_and_train(fixture_records, reference_pth, tmp_path, 
         assert (name in warned[0]) == (name in named), name
 
 
+@pytest.mark.parametrize("aug_type", ["ssd", "albu", "code_albu"])
+def test_device_color_aug_refuses_what_jax_refuses(tmp_path, aug_type):
+    """DEVICE_PREPROCESS with DEVICE_COLOR_AUG jitters on the device in the
+    JAX package, which refuses the host-only types: the port's do_train
+    raises the same ValueError before training; without DEVICE_PREPROCESS
+    both jitter on the host."""
+    from gdrnet_tpu.data.device_augment import apply_color_aug_batch
+
+    cfg = _train_cfg(str(tmp_path / "dev_aug"), "")
+    cfg.INPUT.COLOR_AUG_TYPE = aug_type
+    cfg.INPUT.DEVICE_PREPROCESS = True
+    cfg.INPUT.DEVICE_COLOR_AUG = True
+    with pytest.raises(ValueError) as port_err:
+        trainer.do_train(cfg, max_iters_override=1, device="cpu")
+    with pytest.raises(ValueError) as jax_err:
+        apply_color_aug_batch(jax.random.PRNGKey(0), np.zeros((1, 4, 4, 3), np.float32),
+                              np.ones(1, np.uint8), aug_type=aug_type, prob=0.5)
+    assert str(port_err.value) == str(jax_err.value)
+    cfg.INPUT.DEVICE_PREPROCESS = False
+    trainer.check_supported(cfg)
+    cfg.INPUT.DEVICE_PREPROCESS, cfg.INPUT.COLOR_AUG_TYPE = True, "ROI10D"
+    trainer.check_supported(cfg)
+
+
 @pytest.mark.parametrize("outputs", ["forward", "jax_maps"])
 def test_vis_img_panels_equal_jax(reference_pth, monkeypatch, outputs):
     """TRAIN.VIS_IMG's five panels of one batch against the JAX trainer's
