@@ -90,7 +90,10 @@ once a sample, ROIs/s and data-wait share beside the train loop's; P3P on
 outliers within 1 degree and 1 cm, the se3 functions card against CPU
 within 1e-6); the test
 path ([do_test], [do_test_vs_cpu], [cli]) and the learning check
-([overfit]); the rendering slice: [render_attr] (B2 at C = 12 against its
+([overfit]: gdrnet_tpu_torch/tools/validate_overfit.py's split, config and
+seed function for 3 seeds, with B1 in its do_test and B2 writing its split;
+[scale_run]: the scale run's orchestrator in --dry-run, every stage
+listed); the rendering slice: [render_attr] (B2 at C = 12 against its
 plain version, bitwise, over 15 cases, and its time at the generator's
 shapes beside its bounds), [render_phong_xyz] (render_phong_xyz_roi_many,
 Renderer and SceneRenderer on the card against the CPU), [gen_dataset]
@@ -106,8 +109,10 @@ through its options), [eval_csv] (the CLI's main, its recalls against
 score_results, B1 and B2 launches, cus / cou_bb_proj card against CPU),
 [gen_xyz] (the CLI over the train split, scene 1 against the CPU, the
 mapper from its pickles), [loader_pkl] (the loader alone with them); the
-LM-O slice: [jpeg] (41 cases' stream and image digests against cv2's,
-decode and encode ms of a 640x480 q95 frame, decodes/s on 4 threads),
+LM-O slice: [jpeg] (81 cases' stream and image digests against cv2's:
+baseline, progressive, CMYK and YCCK; decode and encode ms of a 640x480
+q95 frame, decode ms of its progressive and CMYK counterparts, decodes/s
+on 4 threads),
 [train_lmo_tree] and [train_lmo] (8 PBR samples mapped on the card against
 the CPU, the loader alone, then the CLI in a subprocess: JPEG decodes of
 PBR frames and backgrounds, losses finite with no step skipped, B2 at least
@@ -171,7 +176,6 @@ import numpy as np
 import torch
 
 from gdrnet_tpu_torch import (
-    base_config,
     build_lr_schedule,
     build_optimizer,
     create_train_state,
@@ -185,8 +189,8 @@ from gdrnet_tpu_torch.data import cv_ops, jpeg, jpeg_cases, ref_meta
 from gdrnet_tpu_torch.data.augment import build_color_augmentor
 from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts, load_detections
 from gdrnet_tpu_torch.data.dataset_factory import resolve
-from gdrnet_tpu_torch.data.io import read_image, read_png, write_png
-from gdrnet_tpu_torch.data.mapper import GDRNTestMapper, GDRNTrainMapper, collate
+from gdrnet_tpu_torch.data.io import read_image, read_png
+from gdrnet_tpu_torch.data.mapper import GDRNTestMapper, GDRNTrainMapper
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.data.ply import save_ply
 from gdrnet_tpu_torch.data.scene_renderer import SceneRenderer
@@ -226,7 +230,9 @@ from gdrnet_tpu_torch.tools import export_model as export_tool
 from gdrnet_tpu_torch.tools.compute_fps import compute_fps_dict
 from gdrnet_tpu_torch.tools import gen_xyz as gen_xyz_tool
 from gdrnet_tpu_torch.tools import predict as predict_tool
+from gdrnet_tpu_torch.tools import scale_run as scale_run_tool
 from gdrnet_tpu_torch.tools import strip_ckpt as strip_tool
+from gdrnet_tpu_torch.tools import validate_overfit as overfit_tool
 from gdrnet_tpu_torch.tools.dryrun_multichip import launch, train_steps
 from gdrnet_tpu_torch.utils.fold_bn import conv_bn_pairs, fold_batch_norms
 
@@ -278,7 +284,7 @@ TRAIN_GRAD_TENSOR_REL, TRAIN_GRAD_ALL_REL = 0.15, 0.08
 # the loader alone over LOOP_LOADER_BATCHES batches; LOOP_MAPPED records
 # mapped on the card against the CPU
 LOOP_SCENES, LOOP_IMAGES, LOOP_PER_IMAGE = 4, 16, 8
-LOOP_SAVE, LOOP_ITERS, LOOP_WORKERS = 12, 30, 4
+LOOP_SAVE, LOOP_ITERS, LOOP_WORKERS = 8, 16, 4
 LOOP_LOADER_BATCHES, LOOP_MAPPED = 8, 16
 # the test path: est_dets.json from the BOP split's visible GT boxes jittered by
 # up to DET_JITTER_PX, every DET_DROP_EVERY-th instance without a detection,
@@ -287,12 +293,16 @@ LOOP_LOADER_BATCHES, LOOP_MAPPED = 8, 16
 # within DO_TEST_TRANS_RTOL of their norm (the forward's tolerance above)
 DET_JITTER_PX, DET_DROP_EVERY, DET_SECOND_EVERY = 4, 16, 10
 DO_TEST_ROT_ATOL, DO_TEST_TRANS_RTOL = 1e-3, 1e-3
-# the learning check (tools/validate_overfit.py): OVERFIT_STEPS updates on one
-# batch of the 2-object split, then do_test; loose gates, the TPU tool's
-# docstring expects about 2 degrees
-OVERFIT_IMAGES, OVERFIT_STEPS, OVERFIT_SEEDS = 6, 800, (0, 1, 2)
+# the learning check (gdrnet_tpu_torch/tools/validate_overfit.py, the port of
+# tools/validate_overfit.py): its TOTAL updates on one batch of its IMAGES
+# frames of the 2-object split, then do_test; loose gates (a mean rotation
+# error, not a recall)
+OVERFIT_SEEDS = (0, 1, 2)
 OVERFIT_LOSS_RATIO, OVERFIT_MAX_RE_DEG = 0.2, 10.0
-OVERFIT_K = np.array([[280.0, 0, 160.0], [0, 280.0, 120.0], [0, 0, 1.0]], np.float32)
+# the stages of gdrnet_tpu_torch/tools/scale_run.py, as tools/scale_run.py
+# orders them
+SCALE_RUN_STAGES = ["dataset", "insurance", "train", "eval_int8", "eval_dpnp", "bench", "audit",
+                    "loader_bench"] + [f"sweep{i}" for i in range(5)]
 # the rendering slice: B2 with the generator's 12 attribute channels, timed at
 # its two shapes (label: (z range of the tower, window, plain-version calls));
 # the renders on the card against the CPU, rgb within 1 grey level at no more
@@ -303,7 +313,7 @@ RENDER_ATTR_CHANNELS = 12
 RENDER_ATTR_TIMED = {"32x128x128x12/tower_448": ((0.5, 0.9), 128, 5),
                      "32x512x512x12/tower_448": ((0.15, 0.22), 512, 2)}
 RENDER_FLIP_SHARE = 0.01
-GEN_TRAIN, GEN_TEST, GEN_PER_SCENE, GEN_MAPPED, GEN_CPU_IMAGES = 64, 32, 32, 16, 4
+GEN_TRAIN, GEN_TEST, GEN_PER_SCENE, GEN_MAPPED, GEN_CPU_IMAGES = 32, 16, 16, 16, 4
 GEN_TIMEOUT_S = 300
 # serving from images: the folded f32 forward against the unfolded one on the
 # card within FOLD_POSE_ATOL (tests/test_fold_bn.py); the int8 forward against
@@ -328,8 +338,8 @@ COLOR_ITERS, COLOR_TRAIN_PROB, COLOR_P3P = 3, 0.8, 64
 P3P_RAD, P3P_M, P3P_RANSAC_DEG, P3P_RANSAC_M, SE3_ATOL = 1e-9, 1e-9, 1.0, 0.01, 1e-6
 MAPPER_MS = 66.24
 # the JPEG codec: the case list of data/jpeg_cases.py against cv2's digests,
-# then a 640x480 q95 4:2:0 frame timed JPEG_TIMED times on one thread and
-# JPEG_THREADS threads
+# then a 640x480 q95 4:2:0 frame (baseline, progressive, CMYK) timed
+# JPEG_TIMED times on one thread, and the baseline one on JPEG_THREADS threads
 JPEG_TIMED, JPEG_THREADS = 40, 4
 # the LM-O config as a user trains it (configs/gdrn/lmo/a6_..._40e.py, full
 # width, its INPUT and DATASETS blocks as they are) on an LM-O tree written
@@ -346,7 +356,7 @@ LMO_CONFIG = str(REPO / "configs/gdrn/lmo/a6_cPnP_AugAAETrunc_BG0.5_lmo_real_pbr
 LMO_MESHES = {1: "cube", 5: "plate", 6: "pyramid", 8: "lblock", 9: "wedge", 10: "brick",
               11: "hexprism", 12: "octa"}  # LM-O id -> zoo mesh; 10 eggbox, 11 glue
 LMO_LM_IMAGES, LMO_PBR_SCENES, LMO_PBR_IMAGES, LMO_TEST_IMAGES = 12, 2, 8, 8
-LMO_VOC_IMAGES, LMO_VOC_NEGATIVE, LMO_EPOCHS, LMO_MAPPED = 12, 2, 8, 8
+LMO_VOC_IMAGES, LMO_VOC_NEGATIVE, LMO_EPOCHS, LMO_MAPPED = 12, 2, 4, 8
 LMO_VOC_SIZES = ((375, 500), (500, 375), (333, 500))  # (h, w)
 LMO_CLI_TIMEOUT_S = 600
 # device kernels of a train step by kind, from marks in their names
@@ -1344,7 +1354,8 @@ def phase_train_loop(cfg, state_dict: dict, gsd, root: str, card: str) -> tuple[
         raise AssertionError(f"train_loop: first run ended at {saved.step}, preempted {preempted}")
     # (c) a fresh model and optimizer resumed from the checkpoint
     fresh = build_model(c, device=DEV)
-    fresh_opt = build_optimizer(c, fresh, build_lr_schedule(c, c.SOLVER.OPTIMIZER_CFG["lr"], 30))
+    fresh_opt = build_optimizer(c, fresh,
+                                build_lr_schedule(c, c.SOLVER.OPTIMIZER_CFG["lr"], LOOP_ITERS))
     resumed, start = CheckpointManager(str(Path(c.OUTPUT_DIR) / "ckpt")).resume_or_load(
         create_train_state(fresh, fresh_opt), resume=True)
     a, b = state_tensors(saved), state_tensors(resumed)
@@ -1896,105 +1907,34 @@ def phase_cli(cfg, split, dets: dict, weights: str, root: str, in_process: tuple
         threshold_flips=json.dumps(flips).replace(" ", ""), check="ok")
 
 
-def overfit_split(gsd, root: str):
-    """The counterpart of tests/fixture_bop.py: the zoo's cube and brick
-    (z-180 symmetric), OVERFIT_IMAGES images x 2 instances at 320x240 apart
-    enough not to occlude each other, a test split with xyz_crop pickles,
-    its frames painted as the fixture paints them (paint_like_fixture)."""
-    rng = np.random.RandomState(42)
-    n = 2 * OVERFIT_IMAGES
-    p = synthetic_roi_batch(batch_size=n, input_res=8, out_res=4, num_classes=2, seed=42)
-    t = np.stack([np.array([rng.uniform(-0.025, 0.025) + (-0.085 if i % 2 == 0 else 0.085),
-                            rng.uniform(-0.03, 0.03), rng.uniform(0.45, 0.7)])
-                  for i in range(n)]).astype(np.float32)
-    meta, _ = write_bop_split(root, gsd.mesh_zoo()[:2], np.arange(n) % 2, p["gt_ego_rot"], t,
-                              OVERFIT_K, width=320, height=240, per_image=2,
-                              images_per_scene=OVERFIT_IMAGES, device=DEV, with_xyz_crop=True)
-    paint_like_fixture(load_bop_scene_dicts(meta, "test"), 240, 320)
-    return meta
-
-
-def paint_like_fixture(records, height: int, width: int, seed: int = 0) -> None:
-    """Repaint each frame as tests/fixture_bop.py paints its own: a noise
-    background (60 + U[0, 40) a channel), each instance's visible pixels
-    shaded by their object-frame z (100 + 120 z / max z, in the fixture's
-    channel mix), so that a frame shows the object's orientation and not
-    only its silhouette (write_bop_split paints one flat colour an object,
-    and a flat box leaves flips beyond its declared symmetry unseen)."""
-    rng = np.random.RandomState(seed)
-    by_frame: dict = defaultdict(list)
-    for r in records:
-        by_frame[r["rgb_path"]].append(r)
-    for path, recs in by_frame.items():
-        bgr = (60 + rng.rand(height, width, 3) * 40).astype(np.uint8)
-        for r in recs:
-            with open(r["xyz_path"], "rb") as f:
-                crop = pickle.load(f)
-            x1, y1, x2, y2 = crop["xyxy"]
-            z = np.zeros((height, width), np.float32)
-            z[y1:y2 + 1, x1:x2 + 1] = np.asarray(crop["xyz_crop"], np.float32)[..., 2]
-            shade = 100 + 120 * (z / max(float(z.max()), 1e-6))
-            color = np.stack([shade * 0.6, shade, shade * (0.4 + 0.3 * r["obj_id"])], axis=-1)
-            visible = read_png(r["mask_visib_path"]) > 0
-            bgr = np.where(visible[..., None], color.clip(0, 255).astype(np.uint8), bgr)
-        write_png(path, np.ascontiguousarray(bgr[..., ::-1]))
-
-
-def overfit_cfg():
-    """tools/validate_overfit.py:38-54's config on the port's defaults."""
-    c = base_config()
-    c.MODEL.CDPN.BACKBONE.NUM_LAYERS = 18
-    c.MODEL.CDPN.ROT_HEAD.NUM_CLASSES = 2
-    c.MODEL.CDPN.ROT_HEAD.NUM_REGIONS = 8
-    pnp = c.MODEL.CDPN.PNP_NET
-    pnp.WITH_2D_COORD = pnp.REGION_ATTENTION = pnp.PM_LOSS_SYM = pnp.PM_NORM_BY_EXTENT = True
-    pnp.CENTROID_LW = pnp.Z_LW = 1.0
-    c.DATASETS.SYM_OBJS = ["brick"]
-    c.SOLVER.OPTIMIZER_CFG = dict(type="Ranger", lr=1e-3, weight_decay=0)
-    c.SOLVER.ANNEAL_POINT = 0.72
-    c.TEST.ROI_BATCH_SIZE = 4
-    c.PARALLEL.DTYPE = "bfloat16"
-    c.INPUT.DZI_TYPE = "none"  # train crops == test crops
-    return c
-
-
-def phase_overfit(gsd, root: str, card: str) -> tuple:
-    """The learning check (tools/validate_overfit.py with the port alone):
-    every record of a 2-object split mapped once by GDRNTrainMapper, then
-    OVERFIT_STEPS train steps on that one batch on the card, then do_test on
-    the same records with GT boxes, for each of OVERFIT_SEEDS. Gates: every
-    loss finite; the sum of the loss terms other than the region CE below
-    OVERFIT_LOSS_RATIO times its first value, and the region CE below its
-    first (the reference's region CE keeps a floor of about ln(R+1) times
-    the crop's pixels over its visible ones, losses/gdrn_loss.py:85-89, so
-    the total cannot fall to OVERFIT_LOSS_RATIO of its first: the JAX
-    package's own run stays near 0.24); Avg mean_re below
-    OVERFIT_MAX_RE_DEG. Returns (config, the last seed's trained model, the
-    mapped batch) for [int8]."""
-    meta = overfit_split(gsd, str(Path(root) / "overfit"))
-    records = load_bop_scene_dicts(meta, "test", img_type="real")
-    c = overfit_cfg()
-    models = ObjectModels(meta, num_pm_points=256, num_fps=8)
-    mapper = GDRNTrainMapper(c, models, device=DEV)
-    batch = to_device(collate([mapper(rec, np.random.RandomState(i))
-                               for i, rec in enumerate(records)]), DEV)
+def phase_overfit(root: str, card: str) -> tuple:
+    """The learning check through gdrnet_tpu_torch/tools/validate_overfit.py
+    (its split, its config, its seed function): every record of its
+    2-object split mapped once, then the tool's TOTAL train steps on that one
+    batch on the card and do_test on the same records with GT boxes, for
+    each of OVERFIT_SEEDS. Gates: every loss finite; the sum of the loss
+    terms other than the region CE below OVERFIT_LOSS_RATIO times its first
+    value, and the region CE below its first (the reference's region CE
+    keeps a floor of about ln(R+1) times the crop's pixels over its visible
+    ones, losses/gdrn_loss.py:85-89, so the total cannot fall to
+    OVERFIT_LOSS_RATIO of its first: the JAX package's own run stays near
+    0.24); Avg mean_re below OVERFIT_MAX_RE_DEG. Returns (config, the last
+    seed's trained model, the mapped batch) for [int8], and the launches of
+    B1 (do_test's ADD-S of the brick) and B2 (the split's renders)."""
+    b1, b2 = kernels.nn_min_dist.launches, kernels.rasterize_attr.launches
+    meta = overfit_tool.overfit_split(str(Path(root) / "overfit"), overfit_tool.IMAGES,
+                                      device=DEV)
+    c = overfit_tool.overfit_cfg()
+    split = overfit_tool.map_split(c, meta, DEV)
     for seed in OVERFIT_SEEDS:
-        model = init_weights(build_model(c, device=DEV), torch.Generator().manual_seed(seed))
-        opt = build_optimizer(c, model, build_lr_schedule(c, 1e-3, OVERFIT_STEPS))
-        state, step = create_train_state(model, opt), make_train_step(c, model, opt)
-        gen = torch.Generator(device=DEV).manual_seed(seed + 1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        history = [step(state, batch, gen)[1] for _ in range(OVERFIT_STEPS)]
-        hist = {k: torch.stack([h[k] for h in history]).cpu().numpy()
-                for k in history[0] if k.startswith("loss") or k == "total_loss"}
-        train_s = time.perf_counter() - t0
+        run = overfit_tool.run_seed(c, split, seed, str(Path(root) / f"overfit_out_{seed}"), DEV,
+                                    echo=lambda line: None)
+        hist, res, train_s = run["history"], run["results"], run["train_s"]
         total, region = hist["total_loss"], hist["loss_region"]
         others = total - region
-        res = do_test(c, state.model, models, records,
-                      output_dir=str(Path(root) / f"overfit_out_{seed}"), device=DEV)
         avg = res["Avg"]
-        log("overfit", card=repr(card), seed=seed, records=len(records), steps=OVERFIT_STEPS,
+        log("overfit", card=repr(card), seed=seed, records=len(split[0]),
+            images=overfit_tool.IMAGES, steps=overfit_tool.TOTAL,
             total_loss_first=f"{total[0]:.4f}", total_loss_last=f"{total[-1]:.4f}",
             total_ratio=f"{total[-1] / total[0]:.4f}", region_first=f"{region[0]:.4f}",
             region_last=f"{region[-1]:.4f}", others_ratio=f"{others[-1] / others[0]:.4f}",
@@ -2010,9 +1950,47 @@ def phase_overfit(gsd, root: str, card: str) -> tuple:
                 f"{others[0]} -> {others[-1]}, region CE {region[0]} -> {region[-1]}, mean_re "
                 f"{avg['mean_re']} (gates: {OVERFIT_LOSS_RATIO} x first, lower, "
                 f"< {OVERFIT_MAX_RE_DEG})")
-        trained = state.model
-        del state, step, model, opt
-    return c, trained, batch
+        trained, batch = run["model"], run["batch"]
+        del run
+    launches = (kernels.nn_min_dist.launches - b1, kernels.rasterize_attr.launches - b2)
+    if launches[0] < len(OVERFIT_SEEDS) or launches[1] < 1:
+        raise AssertionError(f"overfit: B1 launched {launches[0]} times over {len(OVERFIT_SEEDS)} "
+                             f"do_test runs, B2 {launches[1]} times writing the split")
+    log("overfit_launches", b1=launches[0], b2=launches[1], check="ok")
+    return (c, trained, batch), launches
+
+
+def phase_scale_run(root: str) -> None:
+    """gdrnet_tpu_torch/tools/scale_run.py --dry-run in this process, its
+    paths pointed at an empty layout under `root`: every stage listed, in
+    order, none done, each running one of the port's CLIs, nothing run."""
+    layout = Path(root) / "scale_run_layout"
+    paths = {"REPO": layout, "SYNTH": layout / "datasets/BOP_DATASETS/synth",
+             "OUT": layout / "output/gdrn/synth/a6_cPnP_synth",
+             "LOGDIR": layout / "output/gdrn/synth/scale_run",
+             "CKPT_DIR": layout / "checkpoints/bench_default"}
+    saved = {k: getattr(scale_run_tool, k) for k in paths}
+    out = io.StringIO()
+    try:
+        for k, v in paths.items():
+            setattr(scale_run_tool, k, str(v))
+        names = [st.name for st in scale_run_tool.build_stages()]
+        with contextlib.redirect_stdout(out):
+            scale_run_tool.main(["--dry-run"])
+    finally:
+        for k, v in saved.items():
+            setattr(scale_run_tool, k, v)
+    lines = out.getvalue().splitlines()
+    heads = [ln.split(":")[0] for ln in lines if not ln.startswith("  ")]
+    commands = [ln for ln in lines if ln.startswith("  ") and "retry: " not in ln]
+    if (heads != names or names != SCALE_RUN_STAGES or len(commands) != len(names)
+            or any("done=False" not in ln for ln in lines if not ln.startswith("  "))
+            or not all("gdrnet_tpu_torch." in ln for ln in commands)
+            or (paths["LOGDIR"] / "status.jsonl").exists()):
+        raise AssertionError(f"scale_run --dry-run: stages {heads}, expected {SCALE_RUN_STAGES}:\n"
+                             + out.getvalue())
+    log("scale_run", stages=len(names), names=",".join(names), dry_run="every stage listed, "
+        "none done, nothing run", check="ok")
 
 
 def attr_case_args(gsd, v, f, R, t, origins, per_pose: bool = True) -> list:
@@ -2674,17 +2652,22 @@ def phase_loader_pkl(root: str, loader_rate: float) -> None:
 
 def phase_jpeg() -> None:
     """The JPEG codec (csrc/jpeg_codec.cpp, built with g++ at first use) on
-    the card's host: every case of data/jpeg_cases.py encoded and decoded,
-    the SHA-256 of each stream and each decoded image against the digests
-    cv2 gives; then a 640x480 q95 4:2:0 frame decoded and encoded on one
-    thread (host-clock ms) and decoded on JPEG_THREADS threads (images/s)."""
+    the card's host: every case of data/jpeg_cases.py (baseline streams
+    encoded by the port, progressive, CMYK and YCCK streams read from its
+    files) decoded, the SHA-256 of each stream and each decoded image against
+    the digests cv2 gives; then a 640x480 q95 4:2:0 frame decoded and encoded
+    on one thread (host-clock ms), its progressive and CMYK counterparts
+    decoded, and the baseline frame decoded on JPEG_THREADS threads
+    (images/s)."""
     got = jpeg_cases.port_digests()
     bad = [k for k, v in jpeg_cases.DIGESTS.items() if got.get(k) != v]
     if bad or len(got) != len(jpeg_cases.DIGESTS):
         raise AssertionError(f"jpeg: digests differ from cv2's for {bad}")
-    case = next(c for c in jpeg_cases.CASES if c.name == "640x480_q95_420")
-    frame = jpeg_cases.case_image(case)
+    by_name = {c.name: c for c in jpeg_cases.CASES}
+    frame = jpeg_cases.case_image(by_name["640x480_q95_420"])
     data = jpeg.encode_jpeg(frame, 95, "420")
+    prog = jpeg_cases.case_stream(by_name["640x480_q95_420_prog"])
+    cmyk = jpeg_cases.case_stream(by_name["640x480_q95_420_cmyk"])
 
     def host_ms(fn) -> np.ndarray:
         fn()
@@ -2696,15 +2679,20 @@ def phase_jpeg() -> None:
         return np.asarray(out)
 
     dec_ms, enc_ms = host_ms(lambda: jpeg.decode_jpeg(data)), host_ms(lambda: jpeg.encode_jpeg(frame))
+    prog_ms = host_ms(lambda: jpeg.decode_jpeg(prog))
+    cmyk_ms = host_ms(lambda: jpeg.decode_jpeg(cmyk))
     with ThreadPoolExecutor(JPEG_THREADS) as pool:
         list(pool.map(lambda _: jpeg.decode_jpeg(data), range(JPEG_THREADS)))
         t0 = time.perf_counter()
         list(pool.map(lambda _: jpeg.decode_jpeg(data), range(JPEG_THREADS * JPEG_TIMED)))
         rate = JPEG_THREADS * JPEG_TIMED / (time.perf_counter() - t0)
-    log("jpeg", cases=len(got), digests="equal to cv2", frame="640x480 q95 4:2:0",
-        stream_bytes=len(data), decode_ms_median=f"{np.median(dec_ms):.3f}",
-        encode_ms_median=f"{np.median(enc_ms):.3f}", timed=JPEG_TIMED,
-        decode_images_per_s_1_thread=f"{1e3 / np.median(dec_ms):.1f}",
+    processes = {p: sum(c.process == p for c in jpeg_cases.CASES) for p in jpeg_cases.PROCESSES}
+    log("jpeg", cases=len(got), by_process=json.dumps(processes).replace(" ", ""),
+        digests="equal to cv2", frame="640x480 q95 4:2:0", stream_bytes=len(data),
+        decode_ms_median=f"{np.median(dec_ms):.3f}", encode_ms_median=f"{np.median(enc_ms):.3f}",
+        progressive_bytes=len(prog), progressive_decode_ms_median=f"{np.median(prog_ms):.3f}",
+        cmyk_bytes=len(cmyk), cmyk_decode_ms_median=f"{np.median(cmyk_ms):.3f}",
+        timed=JPEG_TIMED, decode_images_per_s_1_thread=f"{1e3 / np.median(dec_ms):.1f}",
         decode_images_per_s_threads=f"{rate:.1f}", threads=JPEG_THREADS, check="ok")
 
 
@@ -4242,7 +4230,8 @@ def main() -> int:
         tv_launches = phase_train_variant(root, dets, card)
         bt_launches = phase_bench_train(root, card, train_ms)
         ddp_launches = phase_ddp(cfg, split, dets, ckpt, tested, root, card)
-        overfit = phase_overfit(gsd, root, card)
+        overfit, overfit_launches = phase_overfit(root, card)
+        phase_scale_run(root)
         phase_render_attr(gsd)
         phase_render_phong_xyz(gsd)
         gen_launches = phase_gen_dataset(gsd, root, card)
@@ -4268,14 +4257,14 @@ def main() -> int:
          "source": "gdrnet_tpu_torch/csrc/nn_min_dist.cu",
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:28",
          "launches": launches + test_launches[0] + csv_launches[0] + lmo_launches[0]
-         + tv_launches[0] + pnp_launches[0] + ddp_launches[0],
+         + tv_launches[0] + pnp_launches[0] + ddp_launches[0] + overfit_launches[0],
          **nn_stats},
         {"name": "rasterize_xyz", "route": "cuda",
          "source": "gdrnet_tpu_torch/csrc/rasterize_xyz.cu",
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:140",
          "launches": raster_launches + loop_launches + test_launches[1] + gen_launches
          + csv_launches[1] + xyz_launches + lmo_launches[1] + tv_launches[1] + pnp_launches[1]
-         + ddp_launches[1] + bt_launches + color_launches,
+         + ddp_launches[1] + bt_launches + color_launches + overfit_launches[1],
          **raster_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

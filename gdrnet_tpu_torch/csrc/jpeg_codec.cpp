@@ -2,23 +2,32 @@
 //
 // It computes what libjpeg-turbo 3.1 computes (the library that OpenCV's
 // cv2.imread / cv2.imdecode / cv2.imencode link), bit for bit:
-//   decoder  sequential Huffman (SOF0, SOF1), 8-bit, 1 or 3 components, any
+//   decoder  sequential Huffman (SOF0, SOF1) and progressive Huffman (SOF2:
+//            DC first and refinement scans, AC first and refinement scans
+//            with EOB runs, jdphuff.c), 8-bit, 1, 3 or 4 components, any
 //            integral sampling (4:4:4, 4:2:2, 4:4:0, 4:2:0, 4:1:1), restart
-//            intervals, interleaved or not; the islow IDCT (jidctint.c), the
-//            fancy upsampling of jdsample.c (h2v1, h1v2, h2v2 with their
-//            rounding biases, replication otherwise) and the fixed-point
-//            YCbCr->RGB tables of jdcolor.c; output BGR or gray as OpenCV
-//            asks for it (JCS_EXT_BGR / JCS_GRAYSCALE), and the EXIF
-//            orientation tag for the caller to apply.
+//            intervals, interleaved or not, Huffman tables redefined between
+//            scans; the whole stream is read before output, as
+//            jpeg_start_decompress reads a multi-scan file; the islow IDCT
+//            (jidctint.c), the fancy upsampling of jdsample.c (h2v1, h1v2,
+//            h2v2 with their rounding biases, replication otherwise), the
+//            fixed-point YCbCr->RGB tables of jdcolor.c and its YCCK->CMYK
+//            conversion; output BGR or gray as OpenCV asks for it
+//            (JCS_EXT_BGR / JCS_GRAYSCALE, and for 4 components JCS_CMYK
+//            through OpenCV's icvCvt_CMYK2BGR_8u_C4C3R /
+//            icvCvt_CMYK2Gray_8u_C4C1R of Adobe's inverted CMYK), and the
+//            EXIF orientation tag for the caller to apply.
 //   encoder  baseline, the Annex K Huffman tables, IJG quality scaling
 //            (jcparam.c), the fixed-point RGB->YCbCr of jccolor.c, the
 //            downsamplers of jcsample.c, the islow forward DCT (jfdctint.c)
 //            and libjpeg-turbo's reciprocal quantization (jcdctmgr.c, 16-bit
 //            DCT elements as in its SIMD build), with the JFIF APP0 header
 //            and the marker order of jcmarker.c.
-// Progressive, arithmetic-coded, 12-bit, lossless and 4-component streams are
-// refused as unsupported. No state is global: every call owns its buffers, so
-// loader threads call it at once.
+// Arithmetic-coded, 12-bit, lossless and hierarchical streams are refused as
+// unsupported, and so is a progressive stream that leaves one of the first
+// ten coefficients of a component unrefined, which libjpeg would output
+// through its block smoothing (jdcoefct.c decompress_smooth_data). No state
+// is global: every call owns its buffers, so loader threads call it at once.
 //
 // Build: g++ -O2 -std=c++17 -shared -fPIC (no -ffast-math, no -march=native:
 // the codec is integer code and gives the same bytes on every x86-64 host).
@@ -254,10 +263,19 @@ struct Decoder {
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   Component comp[4];
   int restart_interval = 0, orientation = 1;
-  bool frame = false, saw_jfif = false, saw_adobe = false, any_scan = false;
+  bool frame = false, progressive = false, saw_jfif = false, saw_adobe = false, any_scan = false;
   int adobe_transform = 0;
+  // the current scan's spectral selection and successive approximation, and
+  // the progressive decoder's end-of-band run
+  int ss = 0, se = 63, ah = 0, al = 0, eobrun = 0;
+  // a component's coefficients by zigzag index: the Al of the last scan that
+  // coded it, -1 before any (cinfo->coef_bits)
+  int coef_bits[4][64];
 
-  Decoder(const uint8_t* data, size_t size) : d(data), n(size) {}
+  Decoder(const uint8_t* data, size_t size) : d(data), n(size) {
+    for (auto& row : coef_bits)
+      for (int& b : row) b = -1;
+  }
 
   int u8() {
     if (pos >= n) fail(kCorrupt, "premature end of the JPEG stream");
@@ -301,16 +319,18 @@ struct Decoder {
     }
   }
 
-  void read_sof(size_t end) {
+  void read_sof(size_t end, bool is_progressive) {
     if (frame) fail(kCorrupt, "two SOF markers");
-    if (u8() != 8) fail(kUnsupported, "a sample precision other than 8 bits");
+    progressive = is_progressive;
+    int precision = u8();
+    if (precision != 8) fail(kUnsupported, std::to_string(precision) + "-bit JPEG (8-bit samples only)");
     height = u16();
     width = u16();
     ncomp = u8();
     if (height == 0) fail(kUnsupported, "a frame height given by a DNL marker");
     if (width == 0) fail(kCorrupt, "a frame of width 0");
-    if (ncomp == 4) fail(kUnsupported, "4-component (CMYK / YCCK) JPEG");
-    if (ncomp != 1 && ncomp != 3) fail(kUnsupported, "a JPEG of " + std::to_string(ncomp) + " components");
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+      fail(kUnsupported, "a JPEG of " + std::to_string(ncomp) + " components");
     if (pos + 3 * size_t(ncomp) > end) fail(kCorrupt, "bad SOF segment");
     hmax = vmax = 1;
     for (int i = 0; i < ncomp; i++) {
@@ -397,20 +417,36 @@ struct Decoder {
       sc[i] = c;
       blocks_in_mcu += c->h * c->v;
     }
-    int ss = u8(), se = u8(), ahal = u8();
-    if (ss != 0 || se != 63 || ahal != 0) fail(kCorrupt, "bad spectral selection in a sequential scan");
+    ss = u8();
+    se = u8();
+    int ahal = u8();
+    ah = ahal >> 4;
+    al = ahal & 15;
+    if (!progressive) {
+      if (ss != 0 || se != 63 || ahal != 0) fail(kCorrupt, "bad spectral selection in a sequential scan");
+    } else {  // the checks of jdphuff.c start_pass_phuff_decoder
+      bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+      if ((ah != 0 && al != ah - 1) || al > 13 || bad) fail(kCorrupt, "bad progression parameters");
+    }
     if (ns > 1 && blocks_in_mcu > 10) fail(kCorrupt, "too many blocks in an MCU");
     pos = end;
     for (int i = 0; i < ns; i++) {
       Component* c = sc[i];
-      if (!dc[c->td].defined || !ac[c->ta].defined) fail(kCorrupt, "a scan uses an undefined Huffman table");
+      // a sequential scan and a DC first scan read the DC table, an AC scan
+      // the AC table, a DC refinement none
+      bool need_dc = !progressive || (ss == 0 && ah == 0), need_ac = !progressive || ss != 0;
+      if ((need_dc && !dc[c->td].defined) || (need_ac && !ac[c->ta].defined))
+        fail(kCorrupt, "a scan uses an undefined Huffman table");
       if (!c->latched) {  // latch_quant_tables: a component's table is read at its first scan
         if (!qt_def[c->tq]) fail(kCorrupt, "a scan uses an undefined quantization table");
         std::memcpy(c->q, qt[c->tq], sizeof(c->q));
         c->latched = true;
       }
       c->dc_pred = 0;
+      if (progressive)
+        for (int k = ss; k <= se; k++) coef_bits[c - comp][k] = al;
     }
+    eobrun = 0;
     decode_scan(sc, ns);
     any_scan = true;
   }
@@ -439,6 +475,94 @@ struct Decoder {
     }
   }
 
+  // DC first scan (jdphuff.c decode_mcu_DC_first): the difference, scaled by Al
+  void decode_dc_first(BitReader& br, Component& c, int16_t* blk) {
+    int s = decode_huff(br, dc[c.td]);
+    if (s) {
+      if (s > 15) fail(kCorrupt, "bad DC difference size");
+      s = extend(br.get(s), s);
+    }
+    c.dc_pred += s;
+    blk[0] = int16_t(int(unsigned(c.dc_pred) << al));
+  }
+
+  // DC refinement (decode_mcu_DC_refine): one bit at position Al
+  void decode_dc_refine(BitReader& br, int16_t* blk) {
+    if (br.get(1)) blk[0] = int16_t(blk[0] | (1 << al));
+  }
+
+  // AC first scan of one component (decode_mcu_AC_first): the band Ss..Se
+  // scaled by Al, or one block of an end-of-band run
+  void decode_ac_first(BitReader& br, const Component& c, int16_t* blk) {
+    if (eobrun > 0) {
+      eobrun--;
+      return;
+    }
+    const HuffTable& act = ac[c.ta];
+    for (int k = ss; k <= se; k++) {
+      int rs = decode_huff(br, act);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = int16_t(int(unsigned(extend(br.get(s), s)) << al));
+      } else if (r == 15) {
+        k += 15;
+      } else {  // EOBr: a run of 2^r + r appended bits blocks, this one included
+        eobrun = (1 << r) + br.get(r) - 1;
+        break;
+      }
+    }
+  }
+
+  // AC refinement (decode_mcu_AC_refine): correction bits for the nonzero
+  // coefficients of the band, new coefficients of +-2^Al, end-of-band runs
+  void decode_ac_refine(BitReader& br, const Component& c, int16_t* blk) {
+    const int p1 = 1 << al, m1 = -p1;
+    auto correct = [&](int16_t& coef) {
+      if (br.get(1) && (coef & p1) == 0) coef = int16_t(coef + (coef >= 0 ? p1 : m1));
+    };
+    int k = ss;
+    if (eobrun == 0) {
+      const HuffTable& act = ac[c.ta];
+      for (; k <= se; k++) {
+        int rs = decode_huff(br, act);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {  // a newly nonzero coefficient; its size is 1 in a valid stream
+          s = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = (1 << r) + br.get(r);
+          break;
+        }
+        // pass the nonzero coefficients (correcting each) and r zero ones
+        do {
+          int16_t& coef = blk[kNatural[k]];
+          if (coef != 0) {
+            correct(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          k++;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = int16_t(s);
+      }
+    }
+    if (eobrun > 0) {  // the rest of the band: correction bits only
+      for (; k <= se; k++) {
+        int16_t& coef = blk[kNatural[k]];
+        if (coef != 0) correct(coef);
+      }
+      eobrun--;
+    }
+  }
+
+  void decode_any(BitReader& br, Component& c, int16_t* blk) {
+    if (!progressive) decode_block(br, c, blk);
+    else if (ss == 0 && ah == 0) decode_dc_first(br, c, blk);
+    else if (ss == 0) decode_dc_refine(br, blk);
+    else if (ah == 0) decode_ac_first(br, c, blk);
+    else decode_ac_refine(br, c, blk);
+  }
+
   void decode_scan(Component** sc, int ns) {
     BitReader br(d, n, pos);
     int restarts_to_go = restart_interval, next_rst = 0;
@@ -453,6 +577,7 @@ struct Decoder {
         br.pos = p + 1;
         next_rst = (next_rst + 1) & 7;
         for (int i = 0; i < ns; i++) sc[i]->dc_pred = 0;
+        eobrun = 0;
         restarts_to_go = restart_interval;
       }
       restarts_to_go--;
@@ -462,7 +587,7 @@ struct Decoder {
       for (int by = 0; by < c.bh; by++)
         for (int bx = 0; bx < c.bw; bx++) {
           mcu_restart();
-          decode_block(br, c, &c.coef[(size_t(by) * c.bw_pad + bx) * 64]);
+          decode_any(br, c, &c.coef[(size_t(by) * c.bw_pad + bx) * 64]);
         }
     } else {
       for (int my = 0; my < mcuy; my++)
@@ -473,7 +598,7 @@ struct Decoder {
             for (int yy = 0; yy < c.v; yy++)
               for (int xx = 0; xx < c.h; xx++) {
                 size_t b = size_t(my * c.v + yy) * c.bw_pad + size_t(mx * c.h + xx);
-                decode_block(br, c, &c.coef[b * 64]);
+                decode_any(br, c, &c.coef[b * 64]);
               }
           }
         }
@@ -489,6 +614,10 @@ struct Decoder {
       int m = next_marker();
       if (m == 0xD9) {
         if (!any_scan) fail(kCorrupt, "EOI before any scan");
+        if (progressive && block_smoothing()) {
+          fail(kUnsupported, "a progressive JPEG whose scans leave one of the first ten "
+                             "coefficients unrefined (libjpeg's block smoothing)");
+        }
         return;
       }
       if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
@@ -496,14 +625,12 @@ struct Decoder {
       if (len < 2 || pos + len - 2 > n) fail(kCorrupt, "a marker segment runs past the end");
       size_t end = pos + len - 2;
       switch (m) {
-        case 0xC0: case 0xC1: read_sof(end); break;
-        case 0xC2: case 0xC6: case 0xCA: case 0xCE:
-          fail(kUnsupported, "progressive JPEG");
-        case 0xC3: case 0xC7: case 0xCB: case 0xCF:
-          fail(kUnsupported, "lossless JPEG");
-        case 0xC9: case 0xCD:
-          fail(kUnsupported, "arithmetic-coded JPEG");
-        case 0xC5: fail(kUnsupported, "hierarchical JPEG");
+        case 0xC0: case 0xC1: read_sof(end, false); break;
+        case 0xC2: read_sof(end, true); break;
+        case 0xC3: fail(kUnsupported, "lossless JPEG");
+        case 0xC5: case 0xC6: case 0xC7: fail(kUnsupported, "hierarchical JPEG");
+        case 0xC9: case 0xCA: case 0xCB: fail(kUnsupported, "arithmetic-coded JPEG");
+        case 0xCD: case 0xCE: case 0xCF: fail(kUnsupported, "hierarchical arithmetic-coded JPEG");
         case 0xC4: read_dht(end); break;
         case 0xCC: fail(kUnsupported, "arithmetic-coded JPEG");
         case 0xDB: read_dqt(end); break;
@@ -517,6 +644,24 @@ struct Decoder {
       }
       pos = end;
     }
+  }
+
+  // whether libjpeg would output through decompress_smooth_data
+  // (jdcoefct.c smoothing_ok): every component's quantization table latched
+  // with nonzero DC and first nine AC values, its DC at least partly known,
+  // and some component with one of the zigzag coefficients 1..9 not fully
+  // refined. A complete scan script never meets it.
+  bool block_smoothing() const {
+    static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (int i = 0; i < ncomp; i++) {
+      if (!comp[i].latched) return false;
+      for (int p : kPos)
+        if (comp[i].q[p] == 0) return false;
+      if (coef_bits[i][0] < 0) return false;
+      for (int k = 1; k < 10; k++) useful = useful || coef_bits[i][k] != 0;
+    }
+    return useful;
   }
 
   // islow IDCT of one block into an 8x8 window of `out` (jidctint.c)
@@ -681,6 +826,37 @@ struct Decoder {
     return out;
   }
 
+  // OpenCV's CMYK -> BGR and CMYK -> gray of the inverted (Adobe) CMYK that
+  // libjpeg outputs (icvCvt_CMYK2BGR_8u_C4C3R, icvCvt_CMYK2Gray_8u_C4C1R)
+  static inline int cmyk_channel(int x, int k) { return k - (((255 - x) * k) >> 8); }
+
+  // 4 components: CMYK, or YCCK (Adobe transform other than 0) converted to
+  // CMYK first (jdcolor.c ycck_cmyk_convert)
+  void output_cmyk(bool gray, uint8_t* out) const {
+    const size_t npix = size_t(width) * height;
+    const ColorTables& t = color_tables();
+    const bool ycck = saw_adobe && adobe_transform != 0;
+    std::vector<uint8_t> c0 = upsampled(comp[0]), c1 = upsampled(comp[1]), c2 = upsampled(comp[2]),
+                         c3 = upsampled(comp[3]);
+    for (size_t i = 0; i < npix; i++) {
+      int c = c0[i], m = c1[i], y = c2[i], k = c3[i];
+      if (ycck) {
+        int luma = c, cb = m, cr = y;
+        c = clamp255(255 - (luma + t.cr_r[cr]));
+        m = clamp255(255 - (luma + int((t.cb_g[cb] + t.cr_g[cr]) >> kScaleBits)));
+        y = clamp255(255 - (luma + t.cb_b[cb]));
+      }
+      int r = cmyk_channel(c, k), g = cmyk_channel(m, k), b = cmyk_channel(y, k);
+      if (gray) {
+        out[i] = uint8_t((b * 1868 + g * 9617 + r * 4899 + (1 << 13)) >> 14);
+      } else {
+        out[3 * i] = uint8_t(b);
+        out[3 * i + 1] = uint8_t(g);
+        out[3 * i + 2] = uint8_t(r);
+      }
+    }
+  }
+
   // RGB (colour transform 0) or YCbCr
   bool is_rgb() const {
     if (ncomp != 3 || saw_jfif) return false;
@@ -692,6 +868,10 @@ struct Decoder {
   void output(bool gray, uint8_t* out) const {
     const size_t npix = size_t(width) * height;
     const ColorTables& t = color_tables();
+    if (ncomp == 4) {
+      output_cmyk(gray, out);
+      return;
+    }
     if (ncomp == 1 || (gray && !is_rgb())) {  // the Y plane; replicated for colour
       std::vector<uint8_t> y = upsampled(comp[0]);
       if (gray) {

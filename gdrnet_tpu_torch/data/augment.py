@@ -454,8 +454,10 @@ class BackgroundReplacer:
     @staticmethod
     def _read(path: str) -> np.ndarray | None:
         """The background as cv2.imread reads it, None where cv2 gives None
-        (a missing, unreadable or corrupt file). A JPEG process the port does
-        not decode raises, since cv2 would have read the file."""
+        (a missing, unreadable or corrupt file). A JPEG that the port refuses
+        (arithmetic-coded, 12-bit, lossless, hierarchical, or progressive
+        with a low coefficient left unrefined) raises NotImplementedError,
+        since cv2 would have read the file."""
         try:
             return load_im(path)
         except (OSError, ValueError):

@@ -158,7 +158,11 @@ def write_png(path: str, img: np.ndarray) -> None:
 def read_image(path: str, flags: str = "color") -> np.ndarray:
     """A PNG or JPEG file, told apart by its signature as cv2.imread tells
     them apart: [H, W, 3] BGR uint8 as cv2.IMREAD_COLOR (flags "color") or
-    [H, W] uint8 as cv2.IMREAD_GRAYSCALE (flags "gray")."""
+    [H, W] uint8 as cv2.IMREAD_GRAYSCALE (flags "gray"). A JPEG may be
+    baseline, extended or progressive, gray, colour, CMYK or YCCK; an
+    arithmetic-coded, 12-bit, lossless or hierarchical one raises
+    NotImplementedError (data/jpeg.py), and a corrupt or truncated file
+    ValueError."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(JPEG_SIGNATURE):

@@ -6,14 +6,19 @@ The codec is host C++ (csrc/jpeg_codec.cpp), built with g++ at first use and
 called through ctypes, which releases the GIL, so loader threads decode at
 once. It computes what libjpeg-turbo 3.1 computes, as OpenCV calls it:
   decode_jpeg(data, "color")  cv2.imdecode(buf, cv2.IMREAD_COLOR): BGR, a gray
-                              JPEG replicated to three channels;
+                              JPEG replicated to three channels, a CMYK or
+                              YCCK JPEG through OpenCV's CMYK -> BGR;
   decode_jpeg(data, "gray")   cv2.IMREAD_GRAYSCALE;
   encode_jpeg(img, q, s)      cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, q,
                               IMWRITE_JPEG_SAMPLING_FACTOR, s]), byte for byte;
-both decodes apply the EXIF orientation tag as OpenCV does. A corrupt or
-truncated stream raises ValueError (where cv2.imread would return None or an
-image padded after a warning); progressive, arithmetic-coded, 12-bit,
-lossless and 4-component JPEGs raise NotImplementedError.
+both decodes read baseline, extended sequential and progressive Huffman
+JPEGs of 1, 3 or 4 components and apply the EXIF orientation tag as OpenCV
+does. A corrupt or truncated stream raises ValueError (where cv2.imread
+would return None or an image padded after a warning). Arithmetic-coded,
+12-bit, lossless and hierarchical JPEGs raise NotImplementedError, and so
+does a progressive JPEG whose scans leave a low coefficient unrefined (one
+that libjpeg outputs through its block smoothing); the encoder writes
+baseline only, as cv2.imencode does by default.
 
 `calls` counts the codec's calls by kind ("decode", "encode"), exact under
 concurrent callers, so that a run can show which path decoded JPEGs.
@@ -68,8 +73,10 @@ def _lib() -> ctypes.CDLL:
 def _raise(code: int, err: ctypes.Array, what: str) -> None:
     msg = err.value.decode(errors="replace")
     if code == 2:
-        raise NotImplementedError(f"{what}: {msg}; the port decodes baseline and extended "
-                                  "sequential Huffman JPEGs only (ROADMAP.md A13)")
+        raise NotImplementedError(f"{what}: {msg}; the port decodes baseline, extended "
+                                  "sequential and progressive Huffman JPEGs of 8-bit samples; "
+                                  "arithmetic-coded, 12-bit, lossless and hierarchical ones "
+                                  "are refused")
     raise ValueError(f"{what}: {msg}")
 
 

@@ -2,23 +2,42 @@
 digests that OpenCV 5.0 with libjpeg-turbo 3.1.2 gives on it.
 
 Each case is an image made from its own seed with numpy alone (smooth ramps
-and waves, plus noise), encoded as cv2.imencode(".jpg", img,
-[IMWRITE_JPEG_QUALITY, q, IMWRITE_JPEG_SAMPLING_FACTOR, s,
-IMWRITE_JPEG_RST_INTERVAL, r]) encodes it, then decoded as cv2.imdecode
-with IMREAD_COLOR and with IMREAD_GRAYSCALE. DIGESTS holds the SHA-256 of
-the stream and of both decoded images. Machines without cv2 hold the port's
-codec to them; the tests regenerate them from cv2 so that they cannot go
-stale.
+and waves, plus noise), written as a JPEG stream by its process:
+  baseline              cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, q,
+                        IMWRITE_JPEG_SAMPLING_FACTOR, s, IMWRITE_JPEG_RST_INTERVAL,
+                        r]), which the port's encoder writes byte for byte;
+  progressive           the same with IMWRITE_JPEG_PROGRESSIVE=1;
+  progressive_optimize  and IMWRITE_JPEG_OPTIMIZE=1;
+  cmyk                  PIL 12.1's writer of a CMYK image (inverted CMYK with an
+                        Adobe APP14 segment of transform 0), quality q,
+                        subsampling 0 for "444" and 2 for "420";
+  cmyk_progressive      the same with progressive=True;
+  ycck, ycck_progressive  the stream of the cmyk case of the same name with its
+                        APP14 transform byte set to 2, which libjpeg reads as
+                        YCCK;
+then decoded as cv2.imdecode with IMREAD_COLOR and with IMREAD_GRAYSCALE.
+DIGESTS holds the SHA-256 of the stream and of both decoded images. The
+port's encoder writes baseline only, so the streams of the progressive and
+CMYK cases are files of STREAM_DIR, written by cv2 and PIL
+(tests/test_torch_jpeg.py's write_streams); they are test fixtures of the
+repository, left out of the installed package. Machines without cv2 hold the
+port's codec to the digests; the tests regenerate them, and the files, from
+cv2 and PIL so that they cannot go stale.
 """
 
 from __future__ import annotations
 
 import hashlib
+from pathlib import Path
 from typing import Callable, NamedTuple
 
 import numpy as np
 
 from gdrnet_tpu_torch.data import jpeg
+
+STREAM_DIR = Path(__file__).resolve().parent / "jpeg_streams"
+PROCESSES = ("baseline", "progressive", "progressive_optimize", "cmyk", "cmyk_progressive",
+             "ycck", "ycck_progressive")
 
 
 class Case(NamedTuple):
@@ -28,6 +47,7 @@ class Case(NamedTuple):
     quality: int
     sampling: str   # "420", "422", "444", or "gray" for a one-channel image
     restart: int    # restart interval in MCUs, 0 for none
+    process: str = "baseline"  # one of PROCESSES
 
 
 def _cases() -> list[Case]:
@@ -37,6 +57,16 @@ def _cases() -> list[Case]:
             for s in ("420", "422", "444", "gray"):
                 out.append(Case(f"{w}x{h}_q{q}_{s}", h, w, q, s, 0))
     out.append(Case("640x480_q95_420_rst5", 480, 640, 95, "420", 5))
+    for h, w in ((1, 1), (7, 9), (33, 17), (480, 640)):
+        for q in (75, 95):
+            for s in ("420", "422", "444", "gray"):
+                out.append(Case(f"{w}x{h}_q{q}_{s}_prog", h, w, q, s, 0, "progressive"))
+    out.append(Case("500x375_q75_420_prog_opt", 375, 500, 75, "420", 0, "progressive_optimize"))
+    out.append(Case("500x375_q75_420_prog_rst5", 375, 500, 75, "420", 5, "progressive"))
+    for h, w, q, s, process in ((33, 17, 75, "444", "cmyk"), (480, 640, 95, "420", "cmyk"),
+                                (33, 17, 95, "420", "cmyk_progressive")):
+        for p in (process, process.replace("cmyk", "ycck")):
+            out.append(Case(f"{w}x{h}_q{q}_{s}_{p}", h, w, q, s, 0, p))
     return out
 
 
@@ -44,9 +74,10 @@ CASES = _cases()
 
 
 def case_image(case: Case) -> np.ndarray:
-    """The case's uint8 image: [H, W] for "gray", else [H, W, 3] BGR."""
+    """The case's uint8 image: [H, W] for "gray", [H, W, 4] CMYK for a CMYK
+    or YCCK case, else [H, W, 3] BGR."""
     rng = np.random.RandomState(CASES.index(case) + 1)
-    ch = 1 if case.sampling == "gray" else 3
+    ch = 1 if case.sampling == "gray" else 4 if case.process[:4] in ("cmyk", "ycck") else 3
     y = np.arange(case.height, dtype=np.float64)[:, None, None]
     x = np.arange(case.width, dtype=np.float64)[None, :, None]
     freq = rng.uniform(0.01, 0.15, (2, 1, 1, ch))
@@ -57,14 +88,36 @@ def case_image(case: Case) -> np.ndarray:
     return img[..., 0] if ch == 1 else img
 
 
-def digests(encode: Callable[[np.ndarray, Case], bytes],
+def to_ycck(data: bytes) -> bytes:
+    """A JPEG stream with the transform byte of its Adobe APP14 segment (the
+    12th byte after "Adobe") set to 2, YCCK."""
+    at = data.find(b"\xff\xee")
+    if at < 0 or data[at + 4:at + 9] != b"Adobe":
+        raise ValueError("to_ycck: no Adobe APP14 segment")
+    at += 4 + 11
+    return data[:at] + b"\x02" + data[at + 1:]
+
+
+def case_stream(case: Case) -> bytes:
+    """The port's stream of the case: its encoder's for a baseline case,
+    STREAM_DIR's file for a progressive or CMYK one, and for a YCCK case its
+    CMYK case's file through to_ycck."""
+    if case.process == "baseline":
+        return jpeg.encode_jpeg(case_image(case), case.quality,
+                                "420" if case.sampling == "gray" else case.sampling, case.restart)
+    if case.process.startswith("ycck"):
+        return to_ycck((STREAM_DIR / f"{case.name.replace('ycck', 'cmyk')}.jpg").read_bytes())
+    return (STREAM_DIR / f"{case.name}.jpg").read_bytes()
+
+
+def digests(stream: Callable[[Case], bytes],
             decode: Callable[[bytes, str], np.ndarray]) -> dict[str, tuple[str, str, str]]:
     """{case name: (sha256 of the stream, of the colour decode, of the gray
-    decode)} for a codec given as encode(img, case) and decode(data, flags),
+    decode)} for a codec given as stream(case) and decode(data, flags),
     flags "color" or "gray"."""
     out = {}
     for case in CASES:
-        data = encode(case_image(case), case)
+        data = stream(case)
         color, gray = decode(data, "color"), decode(data, "gray")
         out[case.name] = tuple(hashlib.sha256(b).hexdigest()
                                for b in (data, np.ascontiguousarray(color).tobytes(),
@@ -74,10 +127,7 @@ def digests(encode: Callable[[np.ndarray, Case], bytes],
 
 def port_digests() -> dict[str, tuple[str, str, str]]:
     """digests() of the port's codec."""
-    return digests(
-        lambda img, c: jpeg.encode_jpeg(img, c.quality, "420" if c.sampling == "gray" else c.sampling,
-                                        c.restart),
-        jpeg.decode_jpeg)
+    return digests(case_stream, jpeg.decode_jpeg)
 
 
 DIGESTS: dict[str, tuple[str, str, str]] = {
@@ -245,4 +295,164 @@ DIGESTS: dict[str, tuple[str, str, str]] = {
         "dacf863f1d0366d795c1528dabd52bc5054e29d63ef8daef9cdd9c8d6240fe26",
         "e45b50e488440c7a8303aad3369a50c8bc4825c0d162c2146af8e97139d92517",
         "c4a5f450c6345c7127e98fe0145b36aaf4de5628c1e4a06cd27cb7abbb078f60"),
+    "1x1_q75_420_prog": (
+        "08ff1c5781dd1f1d91ef751772339f85da04853ac5ee031a2070301fbfe05b7c",
+        "3bc43a0b78df8621ed34e03ecb8d9df51bbb3058088f1b0b63465088ddd3a95b",
+        "fcb5f40df9be6bae66c1d77a6c15968866a9e6cbd7314ca432b019d17392f6f4"),
+    "1x1_q75_422_prog": (
+        "84c026d2ac181202f17e0f1a274b24b5a5fd08b2488b843f9230728abf8cad62",
+        "9c5f230352df6eab3bb2ffcbce554562d734be2f0fc38e08c629b15d19462e48",
+        "cbe5cfdf7c2118a9c3d78ef1d684f3afa089201352886449a06a6511cfef74a7"),
+    "1x1_q75_444_prog": (
+        "2ccc442474f29a6799503bfab8b53e969264c83fe2c63dd84e1b09ec7e4d0fbb",
+        "8052bab35bf796f69bd49e87729dde77cd7367f24cbf3600c035c43bb3e176d9",
+        "4f362f9093bb8e7012f466224ff1237c0746d8c8f660b16699f5036ccba9c64a"),
+    "1x1_q75_gray_prog": (
+        "fc5a941af4b0b1101d5bd047cc1175b9950478cbee1f3895ac3c8b444ecc5f9d",
+        "c4d4798b9b21d1daca37589f0a74c82c82b7196088f3cfd8bf4e593de5dfeeac",
+        "281c93990bac2c69cf372c9a3b66c406c86cca826d6407b68e644da22eef8186"),
+    "1x1_q95_420_prog": (
+        "9447b6fc49202e63fc2486d2e8fe81683304ec41b1a76a6ff8ea46a41f516606",
+        "1f2ad222c0ebd6b5fb1b3d05deb2e8cc40e4c53597d84529e8cfc09f3c338710",
+        "148de9c5a7a44d19e56cd9ae1a554bf67847afb0c58f6e12fa29ac7ddfca9940"),
+    "1x1_q95_422_prog": (
+        "458200715cd775a4b0d46c62fcc28d46d0f68cd7a7aa12d79517d36dd37d3ed9",
+        "04192a90caec29cf8e349e66a104d295cf82d512dbce5f78a2ca978cbc0a8d44",
+        "50e721e49c013f00c62cf59f2163542a9d8df02464efeb615d31051b0fddc326"),
+    "1x1_q95_444_prog": (
+        "7e9dff3fa10d96329b60a225846a05876c9b48aa47f532575dacf58c94e05134",
+        "fb93c1b842e3449e66b22379ee01f3e3fbeb3ddb992d7ebe7efdde92537ebbe2",
+        "d10b36aa74a59bcf4a88185837f658afaf3646eff2bb16c3928d0e9335e945d2"),
+    "1x1_q95_gray_prog": (
+        "77f1549867e099ece9739ccbc31ecb2a58bdd839cd9c5968dc40b5510a43b18e",
+        "f5557d4fcf727a981a3c315aca733eefa2996f7c7cdae1fa7e0de28522820bb0",
+        "de7d1b721a1e0632b7cf04edf5032c8ecffa9f9a08492152b926f1a5a7e765d7"),
+    "9x7_q75_420_prog": (
+        "84bc50cf75d3b17322369106312e8c2e58426f685443cb1b7fece832b2da7bc2",
+        "1073242b6d5830a7a320f811b7a9cd8c27c082eb43c9cb5f90f76897f7c94de2",
+        "4a040ff4cd08cd75a12caf1e912b221b187bad117bcb7cc09ced539e9f1af049"),
+    "9x7_q75_422_prog": (
+        "f1b6469615dd8d2c0fe690a7cd0c5cca18f41c4008bff6783c8001c58059e5a7",
+        "fe79dd5b42faa27e5c2105b2ed4a4bc541268394586e272c48999e0d07fd882f",
+        "d51ad9927a0a751825f53831c067ebe14a6a5c4b74df22e91b5e6c606b30d0dc"),
+    "9x7_q75_444_prog": (
+        "c11a6145cbc5bf66e12dcf791d10503fdc42bcd93ac2ed0866afa4ab3659eb95",
+        "c6ab3380cc06179b445f23d13561671b38ef58d1227d335421546128eb796660",
+        "27a974b81e541f4b5662df8a9105083be258638116e1dfe6b7c1b2da912e63a6"),
+    "9x7_q75_gray_prog": (
+        "0ac08001191bafe1b365443ce20dc0cf9594d92110a67a6ef9d33c98b4b93166",
+        "58d3d48f0209dcce4c730c139ac8b345154269fd69e37f62bf8f767a195897ad",
+        "759d43c4ae69831a78385837b4367b6c7c8b24b792f668b55c093ff44ad65785"),
+    "9x7_q95_420_prog": (
+        "acfcee46f8fb748e94b419d54b9d4693c0db3ac128138782d754c4d88be091d9",
+        "ec46347723d344612f91bfb15d9b0b29f2c42c9caecd5aee78b4a5bbdabd4ffb",
+        "9486d1cd997bdb2055a19d188aa3ab82c1cf36d6a8bc55cb51fe35185660dbe1"),
+    "9x7_q95_422_prog": (
+        "8bcdefbf8ea46ef9237b03d07010ee7595957af2ed0d4da91b2c04f07cc52abb",
+        "a98c1fa4b0765b3a0843b9f131859e3c5b015220df43312ac70fd4d77667a9dd",
+        "78b6a8da86dbea6ebb747de967e9fac48382f4a0571da06878ef67bd3d866108"),
+    "9x7_q95_444_prog": (
+        "73c019b564e88ccff460fe996916cba5ced142d36924c7248264d606e535dccd",
+        "9feb4a20d560ef0d8dde40379ea2d76db4e381e9805119d4ac1908f14e917bec",
+        "8c2cc43aba246558d040690ad18b0701c694636e5f425084dc199dedc0868398"),
+    "9x7_q95_gray_prog": (
+        "2493a0f39641004043a096596b0e12a9fd18ddba95d10007becd895bea432dc8",
+        "86b43ad7db4ceca037ba53c5fadc8feec0f2adcf9aff7983e420b896f50d75f7",
+        "e3b0d3470273f24e9e427c7dce7c650343c503567855afd8b513369e40588edf"),
+    "17x33_q75_420_prog": (
+        "1038c1c12f2f41b299e09cf4e060bc8438b7b3a26b52d6d2575754a21edb3ac9",
+        "bffa4565d96184ddfb4d8d2c10fad17feb6dc22325bc3c43ce57f8a394e2caeb",
+        "e8352312f58069b2010a287d56e5cfcb3b2e9e7e8d74b908363b88579361a517"),
+    "17x33_q75_422_prog": (
+        "1466b9ebe176e2ef41c5ff640ec7a92593cdf1c5ed20c8953726ef2ba758dafa",
+        "856200188f2d8efc4ac78dcd4edad1f772b9ef0c76cd38c22f96a1a0a36615d7",
+        "37c1dddda666d24c0a87d8fb8fe8498e93e1bb7be99018efde685d5985789289"),
+    "17x33_q75_444_prog": (
+        "43285f83cf08e8368d06aebb5bd341e0f53b792eaafc32d7e6ee8bd7948497d2",
+        "aca5ea7703089593578969feb95c24f0b11fe16c84f09980d881e2747ccb437f",
+        "77feb1af1906aad1e3c04f99c5a8943f551ffed8e71e9aed4e1c5000dec2fcea"),
+    "17x33_q75_gray_prog": (
+        "05a77fd0a72c9fa229ed7adbb3188660b434782f3d779048547c9b81e948c558",
+        "5f42dd7a9e28bda39aafa416fdc13709edc4e4c405d47e819667373e1139365a",
+        "d720a6bade985e1e68fce013e8ce71b3439134cb6ea7ed201c84955ee9cad4a1"),
+    "17x33_q95_420_prog": (
+        "a0fa7324d8a54366a3efd23ac48fb07a34ab72ce469988188164cc046db5afb6",
+        "0550fb0f90cba3addb35ffe95f18193249eecabd3bd9bc7a6a4a343394c437d6",
+        "3fd5782d589dcf9d45398c4ed047c07279a0566e36997f7332a952bbfb1aa1ae"),
+    "17x33_q95_422_prog": (
+        "a6501b6ed8be143281cca50e7bb7cae5d8db08a7e8600d88a5bd51dfee7153b2",
+        "3dc31b756f3269d1e0c651536be4ff7ea548d02ede09e64136151b5f6a3b7033",
+        "099394780a4a894fb0114a25a30d71f471f2ec7811282897f7a8f5cb34daafa4"),
+    "17x33_q95_444_prog": (
+        "ad44a719f0f00078a4f16e06e97a269f15b48b2d1196a63383e59476b4b705ec",
+        "280afc29c85f67fbd8c5acc0e120db8c7fb93532501df196700d94f08ac095cd",
+        "95d09469666b470624b4474fc726fad4ab6c68be79a128a486cb7db2cf5c846b"),
+    "17x33_q95_gray_prog": (
+        "a60b5fe870acf4dcc45ac30ca4959c16acbeaba231dfa3df4c794ac8ff18f5db",
+        "1417a836c217700d268f90d5c0e7dd076fe862114aa56cc5c1f5521d66bd9c44",
+        "9e474f3fa3f735fa0fe553e8093f9bd9a7c4c7ce093dd1fca5fbda2d76be8d94"),
+    "640x480_q75_420_prog": (
+        "dfee339f4d81af690ef12a3fd94fa29ba6142d51fbe04705fb5337b09307e473",
+        "c085e3eb961a32adc6d170b18e21910925ee7be30f47ae224641074ee224e586",
+        "89d73124fe4bdc5cc927dcd524f515e18e30f827e8f11a47c29835f3dd17d008"),
+    "640x480_q75_422_prog": (
+        "d4c9a265c0edd5b72607cbffe185fea66ab8e8e5493e3bf7d5a1b91c2b6eb7a7",
+        "5b61ec012c498772253a0d033e595ffeec13fe789d141770c65df659990051c4",
+        "940437b7a51715a001c684b171e988769d72934700dea125045e07e6cb24f3e7"),
+    "640x480_q75_444_prog": (
+        "a244869d66ba4a540bf7a43ef24945de4f2a1173056f1d3c4b81bd6e8f86db79",
+        "b76662882f47161193c3c068c2f8b164f746870bcc43259f25968336668e3fd2",
+        "df3d30062143a3295ad5d2a39f6e138b3dca8a96ebd1999d9989e927983037ba"),
+    "640x480_q75_gray_prog": (
+        "2138cb60978e08c6d392fed49504643084e0e1795a1eba8299e3a8352814c098",
+        "8adb5a0a5eaa257b4eff95281b895a2483fee4bd013a9bbc926ecb3c19782d0b",
+        "53e5f7e8f0c58c58f463cc8bb5fde4dfe81b4a72b2c13eaad929d785965ce7bc"),
+    "640x480_q95_420_prog": (
+        "9a6ac42549975624144b70422d3e466c2a4b27f7d430ce79a2456a3c294b9080",
+        "09d29497bddad376b935b8c1281306af88cff45287d5f3f469dfd73ac6d0ad7c",
+        "689f9ab0f79659fa58555249d74ec46b9a1f6dc6ad01180c36473e58de3f84ad"),
+    "640x480_q95_422_prog": (
+        "8d031cd360cf17ea64b96be7f7f3493cd96711cfbdb199ea559058de024dba1e",
+        "ade26f3c44bc7798bf090be3802ca8283591b5423a64b28edd1e445622bbdf8b",
+        "2d5a7c5b7f6398e5b07c4d987575281162b7a16059c31f6aff5ebd07a0b5f6ca"),
+    "640x480_q95_444_prog": (
+        "71d535403268b962b93aab22fa7a8f7a9f45ddf9d709da64aa1ad554086105e7",
+        "7de079eed34f595d5adb95b8708f5a2dd3f3c041a583367d943290df71940ed7",
+        "cf6c6c667f641dfe2eae4231506ee1a74de271cd61be59cb7f6390d9d73265ff"),
+    "640x480_q95_gray_prog": (
+        "94d3cae09ad184884969d08cc9e5360053c5a9c487b1f404bf942a62d44dc1d4",
+        "46533e6507cec36da410028e35e264ae7c296d374a7b583ef695f91b4f20202c",
+        "b669dc22f7b50601c5f96c19392d3cbf2a0cffef681f8754a2a6681ca16d33b1"),
+    "500x375_q75_420_prog_opt": (
+        "44d8bdaa774365c122e5c1547896067b7a248565d19477163b23af69e4e68adf",
+        "9a8453691a88eccb795d7f812e2ad15ef5d3a6448ae23dddc3c644f7fc4826ba",
+        "953f6cb5bcf578516e4681623effd5465eeb0237bdb068fe5139e86b463748b4"),
+    "500x375_q75_420_prog_rst5": (
+        "ea839c1ae4063cf8d058a114238a6368c833f5bc9584043b5f684d48dd7ad1fc",
+        "0b1862ca4b1774edbc16e5e5ce41dbd9f9f4f3c1d5bd552a4a1aee46a3ce413b",
+        "40c7157816540924b41d4a9f66c86ad6710be93f83827713c2e933383c91080e"),
+    "17x33_q75_444_cmyk": (
+        "5d477d8e7e7365853bc084cd9963e59a709e0ea40f9ac17acc3356d298193ab6",
+        "39e2c0a60cd6428ca38378f987cdeb0e5474b731c666debcd1c8d7c1438c9922",
+        "56893d7394a4c201075ec5574eddcb0d126ae10f7a549e95473845dd00fb49a7"),
+    "17x33_q75_444_ycck": (
+        "3a19c972e70bf2788478c37cf2681e8eeb904db59a9a782c783d5d0316fa9c51",
+        "6314686cdf3605bd3cf71221643b6edbe1c627c4384291a107921b38e73360f9",
+        "0f9b8e68862ecc35819276903548aa5460f2eb3fcb96b4cca94a64b4b437cb57"),
+    "640x480_q95_420_cmyk": (
+        "11a5a0bcfe90e5b73b2d56e09b12342173b6e7a688f4e949c564fda70fad47da",
+        "929c0bfe27cdb9326ff82ad2722379f393bb5bb2ce0bcc0751a8677ae38acacb",
+        "033175958bb2a63ff413b8fa17c55da19b5004a740a2e0dbd4d3f2710c58855e"),
+    "640x480_q95_420_ycck": (
+        "73dc83e6aa2f5bdbcf6f4a42842aaff4a4a2faff92b9eb6da5845a1636c962ca",
+        "36866dabaab8dcaa80065dc273274e445305ec1777a082f295cb84ead2c1d2c5",
+        "6a4f3ce49d42254f6e9e183f2a8a21b2f6b8a9c3d66004ec0dbf59b6cd04fdc0"),
+    "17x33_q95_420_cmyk_progressive": (
+        "01de215cc078bd5681a2568781bef73d5b6d96b58bcf091f7b00d2cc7ac5e6d3",
+        "56c2bd7be2ac60e199ab1c658bf5c25d853c12396bc0592d303cf99ee022272e",
+        "b2e2d05b220e8306b3a0baa96c67876a4b0c18ca863f16573cb1c08805724068"),
+    "17x33_q95_420_ycck_progressive": (
+        "0003e1f40c4fb5888f1dc7c0de49da1573d645c1916166626d8a0e6d0b3db57b",
+        "33b17ebcabdf09ca17b22cadeb6e375a704c4cc0886d18507230f2cf71d3b648",
+        "eb57433db8734b806bf28636092011a181dd14e2895f86ddeb85d98ff1b787b9"),
 }

@@ -2,8 +2,10 @@
 bench (serving crops/s), bench_pnp, bench_train (the train step, the
 loader and the FLOP audit), compute_fps, dryrun_multichip, eval_csv,
 export_model (torch.export of the serving forward), gen_det_fuse,
-gen_scale_dataset, gen_test_targets, gen_xyz, predict and strip_ckpt (the
-counterparts of the repository's bench.py and tools/*.py)."""
+gen_scale_dataset, gen_test_targets, gen_xyz, predict, scale_run (the scale
+run's resumable stages), strip_ckpt, validate_overfit and validate_scale
+(the learning checks) (the counterparts of the repository's bench.py and
+tools/*.py)."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import torch
 
 __all__ = ["bench", "bench_pnp", "bench_train", "compute_fps", "dryrun_multichip", "eval_csv",
            "export_model", "gen_det_fuse", "gen_scale_dataset", "gen_test_targets", "gen_xyz",
-           "predict", "strip_ckpt"]
+           "predict", "scale_run", "strip_ckpt", "validate_overfit", "validate_scale"]
 
 
 class NoCardError(SystemExit, RuntimeError):

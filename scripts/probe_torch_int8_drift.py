@@ -7,9 +7,9 @@ One JSON line each:
   --batch crops a seed: rotation degrees (min, median, max) of int8
   against bf16, of bf16 against f32 and of int8 with f32 activations
   against f32, and the translations' largest relative change;
-- with --overfit: chip_smoke.py's learning check ([overfit]: R18 trained
-  OVERFIT_STEPS steps on its 12 mapped ROIs), then int8 and int8 on the
-  folded model against its bf16 forward on those ROIs.
+- with --overfit: the learning check of gdrnet_tpu_torch/tools/
+  validate_overfit.py (R18 trained TOTAL steps on its 12 mapped ROIs), then
+  int8 and int8 on the folded model against its bf16 forward on those ROIs.
 
 Run from the repository root (the card unless --device cpu):
     python3 scripts/probe_torch_int8_drift.py [--device cpu] [--seeds 0 1] [--overfit]
@@ -23,13 +23,13 @@ import sys
 import tempfile
 from pathlib import Path
 
-import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
 from gdrnet_tpu_torch.models import quantize as Q  # noqa: E402
+from gdrnet_tpu_torch.tools import validate_overfit as overfit_tool  # noqa: E402
 from gdrnet_tpu_torch.utils.fold_bn import fold_batch_norms  # noqa: E402
 
 
@@ -72,26 +72,16 @@ def flagship(device: str, seeds: list[int], batch_size: int) -> None:
 
 
 def overfit(device: str, seed: int) -> None:
-    cs.DEV = device
-    gsd = cs.mesh_tools()
+    c = overfit_tool.overfit_cfg()
     with tempfile.TemporaryDirectory() as root:
-        meta = cs.overfit_split(gsd, str(Path(root) / "overfit"))
-        records = cs.load_bop_scene_dicts(meta, "test", img_type="real")
-        c = cs.overfit_cfg()
-        models = cs.ObjectModels(meta, num_pm_points=256, num_fps=8)
-        mapper = cs.GDRNTrainMapper(c, models, device=device)
-        batch = cs.to_device(cs.collate([mapper(rec, np.random.RandomState(i))
-                                         for i, rec in enumerate(records)]), device)
-    model = cs.init_weights(cs.build_model(c, device=device), torch.Generator().manual_seed(seed))
-    opt = cs.build_optimizer(c, model, cs.build_lr_schedule(c, 1e-3, cs.OVERFIT_STEPS))
-    state, step = cs.create_train_state(model, opt), cs.make_train_step(c, model, opt)
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
-    for _ in range(cs.OVERFIT_STEPS):
-        step(state, batch, gen)
-    trained = state.model.eval()
+        meta = overfit_tool.overfit_split(str(Path(root) / "overfit"), device=device)
+        split = overfit_tool.map_split(c, meta, device)
+        run = overfit_tool.run_seed(c, split, seed, str(Path(root) / "out"), device,
+                                    echo=lambda line: None)
+    trained, batch = run["model"].eval(), run["batch"]
     ref = cs.make_predict_step(trained)(batch)
-    print(json.dumps({"case": "overfit_trained_r18", "seed": seed, "crops": len(records),
-                      "device": device, "steps": cs.OVERFIT_STEPS,
+    print(json.dumps({"case": "overfit_trained_r18", "seed": seed, "crops": len(split[0]),
+                      "device": device, "steps": overfit_tool.TOTAL,
                       "int8_vs_bf16": drift(int8_of(trained, batch), ref),
                       "int8_folded_vs_bf16": drift(int8_of(fold_batch_norms(trained), batch),
                                                    ref)}), flush=True)

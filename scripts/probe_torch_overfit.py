@@ -3,14 +3,15 @@
 one NVIDIA GPU: the port's init_weights (the JAX package's per-layer rules)
 and plain He-normal convs with 1/sqrt(fan_in) linears everywhere.
 
-For each dataset and init and seed: every record mapped once by
-GDRNTrainMapper, 800 train steps on that batch (tools/validate_overfit.py's
-config), then engine/tester.do_test on the same records with GT boxes. One
+For each dataset and init and seed: gdrnet_tpu_torch/tools/validate_overfit's
+map_split and run_seed (every record mapped once by GDRNTrainMapper, TOTAL
+train steps on that batch with its config, then engine/tester.do_test on the
+same records with GT boxes). One
 JSON line each: the first and last total loss, the region CE and the other
 terms, the train seconds, and do_test's mean rotation error (degrees), mean
 translation error (cm) and ad_10 per object.
 
-Datasets: the smoke's 2-object split (write_bop_split, flat colours), and
+Datasets: the tool's 2-object split (overfit_split), and
 with --fixture DIR a tests/fixture_bop.py dataset (shaded objects on noise)
 written beforehand where cv2 and JAX are installed, e.g.
     python -c "import sys; sys.path.insert(0, 'tests'); \\
@@ -27,7 +28,6 @@ import argparse
 import json
 import sys
 import tempfile
-import time
 from pathlib import Path
 
 import numpy as np
@@ -38,6 +38,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
 from gdrnet_tpu_torch.data.ref_meta import DatasetMeta  # noqa: E402
+from gdrnet_tpu_torch.tools import validate_overfit as overfit_tool  # noqa: E402
 
 
 def he_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -73,28 +74,15 @@ def fixture_meta(root: Path) -> DatasetMeta:
 
 
 def run(label: str, meta, inits: dict, seeds, out: Path) -> None:
-    records = cs.load_bop_scene_dicts(meta, "test", img_type="real")
-    c = cs.overfit_cfg()
-    models = cs.ObjectModels(meta, num_pm_points=256, num_fps=8)
-    mapper = cs.GDRNTrainMapper(c, models, device="cuda")
-    batch = cs.to_device(cs.collate([mapper(rec, np.random.RandomState(i))
-                                     for i, rec in enumerate(records)]), "cuda")
+    c = overfit_tool.overfit_cfg()
+    split = overfit_tool.map_split(c, meta, "cuda")
     for init_name, init in inits.items():
         for seed in seeds:
-            model = init(cs.build_model(c, device="cuda"), torch.Generator().manual_seed(seed))
-            opt = cs.build_optimizer(c, model, cs.build_lr_schedule(c, 1e-3, cs.OVERFIT_STEPS))
-            state, step = cs.create_train_state(model, opt), cs.make_train_step(c, model, opt)
-            gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            history = [step(state, batch, gen)[1] for _ in range(cs.OVERFIT_STEPS)]
-            total = torch.stack([h["total_loss"] for h in history]).cpu().numpy()
-            region = torch.stack([h["loss_region"] for h in history]).cpu().numpy()
-            train_s = time.perf_counter() - t0
-            res = cs.do_test(c, state.model, models, records,
-                             output_dir=str(out / f"{label}_{init_name}_{seed}"), device="cuda")
+            r = overfit_tool.run_seed(c, split, seed, str(out / f"{label}_{init_name}_{seed}"),
+                                      "cuda", echo=lambda line: None, init=init)
+            total, region, res = r["history"]["total_loss"], r["history"]["loss_region"], r["results"]
             print("[probe_overfit] " + json.dumps({
-                "data": label, "init": init_name, "seed": seed, "train_s": round(train_s, 1),
+                "data": label, "init": init_name, "seed": seed, "train_s": round(r["train_s"], 1),
                 "total_first": round(float(total[0]), 4), "total_last": round(float(total[-1]), 4),
                 "region_first": round(float(region[0]), 4), "region_last": round(float(region[-1]), 4),
                 "others_first": round(float(total[0] - region[0]), 4),
@@ -118,8 +106,8 @@ def main() -> int:
     inits = {"port": cs.init_weights, "he": he_init}
     with tempfile.TemporaryDirectory() as root:
         out = Path(root)
-        run("smoke_split", cs.overfit_split(cs.mesh_tools(), str(out / "split")), inits, args.seeds,
-            out)
+        run("smoke_split", overfit_tool.overfit_split(str(out / "split"), device="cuda"), inits,
+            args.seeds, out)
         if args.fixture:
             run("fixture", fixture_meta(Path(args.fixture).resolve()), inits, args.seeds, out)
     return 0

@@ -421,9 +421,12 @@ def test_train_loader_close_joins_its_threads(fixture_ds):
     assert not any(t.is_alive() for t in workers)
 
 
-def test_launch_count_is_exact_across_threads():
+def test_launch_count_is_exact_across_threads(monkeypatch):
     """Loader threads bump rasterize_xyz.launches concurrently: the count
-    loses no update (a short switch interval forces interleaving)."""
+    loses no update (a short switch interval forces interleaving). The
+    count is restored afterwards, so that tests of the same process that
+    read it from 0 are not moved."""
+    monkeypatch.setattr(kernels.rasterize_xyz, "launches", kernels.rasterize_xyz.launches)
     start, n = kernels.rasterize_xyz.launches, 20000
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)

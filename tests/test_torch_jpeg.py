@@ -3,11 +3,13 @@ OpenCV 5.0's cv2 (libjpeg-turbo 3.1.2), and the paths that read JPEGs
 against the JAX package, on the CPU.
 
 Everything is bit for bit: decodes equal cv2.imdecode / cv2.imread with
-IMREAD_COLOR and IMREAD_GRAYSCALE (EXIF orientations included), encodes are
-byte-equal to cv2.imencode, the case digests of data/jpeg_cases.py equal
-cv2's, and the train mapper over a PBR split of JPEG frames with JPEG VOC
-backgrounds, the render-folder datasets and the BOP PBR names equal the JAX
-package's.
+IMREAD_COLOR and IMREAD_GRAYSCALE (EXIF orientations, progressive streams,
+CMYK and YCCK included), encodes are byte-equal to cv2.imencode, the case
+digests of data/jpeg_cases.py and its committed streams equal what cv2 and
+PIL write and decode, and the train mapper over a PBR split of JPEG frames
+with JPEG VOC backgrounds, the render-folder datasets and the BOP PBR names
+equal the JAX package's. The processes the codec refuses raise
+NotImplementedError naming them; corrupt and truncated streams ValueError.
 """
 
 import dataclasses
@@ -106,6 +108,15 @@ def _pil(img, **kw):
     return bio.getvalue()
 
 
+def _cmyk(img, **kw):
+    """PIL's CMYK JPEG (Adobe's inverted CMYK, APP14 transform 0) of a BGR
+    image with a K channel made from its flipped blue channel."""
+    cmyk = np.ascontiguousarray(np.concatenate([img, img[::-1, :, :1]], axis=-1))
+    bio = io.BytesIO()
+    Image.fromarray(cmyk, "CMYK").save(bio, "JPEG", **kw)
+    return bio.getvalue()
+
+
 def _exif(orientation):
     ex = Image.Exif()
     ex[0x0112] = orientation
@@ -125,14 +136,27 @@ VARIANTS = {
     "exif_6": lambda img: _pil(img, quality=85, exif=_exif(6)),
     "exif_8": lambda img: _pil(img, quality=85, exif=_exif(8)),
     "exif_6_gray": lambda img: _pil(img[..., 0].copy(), quality=85, exif=_exif(6)),
+    "progressive": lambda img: _cv2_encode(img, 90, IMWRITE_JPEG_PROGRESSIVE=1),
+    "progressive_444_restart_3": lambda img: _cv2_encode(img, 80, "444", restart=3,
+                                                         IMWRITE_JPEG_PROGRESSIVE=1),
+    "progressive_gray_optimize": lambda img: _cv2_encode(img[..., 1].copy(), 65,
+                                                         IMWRITE_JPEG_PROGRESSIVE=1,
+                                                         IMWRITE_JPEG_OPTIMIZE=1),
+    "pil_progressive_422_exif_8": lambda img: _pil(img, quality=60, subsampling=1,
+                                                   progressive=True, exif=_exif(8)),
+    "pil_cmyk": lambda img: _cmyk(img, quality=90),
+    "pil_cmyk_progressive_420": lambda img: _cmyk(img, quality=70, subsampling=2,
+                                                  progressive=True),
+    "ycck": lambda img: jpeg_cases.to_ycck(_cmyk(img, quality=85)),
+    "cmyk_exif_6": lambda img: _cmyk(img, quality=85, exif=_exif(6)),
 }
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_decode_variants_equal_cv2(variant, tmp_path):
     """Restart intervals, optimized Huffman tables, PIL's writer (its own
-    header and tables) and EXIF orientations, through imdecode and through a
-    file read by both packages."""
+    header and tables), EXIF orientations, progressive streams, CMYK and
+    YCCK, through imdecode and through a file read by both packages."""
     img = _image(np.random.RandomState(len(variant)), 77, 123, gray=False)
     data = VARIANTS[variant](img)
     _assert_decodes_as_cv2(data, variant)
@@ -141,45 +165,150 @@ def test_decode_variants_equal_cv2(variant, tmp_path):
     np.testing.assert_array_equal(pio.load_im(str(path)), jio.load_im(str(path)))
 
 
+# SOF markers of the processes the codec refuses, by the name its error gives
+REFUSED_SOF = {b"\xc3": "lossless", b"\xc5": "hierarchical", b"\xc6": "hierarchical",
+               b"\xc7": "hierarchical", b"\xc9": "arithmetic-coded",
+               b"\xca": "arithmetic-coded", b"\xcb": "arithmetic-coded",
+               b"\xcd": "hierarchical arithmetic-coded", b"\xce": "hierarchical arithmetic-coded",
+               b"\xcf": "hierarchical arithmetic-coded"}
+
+
+def _scans_cut(data, keep):
+    """A progressive stream cut before its scan number `keep` (and the DHT
+    before it), with an EOI: a scan script that leaves coefficients
+    unrefined."""
+    sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    cut = data.rfind(b"\xff\xc4", sos[keep - 1], sos[keep])
+    return data[:cut if cut > 0 else sos[keep]] + b"\xff\xd9"
+
+
 def test_unsupported_and_corrupt_streams(tmp_path):
+    """The processes still refused raise NotImplementedError naming them,
+    from every reader, and the background reader does not take them as a
+    corrupt file; a corrupt or truncated stream, baseline or progressive,
+    raises ValueError, which the background reader takes as cv2's None."""
     img = _image(np.random.RandomState(3), 40, 56, gray=False)
-    prog = tmp_path / "progressive.jpg"
-    prog.write_bytes(_cv2_encode(img, 90, IMWRITE_JPEG_PROGRESSIVE=1))
-    with pytest.raises(NotImplementedError, match="progressive.*A13"):
-        jpeg.read_jpeg(str(prog))
-    with pytest.raises(NotImplementedError, match=str(prog)):
-        pio.load_im(str(prog))
-    # the background reader does not swallow what cv2 would have read
-    with pytest.raises(NotImplementedError):
-        augment.BackgroundReplacer._read(str(prog))
     data = _cv2_encode(img, 90)
-    for cut in (len(data) // 2, len(data) - 2, 40):
-        bad = tmp_path / f"cut{cut}.jpg"
-        bad.write_bytes(data[:cut])
-        # cv2.imdecode gives None; cv2.imread pads a truncated file with
-        # grey after a warning; the port raises ValueError, which the
-        # background reader takes as None
-        assert cv2.imdecode(np.frombuffer(data[:cut], np.uint8), cv2.IMREAD_COLOR) is None
-        with pytest.raises(ValueError):
-            jpeg.read_jpeg(str(bad))
-        assert augment.BackgroundReplacer._read(str(bad)) is None
+    sof = data.index(b"\xff\xc0")
+    refused = {f"sof_{m.hex()}": (data[:sof + 1] + m + data[sof + 2:], name)
+               for m, name in REFUSED_SOF.items()}
+    # SOF1 (extended sequential) with 12-bit samples
+    refused["12_bit"] = (data[:sof + 1] + b"\xc1" + data[sof + 2:sof + 4] + b"\x0c"
+                         + data[sof + 5:], "12-bit JPEG")
+    prog = _cv2_encode(img, 90, IMWRITE_JPEG_PROGRESSIVE=1)
+    for keep in (1, 5, 9):  # libjpeg outputs these through its block smoothing
+        refused[f"scans_{keep}"] = (_scans_cut(prog, keep), "block smoothing")
+        assert cv2.imdecode(np.frombuffer(_scans_cut(prog, keep), np.uint8),
+                            cv2.IMREAD_COLOR) is not None
+    for label, (stream, name) in refused.items():
+        path = tmp_path / f"{label}.jpg"
+        path.write_bytes(stream)
+        for read in (jpeg.read_jpeg, pio.load_im, augment.BackgroundReplacer._read):
+            with pytest.raises(NotImplementedError, match=f"{name}.*arithmetic-coded, 12-bit"):
+                read(str(path))
+        with pytest.raises(NotImplementedError, match=str(path)):
+            pio.read_image(str(path), "gray")
+    for stream in (data, prog):
+        for cut in (len(stream) // 2, len(stream) - 2, 40):
+            bad = tmp_path / f"cut{cut}.jpg"
+            bad.write_bytes(stream[:cut])
+            # cv2.imdecode gives None on a cut baseline stream; cv2.imread
+            # pads a truncated file with grey after a warning; the port
+            # raises ValueError, which the background reader takes as None
+            if stream is data:
+                assert cv2.imdecode(np.frombuffer(stream[:cut], np.uint8), cv2.IMREAD_COLOR) is None
+            with pytest.raises(ValueError):
+                jpeg.read_jpeg(str(bad))
+            assert augment.BackgroundReplacer._read(str(bad)) is None
     with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
         (tmp_path / "x.jpg").write_bytes(b"GIF89a")
         pio.load_im(str(tmp_path / "x.jpg"))
 
 
+def test_readers_take_progressive_and_cmyk_files(tmp_path):
+    """data/io.read_image in both modes and the background reader read a
+    progressive and a CMYK file as cv2.imread does, and the background
+    replacer draws from them what the JAX package's draws."""
+    img = _image(np.random.RandomState(9), 75, 101, gray=False)
+    files = {"progressive": _cv2_encode(img, 88, "422", IMWRITE_JPEG_PROGRESSIVE=1),
+             "cmyk": _cmyk(img, quality=80, progressive=True)}
+    for label, stream in files.items():
+        path = str(tmp_path / f"{label}.jpg")
+        with open(path, "wb") as f:
+            f.write(stream)
+        for flags, cv_flags in (("color", cv2.IMREAD_COLOR), ("gray", cv2.IMREAD_GRAYSCALE)):
+            np.testing.assert_array_equal(pio.read_image(path, flags), cv2.imread(path, cv_flags),
+                                          err_msg=f"{label} {flags}")
+        np.testing.assert_array_equal(augment.BackgroundReplacer._read(path),
+                                      cv2.imread(path, cv2.IMREAD_COLOR), err_msg=label)
+        jbg, pbg = jaug.BackgroundReplacer(str(tmp_path)), augment.BackgroundReplacer(str(tmp_path))
+        jbg.paths, pbg.paths = [path], [path]
+        np.testing.assert_array_equal(pbg.get_bg(np.random.RandomState(1), 60, 80),
+                                      jbg.get_bg(np.random.RandomState(1), 60, 80), err_msg=label)
+
+
+def writer_stream(case) -> bytes:
+    """The case's stream as cv2 or PIL writes it (data/jpeg_cases.py's
+    processes)."""
+    if case.process.startswith("ycck"):
+        cmyk = next(c for c in jpeg_cases.CASES if c.name == case.name.replace("ycck", "cmyk"))
+        return jpeg_cases.to_ycck(writer_stream(cmyk))
+    img = jpeg_cases.case_image(case)
+    if case.process.startswith("cmyk"):
+        bio = io.BytesIO()
+        Image.fromarray(img, "CMYK").save(bio, "JPEG", quality=case.quality,
+                                          subsampling={"444": 0, "420": 2}[case.sampling],
+                                          progressive=case.process == "cmyk_progressive")
+        return bio.getvalue()
+    extra = {}
+    if case.process.startswith("progressive"):
+        extra["IMWRITE_JPEG_PROGRESSIVE"] = 1
+    if case.process == "progressive_optimize":
+        extra["IMWRITE_JPEG_OPTIMIZE"] = 1
+    return _cv2_encode(img, case.quality, "420" if case.sampling == "gray" else case.sampling,
+                       case.restart, **extra)
+
+
+def _cv2_decode(data, flags):
+    return cv2.imdecode(np.frombuffer(data, np.uint8),
+                        cv2.IMREAD_COLOR if flags == "color" else cv2.IMREAD_GRAYSCALE)
+
+
+def write_streams() -> None:
+    """Writes jpeg_cases.STREAM_DIR's files, the streams that the port's
+    encoder does not write, from cv2 and PIL: run
+    `python -c "import sys; sys.path.insert(0, 'tests'); import test_torch_jpeg as t;
+    t.write_streams()"` from the repository's root."""
+    jpeg_cases.STREAM_DIR.mkdir(exist_ok=True)
+    for case in jpeg_cases.CASES:
+        if case.process not in ("baseline", "ycck", "ycck_progressive"):
+            (jpeg_cases.STREAM_DIR / f"{case.name}.jpg").write_bytes(writer_stream(case))
+
+
 def test_case_digests_equal_cv2():
-    """data/jpeg_cases.py's digests, regenerated from cv2, and the port's."""
-    sampling = {k: v for k, v in SAMPLING.items() if k in ("420", "422", "444")}
-    want = jpeg_cases.digests(
-        lambda img, c: _cv2_encode(img, c.quality, c.sampling if c.sampling in sampling else "420",
-                                   c.restart),
-        lambda data, flags: cv2.imdecode(np.frombuffer(data, np.uint8),
-                                         cv2.IMREAD_COLOR if flags == "color"
-                                         else cv2.IMREAD_GRAYSCALE))
-    assert len(jpeg_cases.CASES) == 41
+    """data/jpeg_cases.py's digests, regenerated from cv2 (streams written by
+    cv2 and PIL, decoded by cv2), and the port's; the committed streams are
+    the writers' bytes."""
+    want = jpeg_cases.digests(writer_stream, _cv2_decode)
+    assert len(jpeg_cases.CASES) == 81
+    assert {c.process for c in jpeg_cases.CASES} == set(jpeg_cases.PROCESSES)
     assert want == jpeg_cases.DIGESTS
     assert jpeg_cases.port_digests() == jpeg_cases.DIGESTS
+    files = sorted(p.name for p in jpeg_cases.STREAM_DIR.iterdir())
+    assert files == sorted(f"{c.name}.jpg" for c in jpeg_cases.CASES
+                           if c.process not in ("baseline", "ycck", "ycck_progressive"))
+
+
+@pytest.mark.parametrize("process", [p for p in jpeg_cases.PROCESSES if p != "baseline"])
+def test_stream_cases_decode_as_cv2(process):
+    """Each progressive, CMYK and YCCK case: the committed stream is the
+    writer's, and both decodes equal cv2.imdecode's."""
+    cases = [c for c in jpeg_cases.CASES if c.process == process]
+    assert cases
+    for case in cases:
+        data = jpeg_cases.case_stream(case)
+        assert data == writer_stream(case), case.name
+        _assert_decodes_as_cv2(data, case.name)
 
 
 def test_load_im_goes_by_signature(tmp_path):

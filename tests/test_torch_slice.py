@@ -305,7 +305,8 @@ def test_port_imports_no_jax():
         "            'engine.profiling', 'tools.bench', 'tools.bench_train', 'tools.export_model',\n"
         "            'tools.strip_ckpt', 'tools.gen_test_targets', 'tools.gen_det_fuse',\n"
         "            'models.pvnet', 'ops.se3', 'ops.view_sampler', 'utils.bbox_utils',\n"
-        "            'utils.mask_utils', 'data.dataset_params'):\n"
+        "            'utils.mask_utils', 'data.dataset_params', 'tools.validate_overfit',\n"
+        "            'tools.validate_scale', 'tools.scale_run'):\n"
         "    assert 'gdrnet_tpu_torch.' + mod in names, names\n"
         "from gdrnet_tpu_torch import merged_config\n"
         f"merged_config({FLAGSHIP!r})\n"
