@@ -46,7 +46,10 @@ GDR-Net variant of MODEL.CDPN at the flagship's width ([variants]), every
 optimizer of the JAX registry ([solvers]), and the LM config at ResNet-50
 with Ranger2020 and precise BN trained and tested through the CLI on the
 train loop's split ([train_variant], run before gen_xyz writes that split's
-pickles, so that its XYZ renders on the z-buffer kernel). Then the PnP slice
+pickles, so that its XYZ renders on the z-buffer kernel), and the dataset
+inspection CLI (python -m gdrnet_tpu_torch.data.visualize, [visualize]) over
+that split, whose --mapped panels render their XYZ on the z-buffer kernel.
+Then the PnP slice
 ([pnp]): the device PnP program (gdrnet_tpu_torch/ops/device_pnp.py,
 batched torch) in each TEST.PNP_TYPE mode on the card against the CPU,
 bench_pnp's ROIs/s of the host loop and of each mode, do_test with
@@ -119,11 +122,13 @@ PBR frames and backgrounds, losses finite with no step skipped, B2 at least
 once a sample, one CSV row a kept detection, B1 in do_test; step and data
 times, data-wait share, ROIs/s, loader samples/s, the share of samples
 whose background was replaced); [variants] (each variant's f32 forward on
-the card against the CPU, 10 bf16 steps at B=32, its step ms, crops/s and
+the card against the CPU, 5 bf16 steps at B=32, its step ms, crops/s and
 peak memory), [solvers] (each optimizer's first f32 update against the
-CPU's, 10 bf16 steps, its ms, a NaN step bitwise), [train_variant] (losses
+CPU's, 5 bf16 steps, its ms, a NaN step bitwise), [train_variant] (losses
 finite, precise BN moving every BN statistic, one CSV row a kept
-detection, B2 in training and B1 in do_test); [pnp] (card against CPU with
+detection, B2 in training and B1 in do_test); [visualize] (VIS_N panel
+files in each mode, B2 at least once a mapped record, the mapped panels on
+the card bitwise the CPU's, the grid backend named); [pnp] (card against CPU with
 the same minimal sets within 0.05 degrees and 5e-4 m, at least 95 % of 64
 ROIs within 1 degree and 1 cm of the truth, in each mode), [pnp_bench]
 (ROIs/s and peak memory), [do_test_pnp] (finite rows with rotations, one a
@@ -139,8 +144,8 @@ B1 on each rank, B2 on rank 0); [bench_train_step], [bench_train_loader]
 (B2 at least once a sample the loop consumed), [bench_train_audit] (mfu
 and hbm_frac in (0, 1], the FLOP counts beside [train_time]'s step),
 [bench] (values finite and above 0, int8 drift finite), [export] (the
-child's poses bit for bit the in-process forward's, int8's at all but at
-most 16 of 64 crops, those within 10 degrees and 5e-3), [strip_ckpt] (smaller,
+child's poses bit for bit the in-process forward's, bf16 and int8 at all 64
+crops), [strip_ckpt] (smaller,
 model and iteration only, the same poses bit for bit), [pvnet] (card
 against CPU within 1e-3 of the scale, ms at B=64); last, what
 torch.profiler measures (rasterize_xyz's launches per call and its
@@ -186,6 +191,7 @@ from gdrnet_tpu_torch import (
 from gdrnet_tpu_torch.config.config import apply_opts
 from gdrnet_tpu_torch.data import augment as augment_mod
 from gdrnet_tpu_torch.data import cv_ops, jpeg, jpeg_cases, ref_meta
+from gdrnet_tpu_torch.data import visualize as visualize_tool
 from gdrnet_tpu_torch.data.augment import build_color_augmentor
 from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts, load_detections
 from gdrnet_tpu_torch.data.dataset_factory import resolve
@@ -234,6 +240,7 @@ from gdrnet_tpu_torch.tools import scale_run as scale_run_tool
 from gdrnet_tpu_torch.tools import strip_ckpt as strip_tool
 from gdrnet_tpu_torch.tools import validate_overfit as overfit_tool
 from gdrnet_tpu_torch.tools.dryrun_multichip import launch, train_steps
+from gdrnet_tpu_torch.utils import vis as vis_mod
 from gdrnet_tpu_torch.utils.fold_bn import conv_bn_pairs, fold_batch_norms
 
 REPO = Path(__file__).resolve().parent
@@ -284,8 +291,8 @@ TRAIN_GRAD_TENSOR_REL, TRAIN_GRAD_ALL_REL = 0.15, 0.08
 # the loader alone over LOOP_LOADER_BATCHES batches; LOOP_MAPPED records
 # mapped on the card against the CPU
 LOOP_SCENES, LOOP_IMAGES, LOOP_PER_IMAGE = 4, 16, 8
-LOOP_SAVE, LOOP_ITERS, LOOP_WORKERS = 8, 16, 4
-LOOP_LOADER_BATCHES, LOOP_MAPPED = 8, 16
+LOOP_SAVE, LOOP_ITERS, LOOP_WORKERS = 6, 12, 4
+LOOP_LOADER_BATCHES, LOOP_MAPPED = 4, 16
 # the test path: est_dets.json from the BOP split's visible GT boxes jittered by
 # up to DET_JITTER_PX, every DET_DROP_EVERY-th instance without a detection,
 # every DET_SECOND_EVERY-th with a lower-scored second one; scene 1 in f32 on
@@ -323,7 +330,7 @@ GEN_TIMEOUT_S = 300
 # serving timed at SERVE_BATCHES, SERVE_ITERS calls each; the tools' mains in
 # this process; cus / cou_bb_proj on SIL_PAIRS pairs
 FOLD_POSE_ATOL, INT8_VS_BF16_DEG, INT8_VS_BF16_TRANS_REL = 2e-4, 1.0, 0.05
-INT8_CHECK_CROPS, SERVE_ITERS, SIL_PAIRS = 2, {64: 20, 1024: 6}, 8
+INT8_CHECK_CROPS, SERVE_ITERS, SIL_PAIRS = 2, {64: 20, 1024: 3}, 8
 # every COLOR_AUG_TYPE on the card: [train_loop]'s LOOP_MAPPED records mapped
 # with each of COLOR_TYPES at COLOR_AUG_PROB 1 on the card and on the CPU;
 # each augmentor and new cv_ops stand-in timed on one host thread
@@ -356,7 +363,7 @@ LMO_CONFIG = str(REPO / "configs/gdrn/lmo/a6_cPnP_AugAAETrunc_BG0.5_lmo_real_pbr
 LMO_MESHES = {1: "cube", 5: "plate", 6: "pyramid", 8: "lblock", 9: "wedge", 10: "brick",
               11: "hexprism", 12: "octa"}  # LM-O id -> zoo mesh; 10 eggbox, 11 glue
 LMO_LM_IMAGES, LMO_PBR_SCENES, LMO_PBR_IMAGES, LMO_TEST_IMAGES = 12, 2, 8, 8
-LMO_VOC_IMAGES, LMO_VOC_NEGATIVE, LMO_EPOCHS, LMO_MAPPED = 12, 2, 4, 8
+LMO_VOC_IMAGES, LMO_VOC_NEGATIVE, LMO_EPOCHS, LMO_MAPPED = 12, 2, 2, 8
 LMO_VOC_SIZES = ((375, 500), (500, 375), (333, 500))  # (h, w)
 LMO_CLI_TIMEOUT_S = 600
 # device kernels of a train step by kind, from marks in their names
@@ -395,8 +402,8 @@ VARIANTS = {
     "USE_MTL": ["MODEL.CDPN.USE_MTL=True"],
     "BACKBONE.FREEZE": ["MODEL.CDPN.BACKBONE.FREEZE=True"],
 }
-VARIANT_F32_CROPS, VARIANT_BATCH, VARIANT_STEPS, VARIANT_SERVE = 4, 32, 10, (64, 1024)
-VARIANT_TIMED = 5
+VARIANT_F32_CROPS, VARIANT_BATCH, VARIANT_STEPS, VARIANT_SERVE = 4, 32, 5, (64, 1024)
+VARIANT_TIMED = 3
 # the variants that B=1024 does not fit: PointPnPNet's [B, 64, 4096, 128] region
 # product (68.7 GB in bf16), and ROT_CONCAT's last upsample, [B, 320, 128, 128],
 # over the INT_MAX elements that PyTorch's NHWC bilinear upsample takes
@@ -405,6 +412,9 @@ VARIANT_NO_1024 = {"PointPnPNet": "region_product_68.7GB",
 SOLVER_UPDATE_RTOL, SOLVER_F32_BATCH = 1e-4, 4
 LM_CONFIG = str(REPO / "configs/gdrn/lm/a6_cPnP_lm13.py")
 TV_EPOCHS, TV_PRECISE_ITERS, TV_TIMEOUT_S = 1, 10, 600
+# [visualize]: the CLI over the [train_loop] split's first VIS_N records,
+# in each mode
+VIS_N = 4
 # [ddp]: (a) the CLI under torch.distributed.run, one NCCL rank, the flagship's
 # B=128 over the [train_loop] split for DDP_CLI_ITERS iterations, then
 # --eval-only; (b) two gloo ranks on the one card: DDP_STEPS f32 steps at a
@@ -451,20 +461,12 @@ PNP_TEST_RUNS = ((True, "ransac_pnp"), (False, "net_iter_pnp"))
 # against the CPU within PVNET_REL of the outputs' scale, then its ms at
 # PVNET_BATCH
 BENCH_ITERS, BT_BATCH, BT_WORKERS, BT_LOADER_ITERS, BT_STEP_ITERS = 10, 128, 4, 3, 6
+# [export]: both artifacts (bf16 and int8) bit for bit the eager forward's
+# at all EXPORT_BATCH crops. The int8 one once parted at 1-5 crops: the
+# exported upsample ran in bf16 where CUDA autocast runs the eager one in
+# f32 (models/layers.UpsampleBilinear2x now casts it itself;
+# scripts/probe_torch_export_int8.py compares every int8 layer's input).
 EXPORT_BATCH, EXPORT_TIMEOUT_S = 64, 300
-# the int8 artifact against the eager int8 forward: bit for bit but at most
-# EXPORT_INT8_MAX_CROPS of the EXPORT_BATCH crops, each of those within
-# EXPORT_INT8_MAX_DEG degrees and EXPORT_INT8_TRANS_REL relative in
-# translation. The exported program's bf16 ops before an int8 layer can part
-# from the eager forward's by a bf16 ulp (scripts/probe_torch_export_int8.py
-# prints the first such layer and the graph's ops before it; the op is not
-# identified), and that moves an input across a rounding half-way point now
-# and then: only the crops whose inputs sit there move. Readings on an H100:
-# 1 of 64 crops at 0.7475 and at 2.9844 degrees, 6.665e-4 and 2.491e-4
-# relative in translation, on two runs' loop checkpoints; 5 of 64 crops,
-# 0.18-0.87 degrees, on the probe's 30-step weights. An artifact with a wrong
-# scale or layer moves every crop. The bf16 artifact bit for bit.
-EXPORT_INT8_MAX_CROPS, EXPORT_INT8_MAX_DEG, EXPORT_INT8_TRANS_REL = 16, 10.0, 5e-3
 PVNET_RES, PVNET_CPU_CROPS, PVNET_BATCH, PVNET_REL, PVNET_TIMED = 256, 2, 64, 1e-3, 10
 
 TRAIN_OP_KINDS = (
@@ -3272,6 +3274,75 @@ def phase_train_variant(root: str, dets: dict, card: str) -> tuple[int, int]:
     return run["b1_test"], tr["b2"] + run["b2_test"]
 
 
+def phase_visualize(root: str, card: str) -> int:
+    """[visualize]: python -m gdrnet_tpu_torch.data.visualize's main in this
+    process over the [train_loop] split (no XYZ pickles yet), --n VIS_N:
+    the records' panels on the card, the mapper's (--mapped) on the card,
+    then the mapper's on the CPU. Gates: VIS_N panel files in each mode, B2
+    launched at least once a mapped record on the card and never on the
+    CPU, every panel handed to grid_show on the card bitwise the CPU's, the
+    grid backend the CLI prints the one utils/vis picks, and each written
+    PNG the image grid_show returned where that is the mosaic. Returns the
+    card's mapped B2 launches."""
+    out = Path(root) / "vis"
+    plain = vis_mod.grid_show
+    panels: dict = defaultdict(list)
+    wall_s, launches, saved, printed = {}, {}, {}, {}
+
+    def capture(mode):
+        def grid_show(images, titles=None, **kw):
+            grid = plain(images, titles, **kw)
+            panels[mode].append(([np.array(im, copy=True) for im in images], kw["save_path"],
+                                 grid))
+            return grid
+        return grid_show
+
+    try:
+        for mode, device, extra in (("records", DEV, []), ("mapped", DEV, ["--mapped"]),
+                                    ("mapped_cpu", "cpu", ["--mapped"])):
+            vis_mod.grid_show = capture(mode)
+            kernels.rasterize_xyz.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                saved[mode] = visualize_tool.main(
+                    ["loop_train", "--data-root", root, "--n", str(VIS_N), "--save-dir",
+                     str(out / mode), "--device", device] + extra)
+            torch.cuda.synchronize()
+            wall_s[mode] = time.perf_counter() - t0
+            launches[mode] = kernels.rasterize_xyz.launches
+            printed[mode] = buf.getvalue().strip().splitlines()[-1]
+    finally:
+        vis_mod.grid_show = plain
+    backend = vis_mod.grid_backend()
+    for mode, paths in saved.items():
+        if len(paths) != VIS_N or not all(Path(p).is_file() for p in paths):
+            raise AssertionError(f"visualize {mode}: {len(paths)} panel files for {VIS_N}")
+        if not printed[mode].endswith(f"(grid: {backend})"):
+            raise AssertionError(f"visualize {mode}: printed {printed[mode]!r}, the grid is "
+                                 f"{backend}")
+        for _, path, grid in panels[mode]:
+            if backend == "mosaic" and not np.array_equal(read_png(path), grid):
+                raise AssertionError(f"visualize {mode}: {path} is not the mosaic")
+    if launches["mapped"] < VIS_N or launches["mapped_cpu"] or launches["records"]:
+        raise AssertionError(f"visualize: B2 launches {launches} (at least {VIS_N} mapped on "
+                             "the card, none otherwise)")
+    for i, ((card_p, _, _), (cpu_p, _, _)) in enumerate(zip(panels["mapped"],
+                                                           panels["mapped_cpu"])):
+        for j, (a, b) in enumerate(zip(card_p, cpu_p)):
+            if a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError(f"visualize: mapped record {i} panel {j} card vs CPU "
+                                     "differ")
+    log("visualize", card=repr(card), split="loop_train", panels_records=len(saved["records"]),
+        panels_mapped=len(saved["mapped"]), grid=backend,
+        launches_rasterize_xyz_mapped=launches["mapped"], mapped_vs_cpu="bitwise_equal",
+        records_s=f"{wall_s['records']:.2f}", mapped_s=f"{wall_s['mapped']:.2f}",
+        s_per_mapped_panel=f"{wall_s['mapped'] / VIS_N:.3f}",
+        mapped_cpu_s=f"{wall_s['mapped_cpu']:.2f}", wall_s=f"{sum(wall_s.values()):.1f}",
+        check="ok")
+    return launches["mapped"]
+
+
 def ddp_cli(args: list, label: str) -> tuple[dict, float]:
     """`python -m torch.distributed.run --standalone --nproc_per_node=1
     chip_smoke.py --train-cli-child <args>`: the engine.train CLI as one
@@ -3965,7 +4036,7 @@ def phase_export(weights: str, root: str, card: str) -> None:
     imports only torch (gdrnet_tpu_torch must not be in its sys.modules)
     under this process's TF32 settings, while this process runs the serving
     forwards; the bf16 artifact's poses equal the in-process forward's bit
-    for bit, the int8 one's within the EXPORT_INT8_* rule."""
+    for bit, and so do the int8 one's."""
     out = Path(root) / "export"
     t0 = time.perf_counter()
     metas = {}
@@ -4007,9 +4078,7 @@ def phase_export(weights: str, root: str, card: str) -> None:
         t_rel = np.abs(got["t"] - t_want).max(1) / np.maximum(np.abs(t_want).max(1), 1e-3)
         differ = (got["r"] != r_want).any((1, 2)) | (got["t"] != t_want).any(1)
         n = int(differ.sum())
-        if n and (label != "int8" or n > EXPORT_INT8_MAX_CROPS
-                  or deg[differ].max() > EXPORT_INT8_MAX_DEG
-                  or t_rel[differ].max() > EXPORT_INT8_TRANS_REL):
+        if n:
             raise AssertionError(f"export {label}: the loaded program's poses differ from the "
                                  f"in-process forward at {n} of {len(deg)} crops, by up to "
                                  f"{deg.max()} degrees, translations {t_rel.max()} relative")
@@ -4228,6 +4297,7 @@ def main() -> int:
         pnp_launches = phase_pnp(cfg, split, dets, ckpt, root, card)
         # before [gen_xyz] writes the train split's pickles: its XYZ renders on B2
         tv_launches = phase_train_variant(root, dets, card)
+        vis_launches = phase_visualize(root, card)
         bt_launches = phase_bench_train(root, card, train_ms)
         ddp_launches = phase_ddp(cfg, split, dets, ckpt, tested, root, card)
         overfit, overfit_launches = phase_overfit(root, card)
@@ -4264,7 +4334,8 @@ def main() -> int:
          "replaces": "gdrnet_tpu/ops/pallas_kernels.py:140",
          "launches": raster_launches + loop_launches + test_launches[1] + gen_launches
          + csv_launches[1] + xyz_launches + lmo_launches[1] + tv_launches[1] + pnp_launches[1]
-         + ddp_launches[1] + bt_launches + color_launches + overfit_launches[1],
+         + ddp_launches[1] + bt_launches + color_launches + overfit_launches[1]
+         + vis_launches,
          **raster_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -38,6 +38,12 @@ computes it:
                     bit.
   dilate, erode     cv2.dilate / cv2.erode with a rectangle of ones
                     (utils/mask_utils.py:144-160); bit for bit.
+  line, rectangle   cv2.line / cv2.rectangle with LINE_8, any thickness, end
+                    points anywhere (utils/vis.py); bit for bit, and
+  clip_line         cv2.clipLine's, which they clip with.
+  put_text          cv2.putText(..., FONT_HERSHEY_SIMPLEX, 0.5, color, 1)
+                    from the glyph table of data/font_simplex.py, and
+  get_text_size     cv2.getTextSize's width at that size; bit for bit.
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ import functools
 import math
 
 import numpy as np
+
+from gdrnet_tpu_torch.data.font_simplex import GLYPHS
 
 INTER_LINEAR, INTER_NEAREST = "linear", "nearest"
 
@@ -522,6 +530,266 @@ def _line8(img: np.ndarray, p1, p2, value) -> None:
         img[p1[1] + sy * k, p1[0] + steps] = value
     else:
         img[p1[1] + sy * steps, p1[0] + k] = value
+
+
+def _raw_color(img: np.ndarray, color) -> np.ndarray:
+    """cv::scalarToRawData: the first C entries of the colour (a number or a
+    sequence, missing entries 0) rounded half to even and saturated to the
+    image's dtype; C the image's channels."""
+    c = np.zeros(img.shape[2] if img.ndim == 3 else 1, np.float64)
+    v = np.atleast_1d(np.asarray(color, np.float64))[:len(c)]
+    c[:len(v)] = v
+    if np.issubdtype(img.dtype, np.integer):
+        info = np.iinfo(img.dtype)
+        c = np.clip(np.rint(c), info.min, info.max)
+    c = c.astype(img.dtype)
+    return c if img.ndim == 3 else c[0]
+
+
+def clip_line(size, p1, p2):
+    """cv2.clipLine over the image (w, h) = size: the segment p1-p2 cut to
+    the pixels [0, w) x [0, h), or None where none of it lies inside; each
+    end moved along the line to the border it crosses first (rows, then
+    columns), the second end from the first's moved position, truncated
+    toward zero."""
+    right, bottom = size[0] - 1, size[1] - 1
+    if size[0] <= 0 or size[1] <= 0:
+        return None
+    (x1, y1), (x2, y2) = (int(p1[0]), int(p1[1])), (int(p2[0]), int(p2[1]))
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * float(x2 - x1) / float(y2 - y1))
+            y1, c1 = a, (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * float(x2 - x1) / float(y2 - y1))
+            y2, c2 = a, (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * float(y2 - y1) / float(x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * float(y2 - y1) / float(x2 - x1))
+                x2, c2 = a, 0
+    return None if c1 | c2 else ((x1, y1), (x2, y2))
+
+
+_XY_ONE = 1 << _XY_SHIFT
+
+
+def _c_div(a: int, b: int) -> int:
+    """C's integer division, truncated toward zero."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _line2(img: np.ndarray, p1, p2, color) -> None:
+    """cv::Line2: a LINE_8 line between 16.16 fixed-point points, clipped to
+    the image in fixed point, one pixel a step along the major axis (the
+    outline cv::FillConvexPoly draws)."""
+    h, w = img.shape[:2]
+    clipped = clip_line((w << _XY_SHIFT, h << _XY_SHIFT), p1, p2)
+    if clipped is None:
+        return
+    (x1, y1), (x2, y2) = clipped
+    dx, dy, half = x2 - x1, y2 - y1, _XY_ONE // 2
+    if abs(dx) > abs(dy):
+        if dx < 0:
+            (x1, y1), (x2, y2), dy = (x2, y2), (x1, y1), -dy
+        step = _c_div(dy << _XY_SHIFT, abs(dx) | 1)
+        x, y = (x1 + half) >> _XY_SHIFT, y1 + half
+        pts = [(x + k, (y + k * step) >> _XY_SHIFT) for k in range(((x2 - x1) >> _XY_SHIFT) + 1)]
+    else:
+        if dy < 0:
+            (x1, y1), (x2, y2), dx = (x2, y2), (x1, y1), -dx
+        step = _c_div(dx << _XY_SHIFT, abs(dy) | 1)
+        x, y = x1 + half, (y1 + half) >> _XY_SHIFT
+        pts = [((x + k * step) >> _XY_SHIFT, y + k) for k in range(((y2 - y1) >> _XY_SHIFT) + 1)]
+    pts.append(((x2 + half) >> _XY_SHIFT, (y2 + half) >> _XY_SHIFT))
+    for x, y in pts:
+        if 0 <= x < w and 0 <= y < h:
+            img[y, x] = color
+
+
+def _fill_convex_poly(img: np.ndarray, v, color) -> None:
+    """cv::FillConvexPoly of 16.16 fixed-point vertices with LINE_8: the
+    outline by _line2, then one span a row between the two edges that walk
+    down from the top vertex, each span from (x_left + 1/2) to (x_right +
+    1/2), floored, clipped to the image."""
+    h, w = img.shape[:2]
+    n, half = len(v), _XY_ONE // 2
+    p0 = v[-1]
+    for p in v:
+        _line2(img, p0, p, color)
+        p0 = p
+    ys = [p[1] for p in v]
+    imin = int(np.argmin(ys))
+    xmin, xmax = (min(p[0] for p in v) + half) >> _XY_SHIFT, (max(p[0] for p in v) + half) >> _XY_SHIFT
+    ymin, ymax = (min(ys) + half) >> _XY_SHIFT, (max(ys) + half) >> _XY_SHIFT
+    if n < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    edge = [{"idx": imin, "di": 1, "ye": ymin, "x": -_XY_ONE, "dx": 0},
+            {"idx": imin, "di": n - 1, "ye": ymin, "x": -_XY_ONE, "dx": 0}]
+    edges, y = n, ymin
+    while True:
+        for e in edge:
+            if y < e["ye"]:
+                continue
+            idx0 = e["idx"]
+            idx = (idx0 + e["di"]) % n
+            while edges > 0:
+                edges -= 1
+                ty = (v[idx][1] + half) >> _XY_SHIFT
+                if ty > y:
+                    xs, xe = v[idx0][0], v[idx][0]
+                    e.update(ye=ty, x=xs, idx=idx,
+                             dx=_c_div((xe - xs) * 2 + (ty - y), 2 * (ty - y)))
+                    break
+                idx0, idx = idx, (idx + e["di"]) % n
+            else:
+                edges -= 1
+        if edges < 0:
+            break
+        if y >= 0:
+            left, right = (edge[1], edge[0]) if edge[0]["x"] > edge[1]["x"] else (edge[0], edge[1])
+            x1, x2 = (left["x"] + half) >> _XY_SHIFT, (right["x"] + half) >> _XY_SHIFT
+            if x2 >= 0 and x1 < w:
+                img[y, max(x1, 0):min(x2, w - 1) + 1] = color
+        for e in edge:
+            e["x"] += e["dx"]
+        y += 1
+        if y > ymax:
+            break
+
+
+def _circle_filled(img: np.ndarray, center, radius: int, color) -> None:
+    """cv::Circle with fill: the midpoint circle's horizontal spans, clipped."""
+    h, w = img.shape[:2]
+    cx, cy = center
+    err, dx, dy, plus, minus = 0, radius, 0, 1, 2 * radius - 1
+    while dx >= dy:
+        for yy, xa, xb in ((cy - dy, cx - dx, cx + dx), (cy + dy, cx - dx, cx + dx),
+                           (cy - dx, cx - dy, cx + dy), (cy + dx, cx - dy, cx + dy)):
+            if 0 <= yy < h and xa < w and xb >= 0:
+                img[yy, max(xa, 0):min(xb, w - 1) + 1] = color
+        dy += 1
+        err += plus
+        plus += 2
+        mask = 0 if err <= 0 else -1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+
+
+def _thick_line(img: np.ndarray, p0, p1, color, thickness: int, flags: int) -> None:
+    """cv::ThickLine with LINE_8 and no shift; flags bit 0 / bit 1 draw the
+    round cap at p0 / p1 (a filled circle) of a line thicker than 1."""
+    p0, p1 = (int(p0[0]), int(p0[1])), (int(p1[0]), int(p1[1]))
+    if thickness <= 1:
+        clipped = clip_line((img.shape[1], img.shape[0]), p0, p1)
+        if clipped is not None:
+            _line8(img, *clipped, color)
+        return
+    q0 = (p0[0] << _XY_SHIFT, p0[1] << _XY_SHIFT)
+    q1 = (p1[0] << _XY_SHIFT, p1[1] << _XY_SHIFT)
+    dx, dy = (q0[0] - q1[0]) / _XY_ONE, (q1[1] - q0[1]) / _XY_ONE
+    r = dx * dx + dy * dy
+    odd = thickness & 1
+    th = thickness << (_XY_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (th + odd * _XY_ONE * 0.5) / math.sqrt(r)
+        ddx, ddy = int(np.rint(dy * r)), int(np.rint(dx * r))
+        _fill_convex_poly(img, [(q0[0] + ddx, q0[1] + ddy), (q0[0] - ddx, q0[1] - ddy),
+                                (q1[0] - ddx, q1[1] - ddy), (q1[0] + ddx, q1[1] + ddy)], color)
+    for i, q in enumerate((q0, q1)):
+        if flags & (i + 1):
+            _circle_filled(img, ((q[0] + _XY_ONE // 2) >> _XY_SHIFT,
+                                 (q[1] + _XY_ONE // 2) >> _XY_SHIFT),
+                           (th + _XY_ONE // 2) >> _XY_SHIFT, color)
+
+
+def line(img: np.ndarray, p1, p2, color, thickness: int = 1) -> np.ndarray:
+    """cv2.line(img, p1, p2, color, thickness) with LINE_8 and no shift, in
+    place on a [H, W] or [H, W, C] image: integer end points anywhere
+    (clipped as cv2.clipLine clips them), drawn left to right; a thicker
+    line is first clipped to the image grown by its thickness, then drawn
+    as a filled quad with round caps. Returns img."""
+    if not 0 < thickness <= 32767:
+        raise ValueError(f"line: thickness {thickness} outside (0, 32767]")
+    if thickness > 1:
+        h, w = img.shape[:2]
+        t = thickness
+        clipped = clip_line((w + 2 * t, h + 2 * t), (p1[0] + t, p1[1] + t),
+                            (p2[0] + t, p2[1] + t))
+        if clipped is None:
+            return img
+        (x1, y1), (x2, y2) = clipped
+        p1, p2 = (x1 - t, y1 - t), (x2 - t, y2 - t)
+    _thick_line(img, p1, p2, _raw_color(img, color), thickness, 3)
+    return img
+
+
+def rectangle(img: np.ndarray, p1, p2, color, thickness: int = 1) -> np.ndarray:
+    """cv2.rectangle(img, p1, p2, color, thickness) with LINE_8 and a
+    thickness of at least 0, in place: the closed outline p1, (p2.x, p1.y),
+    p2, (p1.x, p2.y), each side a line with the round cap at its end (no
+    clipping beforehand, unlike `line`). Returns img."""
+    if not 0 <= thickness <= 32767:
+        raise ValueError(f"rectangle: thickness {thickness} outside [0, 32767] (no fill)")
+    (x1, y1), (x2, y2) = (int(p1[0]), int(p1[1])), (int(p2[0]), int(p2[1]))
+    pts = [(x1, y1), (x2, y1), (x2, y2), (x1, y2)]
+    c = _raw_color(img, color)
+    p0 = pts[-1]
+    for p in pts:
+        _thick_line(img, p0, p, c, thickness, 2)
+        p0 = p
+    return img
+
+
+def put_text(img: np.ndarray, text: str, org, color) -> np.ndarray:
+    """cv2.putText(img, text, org, FONT_HERSHEY_SIMPLEX, 0.5, color, 1) on a
+    uint8 [H, W] or [H, W, C] image, in place, as OpenCV 5.0 draws it: each
+    character's antialiased coverage mask a (data/font_simplex.py) blended
+    in turn at its integer pen position, round(bg * (1 - a) + color * a)
+    per channel, clipped to the image; org is the text's bottom-left.
+    Only that size (the table's SCALE and THICKNESS); a character outside
+    the table raises ValueError. Returns img."""
+    if img.dtype != np.uint8:
+        raise ValueError(f"put_text: uint8 images only, got {img.dtype}")
+    for ch in text:
+        if ch not in GLYPHS:
+            raise ValueError(f"put_text: no glyph for {ch!r} (printable ASCII only)")
+    h, w = img.shape[:2]
+    c = _raw_color(img, color).astype(np.int32)
+    x, y = int(org[0]), int(org[1])
+    for ch in text:
+        adv, dx, dy, gw, gh, cov = GLYPHS[ch]
+        x0, y0 = x + dx, y + dy
+        xa, xb, ya, yb = max(x0, 0), min(x0 + gw, w), max(y0, 0), min(y0 + gh, h)
+        if gw and xa < xb and ya < yb:
+            a = np.frombuffer(bytes.fromhex(cov), np.uint8).reshape(gh, gw)
+            a = a[ya - y0:yb - y0, xa - x0:xb - x0].astype(np.int32)
+            if img.ndim == 3:
+                a = a[..., None]
+            bg = img[ya:yb, xa:xb].astype(np.int32)
+            img[ya:yb, xa:xb] = ((bg * (255 - a) + c * a + 127) // 255).astype(np.uint8)
+        x += adv
+    return img
+
+
+def get_text_size(text: str) -> int:
+    """cv2.getTextSize(text, FONT_HERSHEY_SIMPLEX, 0.5, 1)'s width: the sum
+    of the characters' advances plus 1 (0 for no text)."""
+    return sum(GLYPHS[ch][0] for ch in text) + 1 if text else 0
 
 
 def fill_poly(img: np.ndarray, polys, value) -> np.ndarray:

@@ -35,9 +35,18 @@ def get_norm(norm: str, num_channels: int, num_gn_groups: int = 32) -> nn.Module
 
 
 class UpsampleBilinear2x(nn.Module):
-    """x2 bilinear upsample with align_corners=True (torch's UpsamplingBilinear2d)."""
+    """x2 bilinear upsample with align_corners=True (torch's UpsamplingBilinear2d).
+
+    Under CUDA autocast the input is cast to f32 here, as autocast itself
+    casts upsample_bilinear2d's input in an eager forward (its CPU rule
+    keeps bf16). torch.export retraces the op as upsample_bilinear2d.vec,
+    which autocast leaves in bf16, so without the explicit cast an exported
+    program's upsample is a bf16 op one ulp off the eager forward's f32 one
+    (and an int8 layer after it rounds some inputs the other way)."""
 
     def forward(self, x):
+        if x.is_cuda and torch.is_autocast_enabled("cuda"):
+            x = x.float()
         return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
 
 

@@ -24,9 +24,12 @@ class NoCardError(SystemExit, RuntimeError):
 
 def entry_device(tool: str, device) -> torch.device:
     """The device a tool runs on; raises NoCardError, whose message names
-    --device cpu, when it is a CUDA device and no card is available."""
+    --device cpu, when it is a CUDA device and no card is available. `tool`
+    is a module of tools/, or a dotted path under the package (a CLI
+    elsewhere, such as data.visualize)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise NoCardError(f"gdrnet_tpu_torch.tools.{tool}: no CUDA card is available "
+        module = tool if "." in tool else f"tools.{tool}"
+        raise NoCardError(f"gdrnet_tpu_torch.{module}: no CUDA card is available "
                           "(torch.cuda.is_available() is false); pass --device cpu")
     return device

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the int8 export of the serving forward parts from the eager int8
-forward on an NVIDIA card (the finding behind chip_smoke.py's
-EXPORT_INT8_MAX_CROPS).
+forward on an NVIDIA card. It found the exported upsample in bf16 where
+CUDA autocast runs the eager one in f32 (so models/layers.UpsampleBilinear2x
+casts it itself); since then it prints every quantize input equal.
 
 1. BatchNorm and the bilinear upsample on [64, 256, 32, 32] inputs, f32 and
    bf16, channels-last and contiguous: eager F.batch_norm / F.interpolate

@@ -26,6 +26,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from gdrnet_tpu_torch.data.synthetic import edge_on_poses, sliver_mesh, synthetic_decoded_maps
 from gdrnet_tpu_torch.ops import device_pnp, kernels
@@ -787,15 +788,33 @@ def test_bench_train_audit_on_the_card_gives_shares_of_the_peaks(cuda_device, mo
     assert step["value"] > 0 and np.isfinite(step["loss"])
 
 
+class UpsampleDtypes(TorchDispatchMode):
+    """The input dtype of every upsample_bilinear2d op run under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.dtypes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if "upsample_bilinear2d" in str(func):
+            self.dtypes.append(args[0].dtype)
+        return func(*args, **(kwargs or {}))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True])
 def test_export_on_the_card_loads_in_a_torch_only_process(cuda_device, tmp_path, int8):
     """The artifact exported on the card (bf16 autocast, or int8 on
     torch._int_mm) runs in a child process that imports only torch, and
     gives the in-process forward's poses bit for bit, under the same TF32
-    settings (at this size and seed no int8 input sits on a rounding
-    half-way point; chip_smoke.py's EXPORT_INT8_* rule is for the flagship's
-    trained weights)."""
+    settings; loaded here, every upsample_bilinear2d in it takes the dtype
+    the eager forward's takes. CUDA autocast casts the eager upsample's
+    input to f32, while torch.export retraces the op as
+    upsample_bilinear2d.vec, which autocast leaves in bf16: without the
+    head's own cast (models/layers.UpsampleBilinear2x) the exported
+    upsample is a bf16 op one ulp off the eager one, and an int8 layer
+    after it rounds some inputs the other way (chip_smoke.py's [export]
+    holds both artifacts to the eager forward at the flagship's width)."""
     from gdrnet_tpu_torch.tools import export_model
 
     (tmp_path / "cfg.py").write_text(SMALL_TOOL_CFG + "PARALLEL = dict(DTYPE='bfloat16')\n")
@@ -807,9 +826,15 @@ def test_export_on_the_card_loads_in_a_torch_only_process(cuda_device, tmp_path,
 
     model = init_weights(build_model(cfg, device="cuda"), torch.Generator().manual_seed(0))
     batch = export_model.export_batch(cfg, 32, "cuda")
+    args = [batch[k] for k in export_model.ARG_NAMES]
+    eager, exported = UpsampleDtypes(), UpsampleDtypes()
     with torch.no_grad():
-        rot, trans = export_model.serving_forward(model, batch, int8=int8)(
-            *[batch[k] for k in export_model.ARG_NAMES])
+        fwd = export_model.serving_forward(model, batch, int8=int8)  # int8: calibrates here
+        with eager:
+            rot, trans = fwd(*args)
+        with exported:
+            torch.export.load(out).module()(*args)
+    assert eager.dtypes and exported.dtypes == eager.dtypes
     np.savez(tmp_path / "args.npz", *[batch[k].cpu().numpy() for k in export_model.ARG_NAMES])
     child = (  # under this process's TF32 settings: an exported program records none
         "import sys, numpy as np, torch\n"

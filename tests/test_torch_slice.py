@@ -240,6 +240,17 @@ def _entry_point_call(entry: str, split: dict, tmp_path):
 
         return train.main(["--config-file", FLAGSHIP, "--eval-only",
                            f"OUTPUT_DIR={str(tmp_path)!r}"])
+    if entry == "vis_records":
+        from gdrnet_tpu_torch.data.visualize import vis_records
+
+        return vis_records(split["models"].meta, split["records"], split["models"], n=1,
+                           mapped=True, cfg=small_flagship_cfg())
+    if entry == "visualize.main":
+        from gdrnet_tpu_torch.data.dataset_factory import register
+        from gdrnet_tpu_torch.data.visualize import main
+
+        register("tinysplit_vis", lambda: (split["models"].meta, split["records"]))
+        return main(["tinysplit_vis", "--mapped", "--save-dir", str(tmp_path)])
     if entry in ("cus", "cou_bb_proj"):
         return getattr(vsd, entry)(R, t, R, t, K, v, f, 120, 160)
     data = ["--dataset", split["models"].meta.name,
@@ -268,7 +279,8 @@ ENTRY_POINTS = ["build_model", "CustomEvaluator", "_vsd_errors_by_obj", "score_r
                 "render_depths_many", "vsd_pairs", "vsd", "render_xyz_windows", "render_xyz",
                 "render_depth", "render_xyz_roi", "render_xyz_roi_many", "write_bop_split",
                 "GDRNTrainMapper", "do_train", "do_test", "train.main", "cus", "cou_bb_proj",
-                "predict.main", "eval_csv.main", "gen_xyz.main"]
+                "predict.main", "eval_csv.main", "gen_xyz.main", "vis_records",
+                "visualize.main"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -306,7 +318,8 @@ def test_port_imports_no_jax():
         "            'tools.strip_ckpt', 'tools.gen_test_targets', 'tools.gen_det_fuse',\n"
         "            'models.pvnet', 'ops.se3', 'ops.view_sampler', 'utils.bbox_utils',\n"
         "            'utils.mask_utils', 'data.dataset_params', 'tools.validate_overfit',\n"
-        "            'tools.validate_scale', 'tools.scale_run'):\n"
+        "            'tools.validate_scale', 'tools.scale_run', 'utils.vis', 'data.visualize',\n"
+        "            'data.font_simplex'):\n"
         "    assert 'gdrnet_tpu_torch.' + mod in names, names\n"
         "from gdrnet_tpu_torch import merged_config\n"
         f"merged_config({FLAGSHIP!r})\n"
