@@ -80,9 +80,15 @@ serving, CustomEvaluator scoring (kernel against the plain version),
 throughput, the BOP split, BOP scoring on the card and against the plain
 versions on the CPU; the train step (one f32 step on the card against the
 CPU, 30 bf16 steps, a skipped NaN step, its time per step and split); the
-train loop (the mapper on the card against the CPU, the loader alone,
-do_train to a checkpoint, the resumed state against it, do_train resumed,
-with its step, data and loader times and B2's launches a step); [color_aug]
+train loop (the mapper on the card against the CPU, the host loader
+alone, do_train from the device-resident pool with its refresh, as the
+flagship config says, to a checkpoint, the resumed state against it,
+do_train resumed with its pool from the first run's cache; the pool's rows,
+MiB, map, upload and cache-load seconds, rows refreshed, step and data
+times and B2's launches); [pool_parity] (the pool's batch on the card
+against the mapper's in the JAX package's envelope, against the CPU's
+decode of the same rows, device_train_batch and every device_augment op on
+the card against the CPU with the same draws, make_batch's ms); [color_aug]
 (for ROI10D, SSD and ALBU at COLOR_AUG_PROB=1 the train loop's 16 mapped
 records on the card against the CPU, bit for bit, every frame jittered, B2
 at least once a sample; each augmentor's and cv_ops stand-in's host ms on
@@ -92,7 +98,9 @@ once a sample, ROIs/s and data-wait share beside the train loop's; P3P on
 64 exact sets within 1e-9 rad and m, pnp_ransac(method="p3p") on 30 %
 outliers within 1 degree and 1 cm, the se3 functions card against CPU
 within 1e-6); the test
-path ([do_test], [do_test_vs_cpu], [cli]) and the learning check
+path ([do_test], and [do_test_device_preprocess]: the same with the crops
+warped on the card, its recalls the host mapper's but for counted
+threshold flips; [do_test_vs_cpu], [cli]) and the learning check
 ([overfit]: gdrnet_tpu_torch/tools/validate_overfit.py's split, config and
 seed function for 3 seeds, with B1 in its do_test and B2 writing its split;
 [scale_run]: the scale run's orchestrator in --dry-run, every stage
@@ -141,7 +149,9 @@ training and B1 in the test, one CSV row a kept detection), [ddp_gloo]
 at the first, BN buffers equal on both ranks, ms a step and ROIs/s of each,
 the all-reduce ms), [ddp_do_test] (rows and recalls against one process,
 B1 on each rank, B2 on rank 0); [bench_train_step], [bench_train_loader]
-(B2 at least once a sample the loop consumed), [bench_train_audit] (mfu
+(one line for each of the host, pool, device-prep and device-aug
+pipelines; B2 at least once a sample the loop consumed or a record the pool
+mapped), [bench_train_audit] (mfu
 and hbm_frac in (0, 1], the FLOP counts beside [train_time]'s step),
 [bench] (values finite and above 0, int8 drift finite), [export] (the
 child's poses bit for bit the in-process forward's, bf16 and int8 at all 64
@@ -168,6 +178,7 @@ import io
 import json
 import pickle
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -196,7 +207,15 @@ from gdrnet_tpu_torch.data.augment import build_color_augmentor
 from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts, load_detections
 from gdrnet_tpu_torch.data.dataset_factory import resolve
 from gdrnet_tpu_torch.data.io import read_image, read_png
-from gdrnet_tpu_torch.data.mapper import GDRNTestMapper, GDRNTrainMapper
+from gdrnet_tpu_torch.data import device_augment as dev_aug
+from gdrnet_tpu_torch.data import device_pool
+from gdrnet_tpu_torch.data.device_pipeline import device_train_batch
+from gdrnet_tpu_torch.data.mapper import (
+    GDRNRawTrainMapper,
+    GDRNTestMapper,
+    GDRNTrainMapper,
+    collate,
+)
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.data.ply import save_ply
 from gdrnet_tpu_torch.data.scene_renderer import SceneRenderer
@@ -213,6 +232,7 @@ from gdrnet_tpu_torch.engine import build_test_items, do_test, steps
 from gdrnet_tpu_torch.engine.checkpoint import CheckpointManager, load_weights
 from gdrnet_tpu_torch.engine import train as train_cli
 from gdrnet_tpu_torch.engine.steps import make_predict_step
+from gdrnet_tpu_torch.engine import trainer as trainer_mod
 from gdrnet_tpu_torch.engine.trainer import build_input_pipeline, build_train_objects, do_train
 from gdrnet_tpu_torch.eval import bop_score, cv_pnp
 from gdrnet_tpu_torch.eval import pnp as pnp_mod
@@ -293,6 +313,15 @@ TRAIN_GRAD_TENSOR_REL, TRAIN_GRAD_ALL_REL = 0.15, 0.08
 LOOP_SCENES, LOOP_IMAGES, LOOP_PER_IMAGE = 4, 16, 8
 LOOP_SAVE, LOOP_ITERS, LOOP_WORKERS = 6, 12, 4
 LOOP_LOADER_BATCHES, LOOP_MAPPED = 4, 16
+# [pool_parity]: POOL_PARITY_ROWS records of the loop split into a pool on the
+# card (seed POOL_SEED) against the mapper, and its decode against the CPU's
+# within POOL_CPU_ATOL; device_train_batch over POOL_RAW_RECORDS raw frames
+# and each device_augment op over POOL_AUG_FRAMES of them, card against CPU
+# with the same draws, within DEVICE_AUG_ATOL (0..255 for the ops, the
+# normalized crop for device_train_batch) and labels equal at
+# POOL_LABEL_SHARE; make_batch at B=128 timed POOL_TIMED times
+POOL_PARITY_ROWS, POOL_SEED, POOL_RAW_RECORDS, POOL_AUG_FRAMES, POOL_TIMED = 64, 7, 32, 8, 20
+POOL_CPU_ATOL, DEVICE_AUG_ATOL, POOL_LABEL_SHARE = 1e-6, 1e-4, 0.999
 # the test path: est_dets.json from the BOP split's visible GT boxes jittered by
 # up to DET_JITTER_PX, every DET_DROP_EVERY-th instance without a detection,
 # every DET_SECOND_EVERY-th with a lower-scored second one; scene 1 in f32 on
@@ -461,6 +490,8 @@ PNP_TEST_RUNS = ((True, "ransac_pnp"), (False, "net_iter_pnp"))
 # against the CPU within PVNET_REL of the outputs' scale, then its ms at
 # PVNET_BATCH
 BENCH_ITERS, BT_BATCH, BT_WORKERS, BT_LOADER_ITERS, BT_STEP_ITERS = 10, 128, 4, 3, 6
+# the loader leg's pipelines; the pool's fill cut to BT_POOL_RECORDS records
+BT_PIPELINES, BT_POOL_RECORDS = ("host", "pool", "device-prep", "device-aug"), 256
 # [export]: both artifacts (bf16 and int8) bit for bit the eager forward's
 # at all EXPORT_BATCH crops. The int8 one once parted at 1-5 crops: the
 # exported upsample ran in bf16 where CUDA autocast runs the eager one in
@@ -1307,10 +1338,16 @@ def check_card_mapper(cfg, root: str) -> dict:
 
 
 def time_loader(cfg, root: str) -> float:
-    """Samples/s of the loader alone (NUM_WORKERS threads, renders on the
-    card), over LOOP_LOADER_BATCHES batches after a first one."""
-    _, records, records2, _, mapper = build_train_objects(cfg, root, DEV)
-    loader, _ = build_input_pipeline(cfg, records, records2, mapper, seed=1, device=DEV)
+    """Samples/s of the host loader alone (NUM_WORKERS threads, renders on
+    the card; the pool off), over LOOP_LOADER_BATCHES batches after a first
+    one."""
+    pool_on = cfg.TRAIN.DEVICE_RESIDENT_POOL
+    cfg.TRAIN.DEVICE_RESIDENT_POOL = False
+    try:
+        _, records, records2, _, mapper = build_train_objects(cfg, root, DEV)
+        loader, _, _ = build_input_pipeline(cfg, records, records2, mapper, seed=1, device=DEV)
+    finally:
+        cfg.TRAIN.DEVICE_RESIDENT_POOL = pool_on
     it = iter(loader)
     try:
         next(it)
@@ -1322,13 +1359,48 @@ def time_loader(cfg, root: str) -> float:
         it.close()
 
 
+class PoolWatch:
+    """While active, records each DevicePool that engine/trainer builds (its
+    stats and B2's launches during its fill and upload, before the refresher
+    starts) and each refresher."""
+
+    def __init__(self):
+        self.pools, self.refreshers = [], []
+
+    def __enter__(self):
+        real_pool, real_pipe = trainer_mod.DevicePool, trainer_mod.build_input_pipeline
+
+        def pool(*a, **k):
+            before = kernels.rasterize_xyz.launches
+            p = real_pool(*a, **k)
+            self.pools.append((p, kernels.rasterize_xyz.launches - before))
+            return p
+
+        def pipeline(*a, **k):
+            out = real_pipe(*a, **k)
+            if out[2] is not None:
+                self.refreshers.append(out[2])
+            return out
+
+        self._real = real_pool, real_pipe
+        trainer_mod.DevicePool, trainer_mod.build_input_pipeline = pool, pipeline
+        return self
+
+    def __exit__(self, *exc):
+        trainer_mod.DevicePool, trainer_mod.build_input_pipeline = self._real
+
+
 def phase_train_loop(cfg, state_dict: dict, gsd, root: str, card: str) -> tuple[int, float]:
     """The flagship trained by engine/trainer.do_train from a BOP train split
-    on disk: (a) every logged loss finite and no step skipped, (b) the
-    mapper on the card against the CPU, (c) the state resumed from the
-    checkpoint at LOOP_SAVE bitwise equal to the saved one, (d) B2 launched
-    at least once per sample mapped. Returns B2's launches in the loop and
-    the loader's samples/s alone."""
+    on disk, as its config says: from the pool on the card
+    (TRAIN.DEVICE_RESIDENT_POOL) with its refresh. (a) every logged loss
+    finite and no step skipped, (b) the mapper on the card against the CPU,
+    (c) the state resumed from the checkpoint at LOOP_SAVE bitwise equal to
+    the saved one, and the resumed run's pool loaded from the first run's
+    cache with no B2 launch in its fill, (d) B2 launched at least once per
+    record of the first fill; no refresh chunk torn. The host loader alone
+    is timed beside it. Returns B2's launches in the loop, the host
+    loader's samples/s alone and the split's objects for later phases."""
     n = LOOP_SCENES * LOOP_IMAGES * LOOP_PER_IMAGE
     K = gsd.K_DEF.astype(np.float32)
     classes, R, t = train_split_poses(n, K, gsd.W_DEF, gsd.H_DEF, seed=400)
@@ -1344,12 +1416,17 @@ def phase_train_loop(cfg, state_dict: dict, gsd, root: str, card: str) -> tuple[
     mapped = check_card_mapper(c, root)
     loader_rate = time_loader(c, root)
 
-    # the main path: do_train to LOOP_SAVE, then resumed to LOOP_ITERS
+    # the main path: do_train to LOOP_SAVE, then resumed to LOOP_ITERS, from
+    # the pool with its refresh, as the flagship config says
+    if not (c.TRAIN.DEVICE_RESIDENT_POOL and c.TRAIN.POOL_REFRESH):
+        raise AssertionError("train_loop: the flagship config no longer trains from the pool")
     kernels.nn_min_dist.launches = 0
     kernels.rasterize_xyz.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    saved, _, preempted = do_train(c, data_root=root, max_iters_override=LOOP_SAVE, device=DEV)
+    with PoolWatch() as watch_a:
+        saved, _, preempted = do_train(c, data_root=root, max_iters_override=LOOP_SAVE,
+                                       device=DEV)
     run_a_s = time.perf_counter() - t0
     launches_a = kernels.rasterize_xyz.launches
     if preempted or saved.step != LOOP_SAVE:
@@ -1365,13 +1442,29 @@ def phase_train_loop(cfg, state_dict: dict, gsd, root: str, card: str) -> tuple[
         raise AssertionError(f"train_loop: resumed at {start}, state not bitwise equal")
     del saved, resumed, fresh, fresh_opt, a, b
     t0 = time.perf_counter()
-    state, _, preempted = do_train(c, resume=True, data_root=root, max_iters_override=LOOP_ITERS,
-                                   device=DEV)
+    with PoolWatch() as watch_b:
+        state, _, preempted = do_train(c, resume=True, data_root=root,
+                                       max_iters_override=LOOP_ITERS, device=DEV)
     torch.cuda.synchronize()
     run_b_s = time.perf_counter() - t0
     launches = kernels.rasterize_xyz.launches
     if preempted or state.step != LOOP_ITERS:
         raise AssertionError(f"train_loop: resumed run ended at {state.step}")
+    # (c) the resumed run's pool comes from the first run's cache, no B2
+    # launch in its fill; (d) the first fill launched B2 for each record
+    if len(watch_a.pools) != 1 or len(watch_b.pools) != 1 or len(watch_a.refreshers) != 1:
+        raise AssertionError(f"train_loop: pools built {len(watch_a.pools)}, "
+                             f"{len(watch_b.pools)}; refreshers {len(watch_a.refreshers)}")
+    (pool_a, fill_a), (pool_b, fill_b) = watch_a.pools[0], watch_b.pools[0]
+    st_a, st_b = pool_a.stats, pool_b.stats
+    if st_a["from_cache"] or not st_b["from_cache"] or fill_b or fill_a < st_a["rows"]:
+        raise AssertionError(f"train_loop: first pool {st_a}, B2 {fill_a} in its fill; "
+                             f"resumed pool {st_b}, B2 {fill_b} in its fill")
+    refreshers = watch_a.refreshers + watch_b.refreshers
+    refreshed = sum(r.refreshed for r in refreshers)
+    torn = sum(r.torn_healed + r.torn_dropped for r in refreshers)
+    if torn:
+        raise AssertionError(f"train_loop: {torn} refresh chunks torn on the card")
 
     with open(Path(c.OUTPUT_DIR) / "metrics.json") as f:
         rows = [json.loads(ln) for ln in f]
@@ -1384,24 +1477,193 @@ def phase_train_loop(cfg, state_dict: dict, gsd, root: str, card: str) -> tuple[
     steady = rows[1:]  # the first step includes the warm-up of every PyTorch kernel
     step_ms = np.array([r["time/step"] for r in steady]) * 1e3
     data_ms = np.array([r["time/data"] for r in steady]) * 1e3
-    samples = LOOP_ITERS * c.SOLVER.IMS_PER_BATCH
-    if launches < samples or kernels.nn_min_dist.launches:
-        raise AssertionError(f"train_loop: rasterize_xyz launched {launches} times for "
-                             f"{samples} samples, nn_min_dist {kernels.nn_min_dist.launches}")
+    if kernels.nn_min_dist.launches:
+        raise AssertionError(f"train_loop: nn_min_dist {kernels.nn_min_dist.launches}")
+    log("train_loop_pool", card=repr(card), rows=st_a["rows"],
+        mib_on_card=f"{st_a['nbytes'] / 2**20:.1f}",
+        kib_per_row=f"{st_a['nbytes'] / st_a['rows'] / 1024:.1f}",
+        map_s=f"{st_a['map_s']:.2f}", upload_s=f"{st_a['upload_s']:.3f}",
+        cache_load_s=f"{st_b['cache_load_s']:.3f}", resumed_upload_s=f"{st_b['upload_s']:.3f}",
+        fill_launches_rasterize_xyz=fill_a, resumed_fill_launches=fill_b,
+        refreshed_rows=refreshed, torn_chunks=torn, check="ok")
     log("train_loop", card=repr(card), batch=c.SOLVER.IMS_PER_BATCH, workers=LOOP_WORKERS,
-        iterations=LOOP_ITERS, resumed_at=start, state_tensors=len(state_tensors(state)),
+        input="pool+refresh", iterations=LOOP_ITERS, resumed_at=start,
+        state_tensors=len(state_tensors(state)),
         resumed_bitwise_equal=True, losses_finite=True, skipped=int(skips.sum()),
         total_loss_first=f"{losses[0]:.4f}", total_loss_last=f"{losses[-1]:.4f}",
         step_ms_median=f"{np.median(step_ms):.1f}", data_ms_median=f"{np.median(data_ms):.1f}",
         data_share=f"{data_ms.sum() / step_ms.sum():.3f}",
         rois_per_s=f"{c.SOLVER.IMS_PER_BATCH / np.median(step_ms) * 1e3:.1f}",
         loader_samples_per_s=f"{loader_rate:.1f}",
-        launches_rasterize_xyz=launches, launches_per_step=f"{launches / LOOP_ITERS:.1f}",
-        launches_run1=launches_a, wall_s=f"{run_a_s:.1f}+{run_b_s:.1f}",
+        launches_rasterize_xyz=launches, launches_run1=launches_a,
+        wall_s=f"{run_a_s:.1f}+{run_b_s:.1f}",
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", check="ok")
     return launches, loader_rate, dict(
         mapped, weights=weights, data_share=data_ms.sum() / step_ms.sum(),
         rois_per_s=c.SOLVER.IMS_PER_BATCH / np.median(step_ms) * 1e3)
+
+
+class CpuDraws(dev_aug.TorchKey):
+    """A draw half's key whose numbers come from a CPU generator and are
+    moved to `device`: the same draws on the card and on the CPU."""
+
+    def __init__(self, seed: int, device):
+        super().__init__(torch.Generator().manual_seed(seed))
+        self.out = torch.device(device)
+
+    def uniform(self, shape, lo=0.0, hi=1.0):
+        return super().uniform(shape, lo, hi).to(self.out)
+
+    def bernoulli(self, p, shape):
+        return super().bernoulli(p, shape).to(self.out)
+
+    def normal(self, shape):
+        return super().normal(shape).to(self.out)
+
+    def randint(self, shape, lo, hi):
+        return super().randint(shape, lo, hi).to(self.out)
+
+
+def prep_kwargs(c, color_op) -> dict:
+    """device_train_batch's settings from config c, as engine/trainer builds
+    them, with the colour jitter `color_op` at c's probability."""
+    rh = c.MODEL.CDPN.ROT_HEAD
+    return dict(input_res=c.MODEL.CDPN.BACKBONE.INPUT_RES,
+                out_res=c.MODEL.CDPN.BACKBONE.OUTPUT_RES, xyz_bin=rh.XYZ_BIN,
+                with_bins="CE" in rh.XYZ_LOSS_TYPE, dzi_type=c.INPUT.DZI_TYPE,
+                pad_scale=c.INPUT.DZI_PAD_SCALE, scale_ratio=c.INPUT.DZI_SCALE_RATIO,
+                shift_ratio=c.INPUT.DZI_SHIFT_RATIO, xyz_mask_gt=rh.XYZ_LOSS_MASK_GT,
+                color_aug_type=c.INPUT.COLOR_AUG_TYPE, color_aug_prob=c.INPUT.COLOR_AUG_PROB,
+                color_op=color_op)
+
+
+def model_stacks(models, c, device) -> list:
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (
+        models.points_stack, models.extents_stack, models.fps_stack, models.sym_rots_stack,
+        models.sym_mask_stack)] + [
+        torch.tensor(c.MODEL.PIXEL_MEAN, dtype=torch.float32, device=device),
+        torch.tensor(c.MODEL.PIXEL_STD, dtype=torch.float32, device=device)]
+
+
+def max_diff(got: dict, want: dict) -> dict:
+    return {k: float((got[k].double().cpu() - want[k].double().cpu()).abs().max())
+            for k in want}
+
+
+def phase_pool_parity(root: str, weights: str, card: str) -> int:
+    """[pool_parity] on [train_loop]'s split with the flagship config:
+    (a) the pool on the card (POOL_PARITY_ROWS records) against the card's
+    mapper for the same slots and rng, inside the JAX package's envelope
+    (image 0.5 LSB, xyz 5e-4, masks / region / classes / per-class
+    constants exact, geometry 1e-5, bins equal at > 0.999); (b) the card's
+    pool batch against the CPU's decode of the same rows within
+    POOL_CPU_ATOL; (c) device_train_batch (INPUT.DEVICE_PREPROCESS with the
+    flagship's colour jitter) over POOL_RAW_RECORDS raw frames on the card
+    against the CPU, fed the same draws: roi_img within DEVICE_AUG_ATOL,
+    masks and regions equal at POOL_LABEL_SHARE of the pixels or more; (d)
+    every device_augment op on POOL_AUG_FRAMES frames, card against CPU,
+    same draws, within DEVICE_AUG_ATOL. Times make_batch at B=128 and
+    device_train_batch at POOL_RAW_RECORDS frames. Returns B2's launches."""
+    c = loop_cfg(root, weights)
+    kernels.rasterize_xyz.launches = 0
+    _, records, _, models, mapper = build_train_objects(c, root, DEV)
+    recs = [dict(r) for r in records[::max(1, len(records) // POOL_PARITY_ROWS)]
+            ][:POOL_PARITY_ROWS]
+    pool = device_pool.DevicePool(c, recs, mapper, models, device=DEV, seed=POOL_SEED,
+                                  num_workers=LOOP_WORKERS)
+    slots = np.arange(pool.per_shard)
+    got = pool.make_batch(slots)
+    samples = []
+    for slot in slots:
+        rec = pool.records[slot]
+        smp = mapper(rec, np.random.RandomState((POOL_SEED * 1_000_003 + int(slot)) % 2 ** 31))
+        smp["im_wh"] = np.asarray(rec["im_wh"], np.float32)
+        samples.append(smp)
+    want = {k: torch.from_numpy(v) for k, v in collate(samples).items()}
+    g = {k: v.cpu() for k, v in got.items()}
+    std = torch.tensor(c.MODEL.PIXEL_STD)
+    mean = torch.tensor(c.MODEL.PIXEL_MEAN)
+    img_lsb = float(((g["roi_img"] * std + mean) - (want["roi_img"] * std + mean)).abs().max())
+    xyz = float((g["gt_xyz"] - want["gt_xyz"]).abs().max())
+    exact = [k for k in ("gt_mask_trunc", "gt_mask_visib", "gt_mask_obj", "gt_region",
+                         "roi_classes", "gt_points", "sym_rots", "sym_mask")
+             if not torch.equal(g[k], want[k].to(g[k].dtype))]
+    geom = max(max_diff(g, {k: want[k] for k in (
+        "roi_cams", "roi_centers", "roi_whs", "roi_extents", "resize_ratios", "gt_ego_rot",
+        "gt_trans", "gt_trans_ratio", "roi_coord_2d")}).values())
+    bins_eq = float((g["gt_xyz_bin"] == want["gt_xyz_bin"]).double().mean())
+    if img_lsb > 0.5 + 1e-3 or xyz >= 5e-4 or exact or geom > 1e-5 or bins_eq <= 0.999:
+        raise AssertionError(f"pool_parity: pool vs mapper: image {img_lsb} LSB, xyz {xyz}, "
+                             f"inexact {exact}, geometry {geom}, bins equal {bins_eq}")
+    # (b) the same rows decoded on the CPU
+    rows = {k: v.cpu() for k, v in pool.read_rows(slots).items()}
+    cpu = device_pool._decode_rows(rows, *[t.cpu() for t in pool._stacks], pool._mean.cpu(),
+                                   pool._std.cpu(), **pool._decode_static)
+    card_cpu = max(max_diff(g, cpu).values())
+    if card_cpu > POOL_CPU_ATOL:
+        raise AssertionError(f"pool_parity: card vs CPU decode {max_diff(g, cpu)}")
+    idx = np.random.RandomState(0).randint(0, pool.per_shard, 128)
+    make_ms = cuda_times(lambda: pool.make_batch(idx), POOL_TIMED)
+
+    # (c) device_train_batch, card against CPU, the same draws
+    cr = loop_cfg(root, weights)
+    cr.INPUT.DEVICE_PREPROCESS = cr.INPUT.DEVICE_COLOR_AUG = True
+    cr.TRAIN.DEVICE_RESIDENT_POOL = False
+    raw_mapper = GDRNRawTrainMapper(cr, models, bg_replacer=mapper.bg, device=DEV)
+    raw = collate([raw_mapper(dict(r), np.random.RandomState(i))
+                   for i, r in enumerate(records[:POOL_RAW_RECORDS])])
+    order = "rgb" if cr.INPUT.get("FORMAT", "BGR").upper() == "RGB" else "bgr"
+    op = dev_aug.color_aug_op(cr.INPUT.COLOR_AUG_TYPE, cr.INPUT.get("COLOR_AUG_CODE"), order)
+    kw = prep_kwargs(cr, op)
+    on = {dev: device_train_batch(CpuDraws(POOL_SEED, dev),
+                                  {k: torch.from_numpy(v).to(dev) for k, v in raw.items()},
+                                  *model_stacks(models, cr, dev), **kw)
+          for dev in (DEV, "cpu")}
+    d_img = float((on[DEV]["roi_img"].cpu() - on["cpu"]["roi_img"]).abs().max())
+    labels = {k: (on[DEV][k].cpu() == on["cpu"][k]).double().mean().item()
+              for k in ("gt_mask_trunc", "gt_mask_visib", "gt_mask_obj", "gt_region")}
+    differ = {k: int((on[DEV][k].cpu() != on["cpu"][k]).sum()) for k in labels}
+    if d_img > DEVICE_AUG_ATOL or min(labels.values()) < POOL_LABEL_SHARE:
+        raise AssertionError(f"pool_parity: device_train_batch card vs CPU: roi_img {d_img}, "
+                             f"label shares {labels}")
+    raw_dev = {k: torch.from_numpy(v).to(DEV) for k, v in raw.items()}
+    stacks_dev = model_stacks(models, cr, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    dtb_ms = cuda_times(lambda: device_train_batch(dev_aug.TorchKey(gen), raw_dev, *stacks_dev,
+                                                   **kw), 5)
+
+    # (d) every op of device_augment, card against CPU, the same draws
+    frames = raw["image"][:POOL_AUG_FRAMES].astype(np.float32)
+    ops = {"add": dev_aug.add_op(), "multiply": dev_aug.multiply_op(),
+           "linear_contrast": dev_aug.linear_contrast_op(), "invert": dev_aug.invert_op(),
+           "additive_gaussian_noise": dev_aug.additive_gaussian_noise_op(),
+           "dropout": dev_aug.dropout_op(per_channel=0.5), "grayscale": dev_aug.grayscale_op(),
+           "coarse_dropout": dev_aug.coarse_dropout_op(), "saturation": dev_aug.saturation_op(),
+           "gaussian_blur": dev_aug.gaussian_blur_op(), "aae": dev_aug.aae_aug_op(),
+           "roi10d": dev_aug.roi10d_aug_op(), "flagship_code": op,
+           "one_of": dev_aug.one_of([dev_aug.add_op(), dev_aug.grayscale_op()]),
+           "sometimes": dev_aug.sometimes(0.5, dev_aug.multiply_op())}
+    op_err = {}
+    for i, (name, o) in enumerate(ops.items()):
+        a = o(CpuDraws(i, DEV), torch.from_numpy(frames).to(DEV)).cpu()
+        b = o(CpuDraws(i, "cpu"), torch.from_numpy(frames))
+        op_err[name] = float((a - b).abs().max())
+    if max(op_err.values()) > DEVICE_AUG_ATOL:
+        raise AssertionError(f"pool_parity: device_augment card vs CPU {op_err}")
+    launches = kernels.rasterize_xyz.launches
+    if launches < len(recs):
+        raise AssertionError(f"pool_parity: B2 launched {launches} times for {len(recs)} rows")
+    log("pool_parity", card=repr(card), rows=pool.per_shard, vs="mapper on the card",
+        img_max_lsb=f"{img_lsb:.4f}", xyz_max=f"{xyz:.3e}", geometry_max=f"{geom:.3e}",
+        bins_equal=f"{bins_eq:.5f}", exact="masks,region,classes,constants",
+        card_vs_cpu_decode_max=f"{card_cpu:.3e}", dtb_records=POOL_RAW_RECORDS,
+        dtb_roi_img_max=f"{d_img:.3e}",
+        dtb_label_share=json.dumps({k: round(v, 6) for k, v in labels.items()}),
+        dtb_label_pixels_differ=json.dumps(differ),
+        ops_max=json.dumps({k: float(f"{v:.3e}") for k, v in op_err.items()}),
+        make_batch_b128_ms=f"{np.median(make_ms):.3f}",
+        dtb_ms=f"{np.median(dtb_ms):.2f}", launches_rasterize_xyz=launches, check="ok")
+    return launches
 
 
 def cached_renders(render, cache: dict):
@@ -1792,8 +2054,11 @@ def phase_do_test(cfg, split, dets: dict, weights: str, root: str, card: str) ->
     checkpoint, bf16, ROI_BATCH_SIZE buckets, VAL.USE_BOP over the config's
     ERROR_TYPES. Gates: both kernels launched inside the call, every CSV row
     finite with a rotation, one row per kept detection, the missing count
-    that of the GT instances left without a detection. Returns (its
-    results, its CSV rows, B1 and B2 launches)."""
+    that of the GT instances left without a detection. Then the same test
+    with TEST.DEVICE_PREPROCESS (the crops warped on the card): B1 launched
+    inside it, its recalls the host mapper's but where a threshold flip of
+    the error kind is counted. Returns (the host run's results, its CSV
+    rows, B1 and B2 launches of both runs)."""
     c = test_cfg(cfg, dets)
     model = load_weights(build_model(c, device=DEV), weights)
     out = str(Path(root) / "test_out")
@@ -1815,6 +2080,30 @@ def phase_do_test(cfg, split, dets: dict, weights: str, root: str, card: str) ->
     if len(rows) != dets["kept"] or n_missing != dets["missing"]:
         raise AssertionError(f"do_test: {len(rows)} CSV rows for {dets['kept']} kept detections, "
                              f"{n_missing} missing for {dets['missing']}")
+    # the same test with TEST.DEVICE_PREPROCESS: the crops warped on the card
+    cd = test_cfg(cfg, dets)
+    cd.TEST.DEVICE_PREPROCESS = True
+    kernels.nn_min_dist.launches = 0
+    t0 = time.perf_counter()
+    res_d = do_test(cd, model, split["models"], split["records"],
+                    output_dir=str(Path(root) / "test_out_devprep"), device=DEV)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    b1_d = kernels.nn_min_dist.launches
+    rows_d = load_bop_results(res_d["_csv_path"])
+    csv_rows_check(rows_d, "do_test device preprocess")
+    flips = threshold_flips(c, rows, rows_d, split["records"], split["models"])
+    differ = recalls_differ("do_test device preprocess", res, res_d, flips)
+    if len(rows_d) != len(rows) or b1_d < 1:
+        raise AssertionError(f"do_test device preprocess: {len(rows_d)} rows for {len(rows)}, "
+                             f"B1 {b1_d}")
+    rot_d = np.array([rot_deg(a["R"][None], b["R"][None])[0] for a, b in zip(rows, rows_d)])
+    log("do_test_device_preprocess", card=repr(card), rois=len(rows_d),
+        launches_nn_min_dist=b1_d, recalls_differ=len(differ),
+        threshold_flips=json.dumps(flips), rot_deg_max_vs_host=f"{rot_d.max():.4f}",
+        rot_deg_median_vs_host=f"{np.median(rot_d):.4f}",
+        compute_s_per_bucket=f"{res_d['_time']['compute_s_per_bucket']:.4f}",
+        wall_s=f"{wall_d:.2f}", ar_bop19=f"{res_d['_bop_average_recall']:.4f}", check="ok")
     # the host mapping alone over the same buckets
     flat = flat_entries(c, split["records"])
     mapper = GDRNTestMapper(c, split["models"], roi_batch_size=c.TEST.ROI_BATCH_SIZE)
@@ -1837,7 +2126,7 @@ def phase_do_test(cfg, split, dets: dict, weights: str, root: str, card: str) ->
         launches_nn_min_dist=launches[0], launches_rasterize_xyz=launches[1],
         ar_bop19=f"{ar:.4f}", avg_ad_10=f"{res['Avg']['ad_10']:.4f}",
         avg_mean_re=f"{res['Avg']['mean_re']:.3f}", csv_rows=len(rows), check="ok")
-    return res, rows, launches
+    return res, rows, (launches[0] + b1_d, launches[1])
 
 
 def phase_do_test_vs_cpu(cfg32, split, dets: dict, weights: str, root: str) -> None:
@@ -2853,8 +3142,8 @@ def train_cli_child(argv: list) -> None:
                 it.close()
 
     def timed_pipeline(*args, **kwargs):
-        loader, to_dev = build_pipeline(*args, **kwargs)
-        return TimedLoader(loader), to_dev
+        loader, to_dev, refresher = build_pipeline(*args, **kwargs)
+        return TimedLoader(loader), to_dev, refresher
 
     precise: list = []
     update_bn_stats = trainer_mod.update_bn_stats
@@ -3911,6 +4200,8 @@ def phase_pnp(cfg, split, dets: dict, weights: str, root: str, card: str) -> tup
     c.OUTPUT_DIR = str(Path(root) / "vis_out")
     c.SOLVER.IMS_PER_BATCH = PNP_VIS_BATCH
     c.TRAIN.VIS_IMG = True
+    # [train_loop]'s mapped pool (the same split and INPUT): the fill is its phase's to test
+    shutil.copytree(Path(root) / "train_out" / "pool_cache", Path(c.OUTPUT_DIR) / "pool_cache")
     kernels.rasterize_xyz.launches = 0
     t0 = time.perf_counter()
     state, _, preempted = do_train(c, data_root=root, max_iters_override=PNP_VIS_ITERS, device=DEV)
@@ -3960,14 +4251,49 @@ def phase_bench(weights: str, card: str) -> None:
             wall_s=f"{wall_s:.1f}", **drift, check="ok")
 
 
+def bench_train_loader(root: str, card: str) -> int:
+    """[bench_train]'s loader leg, one line for each of BT_PIPELINES;
+    returns B2's launches."""
+    launches = 0
+    for pipeline in BT_PIPELINES:
+        kernels.nn_min_dist.launches = 0
+        kernels.rasterize_xyz.launches = 0
+        args = ["--with-loader", "--config-file", FLAGSHIP, "--data-root", root,
+                "--batch-sizes", str(BT_BATCH), "--workers", str(BT_WORKERS),
+                "--iters", str(BT_LOADER_ITERS), "--pipeline", pipeline,
+                "DATASETS.TRAIN=('loop_train',)"]
+        if pipeline == "pool":
+            args[1:1] = ["--max-records", str(BT_POOL_RECORDS)]
+        (row,) = bench_train_tool.main(args)
+        b2 = kernels.rasterize_xyz.launches
+        launches += b2
+        # the first batch, the warm-up's next and the loop's; the pool maps
+        # each of its records once
+        need = row.get("pool_rows") or (BT_LOADER_ITERS + 2) * BT_BATCH
+        if b2 < need or not (row["value"] > 0 and np.isfinite(row["loss"])):
+            raise AssertionError(f"bench_train loader {pipeline}: B2 launched {b2} times for "
+                                 f"{need} samples; {row}")
+        pool = ({k: row[k] for k in ("pool_rows", "pool_mib", "pool_map_s", "pool_upload_s",
+                                     "refreshed")} if pipeline == "pool" else {})
+        log("bench_train_loader", card=repr(card), pipeline=pipeline, batch=BT_BATCH,
+            workers=BT_WORKERS, iterations=BT_LOADER_ITERS, rois_per_s=row["value"],
+            ms_per_step=row["ms_per_step"], data_ms_per_step=row["data_ms_per_step"],
+            records=row["records"], build_s=row["build_s"], **pool,
+            launches_rasterize_xyz=b2, launches_per_sample=f"{b2 / need:.2f}", check="ok")
+
+    return launches
+
+
 def phase_bench_train(root: str, card: str, train_ms: dict) -> int:
     """[bench_train]: tools/bench_train's three legs in this process: the
     step at BT_BATCH; --with-loader at BT_BATCH with BT_WORKERS threads for
-    BT_LOADER_ITERS iterations over [train_loop]'s split, before [gen_xyz]
-    writes its pickles, so that every sample's XYZ renders on B2 (at least
-    once a sample the loop consumed); --audit at BT_BATCH, its mfu and
-    hbm_frac in (0, 1], its FLOP counts logged beside [train_time]'s step.
-    Returns B2's launches in the loader leg."""
+    BT_LOADER_ITERS iterations over [train_loop]'s split, once for each of
+    BT_PIPELINES (the pool's fill cut to BT_POOL_RECORDS records), before
+    [gen_xyz] writes its pickles, so that every sample's XYZ renders on B2
+    (at least once a sample the loop consumed, a record the pool mapped);
+    --audit at BT_BATCH, its mfu and hbm_frac in (0, 1], its FLOP counts
+    logged beside [train_time]'s step. Returns B2's launches in the loader
+    leg."""
     (step,) = bench_train_tool.main(["--batch-sizes", str(BT_BATCH), "--iters",
                                      str(BT_STEP_ITERS)])
     if not (step["value"] > 0 and np.isfinite(step["loss"])):
@@ -3976,23 +4302,7 @@ def phase_bench_train(root: str, card: str, train_ms: dict) -> int:
         ms_per_step=step["ms_per_step"], train_time_ms=f"{train_ms.get(BT_BATCH, 0):.3f}",
         loss=step["loss"], check="ok")
 
-    kernels.nn_min_dist.launches = 0
-    kernels.rasterize_xyz.launches = 0
-    (row,) = bench_train_tool.main([
-        "--with-loader", "--config-file", FLAGSHIP, "--data-root", root,
-        "--batch-sizes", str(BT_BATCH), "--workers", str(BT_WORKERS),
-        "--iters", str(BT_LOADER_ITERS), "DATASETS.TRAIN=('loop_train',)"])
-    launches = kernels.rasterize_xyz.launches
-    consumed = (BT_LOADER_ITERS + 2) * BT_BATCH  # the first batch, the warm-up's next, the loop's
-    if launches < consumed or not (row["value"] > 0 and np.isfinite(row["loss"])):
-        raise AssertionError(f"bench_train loader: B2 launched {launches} times for {consumed} "
-                             f"samples; {row}")
-    log("bench_train_loader", card=repr(card), batch=BT_BATCH, workers=BT_WORKERS,
-        iterations=BT_LOADER_ITERS, rois_per_s=row["value"], ms_per_step=row["ms_per_step"],
-        data_ms_per_step=row["data_ms_per_step"], records=row["records"],
-        build_s=row["build_s"], launches_rasterize_xyz=launches,
-        launches_per_sample=f"{launches / consumed:.2f}", check="ok")
-
+    launches = bench_train_loader(root, card)
     (audit,) = bench_train_tool.main(["--audit", "--batch-sizes", str(BT_BATCH), "--iters",
                                       str(BT_STEP_ITERS)])
     if not (0 < audit["mfu"] <= 1 and 0 < audit["hbm_frac"] <= 1):
@@ -4288,6 +4598,7 @@ def main() -> int:
         phase_train_f32(cfg32, state_dict)
         train, train_ms = phase_train(cfg, state_dict, card)
         loop_launches, loader_rate, loop = phase_train_loop(cfg, state_dict, gsd, root, card)
+        parity_launches = phase_pool_parity(root, loop["weights"], card)
         color_launches = phase_color_aug(root, card, loop)
         ckpt = str(Path(root) / "train_out" / "ckpt")
         dets = write_detections(split, str(Path(root) / "est_dets.json"))
@@ -4335,7 +4646,7 @@ def main() -> int:
          "launches": raster_launches + loop_launches + test_launches[1] + gen_launches
          + csv_launches[1] + xyz_launches + lmo_launches[1] + tv_launches[1] + pnp_launches[1]
          + ddp_launches[1] + bt_launches + color_launches + overfit_launches[1]
-         + vis_launches,
+         + vis_launches + parity_launches,
          **raster_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

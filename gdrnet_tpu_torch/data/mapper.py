@@ -18,8 +18,16 @@ stream of its own and waits for that stream alone before the copy back.
 
 GDRNTestMapper packs the ROIs of detections from several images into one
 bucket of `roi_batch_size` rows, on the host, for engine/tester.do_test.
-GDRNRawTrainMapper and GDRNDeviceTestMapper feed the JAX package's device
-pipeline, which the port does not need (ROADMAP.md "Do not port").
+
+The device-side input path (gdrnet_tpu/data/mapper.py:313-372,476-573):
+GDRNRawTrainMapper does only the host's share for INPUT.DEVICE_PREPROCESS
+(decode, background replacement, the host jitter unless
+INPUT.DEVICE_COLOR_AUG, the XYZ) and returns the raw full frame for
+data/device_pipeline.device_train_batch; GDRNDeviceTestMapper
+(TEST.DEVICE_PREPROCESS) decodes each image of a bucket once and warps the
+crops on its device. With frame_cache_max > 0 a thread keeps its last
+decoded frames, so that the ROIs of one frame decode it once (the device
+pool's fill, which visits records grouped by frame).
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from gdrnet_tpu_torch.data.io import read_image
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.data.ply import load_ply
 from gdrnet_tpu_torch.ops.rasterizer import render_xyz
-from gdrnet_tpu_torch.ops.warp import affine_params
+from gdrnet_tpu_torch.ops.warp import affine_params, affine_params_batch, warp_affine_batch
 
 
 def crop_resize(img: np.ndarray, center, scale, out_size: int,
@@ -172,7 +180,43 @@ class GDRNTrainMapper:
         self.pixel_std = np.asarray(cfg.MODEL.PIXEL_STD, np.float32)
         self.device = torch.device(device)
         self._mesh_cache: dict = {}
-        self._local = threading.local()  # each thread's CUDA stream
+        self._local = threading.local()  # each thread's CUDA stream and frame cache
+        # > 0: each thread keeps up to this many decoded frames (DevicePool's
+        # grouped fill sets it; the loader's random access leaves it off)
+        self.frame_cache_max = 0
+
+    def _read_frame(self, rec: dict) -> np.ndarray:
+        """rec's frame, BGR (from this thread's cache when frame_cache_max >
+        0), with its size noted on the record as "im_wh". The array may be
+        shared: callers do not write into it (every op after it makes a new
+        array)."""
+        path = rec["rgb_path"]
+        cache = getattr(self._local, "frames", None)
+        if cache is None:
+            cache = self._local.frames = {}
+        img = cache.get(path)
+        if img is None:
+            img = read_color_image(path)
+            if self.frame_cache_max > 0:
+                if len(cache) >= self.frame_cache_max:
+                    cache.clear()
+                cache[path] = img
+        rec["im_wh"] = (img.shape[1], img.shape[0])
+        return img
+
+    def clear_frame_cache(self) -> None:
+        """Drop the calling thread's cached frames."""
+        self._local.frames = {}
+
+    def _masks(self, rec: dict, xyz: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(mask_obj, mask_visib) f32 of rec from its XYZ and mask file."""
+        mask_obj = np.any(xyz != 0, axis=-1).astype(np.float32)
+        mask_visib = None
+        if rec.get("mask_visib_path") and osp.exists(rec["mask_visib_path"]):
+            mask_visib = (read_gray_image(rec["mask_visib_path"]) > 0).astype(np.float32)
+        if mask_visib is None:
+            mask_visib = mask_obj.copy()
+        return mask_obj, mask_visib * mask_obj  # (reference data_loader.py:507)
 
     # -- xyz GT --------------------------------------------------------
     def _stream(self) -> torch.cuda.Stream:
@@ -214,20 +258,13 @@ class GDRNTrainMapper:
 
     # -- main ----------------------------------------------------------
     def __call__(self, rec: dict, rng: np.random.RandomState) -> dict:
-        img = read_color_image(rec["rgb_path"])
+        img = self._read_frame(rec)
         im_h, im_w = img.shape[:2]
 
         xyz = self._load_xyz(rec, im_h, im_w)
         if self.cfg.INPUT.SMOOTH_XYZ:
             xyz = smooth_xyz(xyz)
-        mask_obj = np.any(xyz != 0, axis=-1).astype(np.float32)
-
-        mask_visib = None
-        if rec.get("mask_visib_path") and osp.exists(rec["mask_visib_path"]):
-            mask_visib = (read_gray_image(rec["mask_visib_path"]) > 0).astype(np.float32)
-        if mask_visib is None:
-            mask_visib = mask_obj.copy()
-        mask_visib = mask_visib * mask_obj  # (reference data_loader.py:507)
+        mask_obj, mask_visib = self._masks(rec, xyz)
         mask_trunc = mask_visib.copy()
 
         # bg replacement: mandatory only for bg-less "syn" renders (imgn
@@ -320,6 +357,61 @@ class GDRNTrainMapper:
         return sample
 
 
+class GDRNRawTrainMapper(GDRNTrainMapper):
+    """The host's share of INPUT.DEVICE_PREPROCESS (gdrnet_tpu/data/
+    mapper.py:313-372): decode, background replacement, the host jitter
+    (unless INPUT.DEVICE_COLOR_AUG moves it to the device), the XYZ; returns
+    the compact raw full frame. The crops and targets are
+    data/device_pipeline.device_train_batch's."""
+
+    def __call__(self, rec: dict, rng: np.random.RandomState) -> dict:
+        img = self._read_frame(rec)
+        im_h, im_w = img.shape[:2]
+
+        xyz = self._load_xyz(rec, im_h, im_w)
+        if self.cfg.INPUT.SMOOTH_XYZ:
+            xyz = smooth_xyz(xyz)
+        mask_obj, mask_visib = self._masks(rec, xyz)
+        mask_trunc = mask_visib.copy()
+
+        is_syn = rec.get("img_type", "real") == "syn"
+        if self.bg is not None and (is_syn or rng.rand() < self.change_bg_prob):
+            img, mask_trunc_new = self.bg.replace(
+                img, mask_trunc, rng, truncate_fg=self.truncate_fg)
+            mask_trunc = mask_trunc * mask_trunc_new
+        # with INPUT.DEVICE_COLOR_AUG the jitter runs on the device
+        # (data/device_augment.py); the host computes each frame's
+        # eligibility (the COLOR_AUG_SYN_ONLY rule) and ships it
+        device_color_aug = bool(self.cfg.INPUT.get("DEVICE_COLOR_AUG"))
+        aug_ok = not (self.color_aug_syn_only and rec.get("img_type", "real") == "real")
+        if (not device_color_aug and self.color_aug is not None
+                and rng.rand() < self.color_aug_prob):
+            if aug_ok:
+                img = self.color_aug(img, rng)
+        # convert AFTER bg/color aug — those ops are BGR-defined (INPUT.FORMAT)
+        if self.cfg.INPUT.get("FORMAT", "BGR").upper() == "RGB":
+            img = np.ascontiguousarray(img[..., ::-1])
+
+        ys, xs = np.nonzero(mask_obj)
+        if len(xs) == 0:
+            raise ValueError("empty object mask")
+        bbox = np.asarray([xs.min(), ys.min(), xs.max(), ys.max()], np.float32)
+        # compact dtypes: the xyz GT artifact is f16 already
+        # (lm_pbr_1_gen_xyz_crop.py:186-207); masks fit in uint8
+        return {
+            "aug_ok": np.uint8(aug_ok),
+            "image": np.ascontiguousarray(img, dtype=np.uint8),
+            "xyz": xyz.astype(np.float16),
+            "mask_visib": mask_visib.astype(np.uint8),
+            "mask_trunc": mask_trunc.astype(np.uint8),
+            "bbox": bbox,
+            "gt_ego_rot": rec["R"].astype(np.float32),
+            "gt_trans": rec["t"].astype(np.float32),
+            "roi_cams": rec["K"].astype(np.float32),
+            "roi_classes": np.int32(self.models.label_of(rec["label"])),
+        }
+
+
 class GDRNTestMapper:
     """Detections -> one padded ROI bucket (reference test path batches
     per-image ROIs in the mapper, data_loader.py:367-451; padding to
@@ -370,6 +462,13 @@ class GDRNTestMapper:
 
     def _fill_roi(self, out: dict, i: int, img: np.ndarray, K: np.ndarray,
                   det: dict) -> None:
+        center, scale = self._fill_meta(out, i, img.shape[0], img.shape[1], K, det)
+        roi = crop_resize(img, center, scale, self.input_res, cv_ops.INTER_LINEAR)
+        out["roi_img"][i] = (roi.astype(np.float32) - self.pixel_mean) / self.pixel_std
+
+    def _fill_meta(self, out: dict, i: int, im_h: int, im_w: int, K: np.ndarray,
+                   det: dict) -> tuple[np.ndarray, float]:
+        """Row i of the bucket but the crop; returns the crop's (center, scale)."""
         name = det.get("label") or self.models.meta.id2obj[int(det["obj_id"])]
         cls = self.models.label_of(name)
         bbox = det.get("bbox_est", det.get("bbox"))
@@ -379,11 +478,8 @@ class GDRNTestMapper:
         center = np.asarray([(x1 + x2) / 2, (y1 + y2) / 2], np.float32)
         bw, bh = max(x2 - x1, 1), max(y2 - y1, 1)
         # the crop never exceeds the image's larger side
-        scale = min(max(bh, bw) * self.pad_scale, max(img.shape[:2])) * 1.0
-        roi = crop_resize(img, center, scale, self.input_res, cv_ops.INTER_LINEAR)
-        out["roi_img"][i] = (roi.astype(np.float32) - self.pixel_mean) / self.pixel_std
-        out["roi_coord_2d"][i] = roi_coord_2d(
-            img.shape[1], img.shape[0], center, scale, self.out_res)
+        scale = min(max(bh, bw) * self.pad_scale, max(im_h, im_w)) * 1.0
+        out["roi_coord_2d"][i] = roi_coord_2d(im_w, im_h, center, scale, self.out_res)
         out["roi_cams"][i] = K
         out["roi_classes"][i] = cls
         out["roi_centers"][i] = center
@@ -393,7 +489,8 @@ class GDRNTestMapper:
         out["valid"][i] = True
         out["scores"][i] = float(det.get("score", 1.0))
         out["obj_ids"][i] = self.models.meta.obj2id[name]
-        out["im_hws"][i] = img.shape[:2]
+        out["im_hws"][i] = (im_h, im_w)
+        return center, scale
 
     def __call__(self, rgb_path: str, K: np.ndarray, rois: list[dict]) -> dict:
         """Single-image form (reference per-image batching): rois =
@@ -409,3 +506,53 @@ def collate(samples: list[dict]) -> dict:
     """Stack per-sample dicts into one batch dict of numpy arrays."""
     keys = samples[0].keys()
     return {k: np.stack([s[k] for s in samples]) for k in keys}
+
+
+class GDRNDeviceTestMapper(GDRNTestMapper):
+    """TEST.DEVICE_PREPROCESS (gdrnet_tpu/data/mapper.py:476-573): the host
+    decodes each image of a bucket once and sends it as uint8; the ROI warp
+    and the pixel normalization run on `device`, and `roi_img` stays there
+    for the forward. The rest of the bucket (coordinates, K, extents, ...)
+    is host numpy, as GDRNTestMapper's. The unique images of a bucket are
+    padded to a power of two, as in JAX."""
+
+    def __init__(self, cfg, models: ObjectModels, roi_batch_size: int = 64, device="cuda"):
+        super().__init__(cfg, models, roi_batch_size)
+        self.device = torch.device(device)
+
+    def map_flat(self, entries: list[tuple]) -> dict:
+        bs = self.roi_batch_size
+        assert len(entries) <= bs
+        out = self._empty_batch(bs)
+        paths: dict[str, int] = {}
+        img_list: list[np.ndarray] = []
+        idx = np.zeros(bs, np.int64)
+        centers = np.zeros((bs, 2), np.float32)
+        scales = np.ones(bs, np.float32)
+        for i, (rgb_path, K, det) in enumerate(entries):
+            if rgb_path not in paths:
+                paths[rgb_path] = len(img_list)
+                img_list.append(read_color_image(rgb_path, self.cfg.INPUT.get("FORMAT", "BGR")))
+            img = img_list[paths[rgb_path]]
+            idx[i] = paths[rgb_path]
+            centers[i], scales[i] = self._fill_meta(out, i, img.shape[0], img.shape[1],
+                                                    np.asarray(K, np.float32), det)
+        if not img_list:  # an empty bucket: nothing to warp
+            out["roi_img"] = torch.from_numpy(out["roi_img"]).to(self.device)
+            return out
+        n_pad = 1 << (len(img_list) - 1).bit_length()
+        h = max(im.shape[0] for im in img_list)
+        w = max(im.shape[1] for im in img_list)
+        stack = np.zeros((n_pad, h, w, 3), np.uint8)
+        for k, im in enumerate(img_list):
+            stack[k, :im.shape[0], :im.shape[1]] = im
+        dev = self.device
+        M = affine_params_batch(torch.from_numpy(centers).to(dev),
+                                torch.from_numpy(scales).to(dev), self.input_res, inv=True)
+        per_roi = torch.from_numpy(stack).to(dev)[torch.from_numpy(idx).to(dev)]
+        roi = warp_affine_batch(per_roi, M, (self.input_res, self.input_res),
+                                interp="bilinear", axis_aligned=True)
+        mean = torch.from_numpy(self.pixel_mean).to(dev)
+        std = torch.from_numpy(self.pixel_std).to(dev)
+        out["roi_img"] = (roi - mean) / std
+        return out

@@ -1,7 +1,7 @@
 """Synthetic fixed-shape ROI batches (numpy), channels-last, and the port's
 scoring fixtures.
 
-synthetic_roi_batch and synthetic_decoded_maps are copies of
+synthetic_roi_batch, synthetic_raw_batch and synthetic_decoded_maps are copies of
 gdrnet_tpu/data/synthetic.py's, which cannot be imported without JAX
 (gdrnet_tpu.data's package import pulls it in). The copies must stay equal;
 tests/test_torch_slice.py and tests/test_torch_pnp.py hold them to it.
@@ -118,6 +118,52 @@ def synthetic_roi_batch(batch_size: int = 8, input_res: int = 256,
         "sym_rots": sym_rots,
         "sym_mask": sym_mask,
     }
+
+
+def synthetic_raw_batch(batch_size: int = 8, img_h: int = 96, img_w: int = 128,
+                        num_classes: int = 2, seed: int = 0) -> tuple[dict, dict]:
+    """Raw full-frame batch in the GDRNRawTrainMapper contract (uint8 image,
+    f16 xyz, uint8 masks, bbox / pose / K / class) plus the per-class stacks
+    device_train_batch gathers from, numpy (a copy of JAX's, bit for bit
+    from the same seed)."""
+    rng = np.random.RandomState(seed)
+    B = batch_size
+    K = np.tile(np.asarray(
+        [[120.0, 0, img_w / 2], [0, 120.0, img_h / 2], [0, 0, 1]],
+        np.float32), (B, 1, 1))
+    rot = _random_rotations(rng, B)
+    trans = np.stack([rng.uniform(-0.02, 0.02, B), rng.uniform(-0.02, 0.02, B),
+                      rng.uniform(0.5, 0.8, B)], axis=1).astype(np.float32)
+
+    imgs = rng.randint(0, 255, (B, img_h, img_w, 3), np.uint8)
+    xyz = np.zeros((B, img_h, img_w, 3), np.float16)
+    mv = np.zeros((B, img_h, img_w), np.uint8)
+    bbox = np.zeros((B, 4), np.float32)
+    for i in range(B):
+        x1 = rng.randint(8, img_w // 2)
+        y1 = rng.randint(8, img_h // 2)
+        x2 = x1 + rng.randint(16, img_w // 3)
+        y2 = y1 + rng.randint(12, img_h // 3)
+        xyz[i, y1:y2, x1:x2] = (rng.rand(y2 - y1, x2 - x1, 3) * 0.1 - 0.05
+                                ).astype(np.float16)
+        mv[i, y1:y2, x1:x2] = 1
+        bbox[i] = [x1, y1, x2 - 1, y2 - 1]
+
+    C, N, F, Ksym = num_classes, 64, 8, 4
+    stacks = {
+        "points_stack": (rng.rand(C, N, 3).astype(np.float32) - 0.5) * 0.1,
+        "extents_stack": np.full((C, 3), 0.1, np.float32),
+        "fps_stack": (rng.rand(C, F, 3).astype(np.float32) - 0.5) * 0.1,
+        "sym_rots_stack": np.tile(np.eye(3, dtype=np.float32), (C, Ksym, 1, 1)),
+        "sym_mask_stack": np.concatenate(
+            [np.ones((C, 1), bool), np.zeros((C, Ksym - 1), bool)], axis=1),
+    }
+    raw = {
+        "image": imgs, "xyz": xyz, "mask_visib": mv, "mask_trunc": mv.copy(),
+        "bbox": bbox, "gt_ego_rot": rot, "gt_trans": trans, "roi_cams": K,
+        "roi_classes": rng.randint(0, C, B).astype(np.int32),
+    }
+    return raw, stacks
 
 
 def synthetic_decoded_maps(rng: np.random.RandomState, batch_size: int = 1,

@@ -32,13 +32,14 @@ statistics into a copy of the model before the first bucket
 (utils/fold_bn.py); TEST.INT8 calibrates on the first mapped bucket and
 serves a quantized copy (models/quantize.py); the two compose, as in JAX
 (gdrnet_tpu/engine/tester.py:95-102,113,219-225).
-TEST.DEVICE_PREPROCESS, a TPU placement choice (ROADMAP.md "Do not port"),
-warns and maps on the host.
+TEST.DEVICE_PREPROCESS maps each bucket with data/mapper.GDRNDeviceTestMapper,
+as JAX's do_test does (gdrnet_tpu/engine/tester.py:90-93): the producer
+thread decodes each image once and warps the crops on the card, where
+`roi_img` stays for the forward.
 """
 
 from __future__ import annotations
 
-import logging
 import os.path as osp
 import queue
 import threading
@@ -49,7 +50,7 @@ import numpy as np
 import torch
 
 from gdrnet_tpu_torch.data.bop import load_detections
-from gdrnet_tpu_torch.data.mapper import GDRNTestMapper
+from gdrnet_tpu_torch.data.mapper import GDRNDeviceTestMapper, GDRNTestMapper
 from gdrnet_tpu_torch.engine.pnp_refine import refine_bucket_poses
 from gdrnet_tpu_torch.engine.steps import make_predict_step
 from gdrnet_tpu_torch.eval.bop_score import (
@@ -99,21 +100,17 @@ def build_test_items(records: list[dict], detections: dict | None = None,
     return items
 
 
-def check_supported(cfg, logger: logging.Logger | None = None) -> None:
-    """Warn for TEST.DEVICE_PREPROCESS, which the port does not need."""
-    if cfg.TEST.get("DEVICE_PREPROCESS"):
-        (logger or logging.getLogger("gdrnet_tpu_torch")).warning(
-            "TEST.DEVICE_PREPROCESS: a TPU placement setting of the JAX package; the port "
-            "maps test ROIs on the host (ROADMAP.md \"Do not port\")")
-
-
 def _to_device(batch: dict, device: torch.device) -> dict:
     """The forward's inputs of a mapped bucket on `device`, from pinned host
-    memory without blocking the host on a CUDA device."""
-    if device.type != "cuda":
-        return {k: torch.from_numpy(batch[k]).to(device) for k in _DEVICE_KEYS}
-    return {k: torch.from_numpy(batch[k]).pin_memory().to(device, non_blocking=True)
-            for k in _DEVICE_KEYS}
+    memory without blocking the host on a CUDA device; a tensor the mapper
+    made on the device (GDRNDeviceTestMapper's roi_img) stays as it is."""
+    def put(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device)
+        if device.type != "cuda":
+            return torch.from_numpy(v).to(device)
+        return torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
+    return {k: put(batch[k]) for k in _DEVICE_KEYS}
 
 
 def bucket_predictor(cfg, model: torch.nn.Module, bucket: int, with_maps: bool = False):
@@ -173,7 +170,6 @@ def do_test(cfg, model: torch.nn.Module, models, records: list[dict],
     shard = mh.get_rank() if shard is None else shard
     num_shards = mh.get_world_size() if num_shards is None else num_shards
     device = torch.device(device)
-    check_supported(cfg)
     _check_device(model, device)
     detections = None
     # reference gating: detections load iff MODEL.LOAD_DETS_TEST (engine.py
@@ -196,7 +192,9 @@ def do_test(cfg, model: torch.nn.Module, models, records: list[dict],
                 "d_test); failing before inference")
 
     bucket = cfg.TEST.ROI_BATCH_SIZE
-    mapper = GDRNTestMapper(cfg, models, roi_batch_size=bucket)
+    mapper = (GDRNDeviceTestMapper(cfg, models, roi_batch_size=bucket, device=device)
+              if cfg.TEST.get("DEVICE_PREPROCESS")
+              else GDRNTestMapper(cfg, models, roi_batch_size=bucket))
     use_pnp = bool(cfg.TEST.USE_PNP)
     predict = bucket_predictor(cfg, model, bucket, with_maps=use_pnp)
     evaluator = CustomEvaluator(

@@ -39,19 +39,24 @@ of its optimizer state (gdrnet_tpu/engine/trainer.py:267-299). Checkpoints
 hold the gathered weights and state, one process's file (engine/
 checkpoint.py); the test after training runs on a gathered replica.
 
-The JAX package's device-resident pool, device preprocessing and device
-colour jitter (TRAIN.DEVICE_RESIDENT_POOL, POOL_REFRESH,
-INPUT.DEVICE_PREPROCESS, INPUT.DEVICE_COLOR_AUG) are TPU placement choices
-the port does not need (ROADMAP.md "Do not port"): with them set it trains
-from the host loader, the reference's sampling, jitters on the host as JAX
-does with DEVICE_COLOR_AUG off, and warns once. Where the JAX device jitter
-refuses COLOR_AUG_TYPE (ssd, albu, code_albu), the port raises its
-ValueError too.
+The device-side input (gdrnet_tpu/engine/trainer.py:63-68,107-207), as the
+flagship config trains: TRAIN.DEVICE_RESIDENT_POOL maps the train set once
+into a pool of compact rows on the card (data/device_pool.py); the loader
+then yields sampler indices and to_device gathers and decodes the batch on
+the card, and with TRAIN.POOL_REFRESH a host thread re-maps slots that the
+loop writes in after each step (one chunk a step). INPUT.DEVICE_PREPROCESS
+maps with GDRNRawTrainMapper and makes the crops and targets on the card
+(data/device_pipeline.py), with INPUT.DEVICE_COLOR_AUG jittering there too;
+its draws come from a generator seeded by the run's seed, the iteration and
+the data rank, so a resumed run draws as the original. The pool with
+DEVICE_PREPROCESS raises JAX's NotImplementedError; the device jitter
+refuses ssd, albu and code_albu with JAX's ValueError.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import os.path as osp
 import signal
@@ -63,7 +68,10 @@ import torch
 from gdrnet_tpu_torch.data.augment import BackgroundReplacer
 from gdrnet_tpu_torch.data.dataset_factory import resolve
 from gdrnet_tpu_torch.data.loader import TrainLoader
-from gdrnet_tpu_torch.data.mapper import GDRNTrainMapper
+from gdrnet_tpu_torch.data.device_augment import TorchKey, color_aug_op
+from gdrnet_tpu_torch.data.device_pipeline import device_train_batch
+from gdrnet_tpu_torch.data.device_pool import DevicePool, PoolRefresher, pool_index_sampler
+from gdrnet_tpu_torch.data.mapper import GDRNRawTrainMapper, GDRNTrainMapper
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.engine.checkpoint import CheckpointManager, init_model_weights
 from gdrnet_tpu_torch.engine.decode import get_out_coor, get_out_mask
@@ -89,30 +97,20 @@ from gdrnet_tpu_torch.parallel import multihost as mh
 from gdrnet_tpu_torch.solver.optimizers import build_optimizer
 from gdrnet_tpu_torch.solver.schedulers import build_lr_schedule
 
-# TPU placement settings of the JAX package: the port trains from the host loader
-_TPU_PLACEMENT = (("TRAIN", "DEVICE_RESIDENT_POOL"), ("TRAIN", "POOL_REFRESH"),
-                  ("INPUT", "DEVICE_PREPROCESS"), ("INPUT", "DEVICE_COLOR_AUG"))
-
-
-def check_supported(cfg, logger=None) -> None:
-    """Warn once for the TPU placement settings, which the port does not
-    need (the world and the model axis are resolve_world's). Raise where the
-    JAX package's device jitter refuses the colour type: DEVICE_PREPROCESS
-    with DEVICE_COLOR_AUG jitters on the device, which takes aae, code and
-    roi10d only (gdrnet_tpu/data/device_augment.py:337-344)."""
+def check_supported(cfg) -> None:
+    """Raise where the JAX package refuses the input settings: the pool maps
+    on the host, so it does not take DEVICE_PREPROCESS
+    (gdrnet_tpu/engine/trainer.py:128-130), and the device jitter takes aae,
+    code and roi10d only (gdrnet_tpu/data/device_augment.py:337-344)."""
     inp = cfg.INPUT
+    if cfg.TRAIN.get("DEVICE_RESIDENT_POOL") and inp.get("DEVICE_PREPROCESS"):
+        raise NotImplementedError("DEVICE_RESIDENT_POOL maps on host; disable DEVICE_PREPROCESS")
     aug_type = inp.COLOR_AUG_TYPE
     if (inp.get("DEVICE_PREPROCESS") and inp.get("DEVICE_COLOR_AUG") and aug_type
             and inp.COLOR_AUG_PROB > 0 and aug_type.lower() not in ("aae", "code", "roi10d")):
         raise ValueError(
             f"device color aug supports aae/code/roi10d, got {aug_type!r} "
             "(keep INPUT.DEVICE_COLOR_AUG=False for ssd/albu)")
-    on = [f"{a}.{b}" for a, b in _TPU_PLACEMENT if getattr(cfg, a).get(b)]
-    if not cfg.TRAIN.get("DEVICE_RESIDENT_POOL"):  # the refresh is part of the pool
-        on = [name for name in on if name != "TRAIN.POOL_REFRESH"]
-    if on and logger is not None:
-        logger.warning(f"{', '.join(on)}: TPU placement settings of the JAX package; the "
-                       "port trains from the host TrainLoader (ROADMAP.md \"Do not port\")")
 
 
 def build_train_objects(cfg, data_root: str = "datasets/BOP_DATASETS", device="cuda"):
@@ -139,7 +137,8 @@ def build_train_objects(cfg, data_root: str = "datasets/BOP_DATASETS", device="c
             cfg.INPUT.BG_IMGS_ROOT, cfg.INPUT.NUM_BG_IMGS,
             keep_aspect=cfg.INPUT.BG_KEEP_ASPECT_RATIO,
             bg_type=cfg.INPUT.BG_TYPE)
-    mapper = GDRNTrainMapper(cfg, models, bg_replacer=bg, device=device)
+    mapper_cls = GDRNRawTrainMapper if cfg.INPUT.DEVICE_PREPROCESS else GDRNTrainMapper
+    mapper = mapper_cls(cfg, models, bg_replacer=bg, device=device)
     return meta, records, records2, models, mapper
 
 
@@ -163,32 +162,110 @@ def vis_panels(cfg, model: torch.nn.Module, batch: dict) -> dict:
     }
 
 
-def build_input_pipeline(cfg, records, records2, mapper, seed: int, device="cuda"):
-    """The training input path: (loader, to_device). The loader yields host
-    batches, the rank's rows of each global batch (the data axis's); to_device(batch) moves one
-    to `device`, through pinned host memory and a copy that does not block
-    the host on a CUDA device."""
+def build_input_pipeline(cfg, records, records2, mapper, seed: int, device="cuda",
+                         logger=None, abort_check=None):
+    """The training input path: (loader, to_device, refresher), as JAX's
+    (gdrnet_tpu/engine/trainer.py:107-207). to_device(batch, it) puts the
+    loader's item for iteration `it` on `device`:
+    - the host loader (the default): the rank's rows of each global batch,
+      mapped on the loader's threads, through pinned host memory and a copy
+      that does not block the host;
+    - TRAIN.DEVICE_RESIDENT_POOL: the loader yields the global batch's pool
+      indices, to_device takes the rank's block and gathers and decodes it
+      from the pool on the card; with TRAIN.POOL_REFRESH the refresher
+      re-maps slots (drain it between steps, stop it at the end);
+    - INPUT.DEVICE_PREPROCESS: the loader yields raw frames and to_device
+      makes the batch on the card with device_train_batch (and the colour
+      jitter with INPUT.DEVICE_COLOR_AUG), its draws from a generator
+      seeded by (seed + 101, it, the data rank).
+    The pool is built here, on `device`; a preemption during its fill
+    (abort_check() true) raises InterruptedError."""
+    check_supported(cfg)
+    device = torch.device(device)
+    models = mapper.models
+    batch_size = cfg.SOLVER.IMS_PER_BATCH
+    refresher = None
+    if cfg.TRAIN.get("DEVICE_RESIDENT_POOL"):
+        pool_out = cfg.OUTPUT_DIR if cfg.OUTPUT_DIR != "auto" else osp.join(
+            cfg.OUTPUT_ROOT, cfg.EXP_NAME or "gdrn")
+        cache_dir = (osp.join(pool_out, "pool_cache") if cfg.TRAIN.get("POOL_CACHE", True)
+                     else None)
+        pool = DevicePool(cfg, records, mapper, models, device=device, seed=seed, logger=logger,
+                          abort_check=abort_check, cache_dir=cache_dir, records2=records2,
+                          num_workers=cfg.DATALOADER.NUM_WORKERS)
+        loader = pool_index_sampler(
+            pool, batch_size, seed, sampler_name=cfg.DATALOADER.SAMPLER_TRAIN,
+            repeat_thresh=cfg.DATALOADER.REPEAT_THRESHOLD,
+            ratio2=cfg.DATASETS.TRAIN2_RATIO if records2 else 0.0)
+        if cfg.TRAIN.get("POOL_REFRESH", True):
+            # each rank re-augments its own rows with a stream of its own
+            refresher = PoolRefresher(
+                pool, chunk=int(cfg.TRAIN.get("POOL_REFRESH_CHUNK", 64) or 64),
+                seed=seed + 1 + 1009 * mh.data_rank(), logger=logger)
+        b = batch_size // pool.n_shards
+        lo = pool.shard * b
+
+        def to_device(idx, it):  # noqa: ARG001 — the pool's rows hold their draws
+            return pool.make_batch(idx[lo:lo + b])
+
+        to_device.pool = pool
+        return loader, to_device, refresher
+
     loader = TrainLoader(
-        records, mapper, cfg.SOLVER.IMS_PER_BATCH,
+        records, mapper, batch_size,
         sampler_name=cfg.DATALOADER.SAMPLER_TRAIN,
         repeat_thresh=cfg.DATALOADER.REPEAT_THRESHOLD,
         num_workers=cfg.DATALOADER.NUM_WORKERS, seed=seed,
         records2=records2, ratio2=cfg.DATASETS.TRAIN2_RATIO,
         rank=mh.data_rank(), world_size=mh.data_size())
-    device = torch.device(device)
 
-    def to_device(batch: dict) -> dict:
+    def put(batch: dict) -> dict:
         if device.type != "cuda":
-            return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-        return {k: torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
+            return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
+        return {k: torch.from_numpy(np.asarray(v)).pin_memory().to(device, non_blocking=True)
                 for k, v in batch.items()}
 
-    return loader, to_device
+    if not cfg.INPUT.DEVICE_PREPROCESS:
+        return loader, lambda batch, it: put(batch), None
+
+    rh = cfg.MODEL.CDPN.ROT_HEAD
+    stacks = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (
+        models.points_stack, models.extents_stack, models.fps_stack, models.sym_rots_stack,
+        models.sym_mask_stack)] + [
+        torch.tensor(cfg.MODEL.PIXEL_MEAN, dtype=torch.float32, device=device),
+        torch.tensor(cfg.MODEL.PIXEL_STD, dtype=torch.float32, device=device)]
+    prep_static = dict(
+        input_res=cfg.MODEL.CDPN.BACKBONE.INPUT_RES, out_res=cfg.MODEL.CDPN.BACKBONE.OUTPUT_RES,
+        xyz_bin=rh.XYZ_BIN, with_bins="CE" in rh.XYZ_LOSS_TYPE, dzi_type=cfg.INPUT.DZI_TYPE,
+        pad_scale=cfg.INPUT.DZI_PAD_SCALE, scale_ratio=cfg.INPUT.DZI_SCALE_RATIO,
+        shift_ratio=cfg.INPUT.DZI_SHIFT_RATIO, xyz_mask_gt=rh.XYZ_LOSS_MASK_GT)
+    if cfg.INPUT.get("DEVICE_COLOR_AUG") and cfg.INPUT.COLOR_AUG_PROB > 0:
+        order = "rgb" if cfg.INPUT.get("FORMAT", "BGR").upper() == "RGB" else "bgr"
+        prep_static.update(
+            color_aug_type=cfg.INPUT.COLOR_AUG_TYPE, color_aug_prob=cfg.INPUT.COLOR_AUG_PROB,
+            color_op=color_aug_op(cfg.INPUT.COLOR_AUG_TYPE,
+                                  cfg.INPUT.get("COLOR_AUG_CODE") or None, order))
+    generator = torch.Generator(device=device)
+    rank = mh.data_rank()
+
+    def to_device(batch, it):
+        generator.manual_seed(prep_seed(seed, it, rank))
+        return device_train_batch(TorchKey(generator), put(batch), *stacks, **prep_static)
+
+    return loader, to_device, None
+
+
+def prep_seed(seed: int, it: int, rank: int = 0) -> int:
+    """The device preprocessing's generator seed at iteration `it` on data
+    rank `rank`."""
+    return ((seed + 101) * 1_000_003 + it * 65_537 + rank) % (2 ** 63)
 
 
 def precise_bn(cfg, model, loader_iter, to_device, seed: int, logger) -> int:
     """TEST.PRECISE_BN: the BN statistics averaged over NUM_ITER batches of
-    the train loader (DropBlock draws from a generator of its own)."""
+    the train input (DropBlock draws from a generator of its own; the
+    batches are iterations 2^30 + k of to_device, apart from the train
+    loop's, as JAX's)."""
     device = next(model.parameters()).device
     generator = torch.Generator(device=device).manual_seed(dropblock_seed(seed, 2 ** 30))
 
@@ -196,8 +273,8 @@ def precise_bn(cfg, model, loader_iter, to_device, seed: int, logger) -> int:
         with _autocast(model, device):
             model(batch["roi_img"], **_model_kwargs(batch), generator=generator)
 
-    n = update_bn_stats(model, (to_device(next(loader_iter)) for _ in iter(int, 1)),
-                        num_iters=cfg.TEST.PRECISE_BN.NUM_ITER, forward=forward)
+    batches = (to_device(next(loader_iter), 2 ** 30 + k) for k in itertools.count(1))
+    n = update_bn_stats(model, batches, num_iters=cfg.TEST.PRECISE_BN.NUM_ITER, forward=forward)
     logger.info(f"precise BN: statistics averaged over {n} batches")
     return n
 
@@ -250,7 +327,7 @@ def do_train(cfg, resume: bool = False, data_root: str = "datasets/BOP_DATASETS"
     out_dir = cfg.OUTPUT_DIR if cfg.OUTPUT_DIR != "auto" else osp.join(
         cfg.OUTPUT_ROOT, cfg.EXP_NAME or "gdrn")
     logger = setup_logger(out_dir, rank=mh.get_rank())
-    check_supported(cfg, logger)
+    check_supported(cfg)
 
     # preemption-safe exit: on SIGTERM/SIGINT finish the current iteration,
     # checkpoint, and return, so resume=True restores the exact step.
@@ -277,7 +354,26 @@ def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir,
     # and init, as gdrnet_tpu/engine/trainer.py:256-263)
     seed = cfg.SEED if cfg.SEED >= 0 else int.from_bytes(os.urandom(4), "little") & 0x7FFFFFFF
     seed = mh.broadcast_int(seed)
-    loader, to_device = build_input_pipeline(cfg, records, records2, mapper, seed, device)
+    try:
+        loader, to_device, refresher = build_input_pipeline(
+            cfg, records, records2, mapper, seed, device, logger=logger,
+            abort_check=lambda: preempted.flag)
+    except InterruptedError:
+        logger.warning("preempted during pool build; nothing saved")
+        return None, models, True
+    try:
+        return _loop(cfg, resume, eval_fn, device, out_dir, logger, preempted, models, seed, m,
+                     iters_per_epoch, total_iters, loader, to_device, refresher)
+    finally:  # at the end, on SIGTERM and on an error alike
+        if refresher is not None:
+            refresher.stop()
+            logger.info(f"pool refresh: {refresher.refreshed} samples re-augmented during "
+                        f"training ({refresher.torn_healed} torn and written again, "
+                        f"{refresher.torn_dropped} chunks dropped)")
+
+
+def _loop(cfg, resume, eval_fn, device, out_dir, logger, preempted, models, seed, m,
+          iters_per_epoch, total_iters, loader, to_device, refresher):
     model = init_weights(build_model(cfg, device=device), torch.Generator().manual_seed(seed))
     shard_model(model)  # before the optimizer: its state is then the rank's slice
     base_lr = dict(cfg.SOLVER.OPTIMIZER_CFG).get("lr", 1e-4)
@@ -299,7 +395,7 @@ def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir,
 
     loader_iter = iter(loader)
     t0 = time.perf_counter()
-    batch = to_device(next(loader_iter))
+    batch = to_device(next(loader_iter), start_iter)
     data_time = time.perf_counter() - t0
 
     ev = EventLog()
@@ -353,8 +449,10 @@ def _train(cfg, resume, data_root, max_iters_override, eval_fn, device, out_dir,
             # overlap: fetch the next batch while the device runs the step
             if it + 1 < total_iters:
                 t0 = time.perf_counter()
-                batch = to_device(next(loader_iter))
+                batch = to_device(next(loader_iter), it + 1)
                 data_time = time.perf_counter() - t0
+            if refresher is not None:  # one refresh chunk while the card runs the step
+                refresher.drain(max_chunks=1)
             # sync with the device only at print boundaries (the NaN
             # tripwire fires at PRINT_FREQ granularity; steps pipeline between)
             ev.iter = it

@@ -13,10 +13,14 @@ stripped forward. Three legs:
   loader's threads, to_device, the step) over an on-disk split, with the
   host's wait for each next batch overlapping the step as do_train's loop
   does. Prints `sustained_train_rois_per_sec` with the host data ms a step.
-  Only `--pipeline host` exists: the device-prep, device-aug and pool
-  pipelines are the JAX package's data/device_pipeline.py and
-  device_pool.py, which the port does not carry (ROADMAP.md "Do not
-  port"). Where a record has no XYZ pickle, the mapper renders it on B2.
+  `--pipeline` takes any of host (the mapper on the host), device-prep
+  (INPUT.DEVICE_PREPROCESS: raw frames, crops and targets on the card),
+  device-aug (device-prep with INPUT.DEVICE_COLOR_AUG) and pool
+  (TRAIN.DEVICE_RESIDENT_POOL with POOL_REFRESH: the split mapped once
+  onto the card, one refresh chunk drained a step; its line adds the pool's
+  rows, MiB, map and upload seconds and the rows refreshed). `build_s` is
+  the seconds to the first batch, the pool's fill included. Where a record
+  has no XYZ pickle, the mapper renders it on B2.
 - `--audit`: the FLOP audit of one train step (forward, backward and the
   optimizer) and of one eval forward. FLOPs from
   torch.utils.flop_counter.FlopCounterMode (convolutions and matrix
@@ -35,7 +39,8 @@ Usage:
   python -m gdrnet_tpu_torch.tools.bench_train [--batch-sizes 24,64,128] [--iters 6]
   python -m gdrnet_tpu_torch.tools.bench_train --with-loader \\
       --config-file configs/gdrn/synth/a6_cPnP_synth.py --data-root datasets/BOP_DATASETS \\
-      [--batch-sizes 64,256] [--workers 4,8] [--iters 30] [--max-records 512] [KEY=value ...]
+      [--batch-sizes 64,256] [--workers 4,8] [--iters 30] [--max-records 512]
+      [--pipeline host,device-prep,device-aug,pool] [KEY=value ...]
   python -m gdrnet_tpu_torch.tools.bench_train --audit [--batch-sizes 256] [--device cpu]
 """
 
@@ -68,8 +73,7 @@ from gdrnet_tpu_torch.tools import entry_device
 # public spec of each part, by torch.cuda.get_device_name: (dense bf16
 # tensor-core TFLOP/s, HBM GB/s); H100 SXM5 80GB
 PEAKS = {"NVIDIA H100 80GB HBM3": (989.4, 3350.0)}
-HOST_PIPELINES = ("host",)
-DEVICE_PIPELINES = ("device-prep", "device-aug", "pool")
+PIPELINES = ("host", "device-prep", "device-aug", "pool")
 
 
 def step_config() -> Config:
@@ -126,62 +130,81 @@ def bench_step(args, device: torch.device) -> list[dict]:
     return rows
 
 
+def pipeline_config(cfg, pipeline: str) -> None:
+    """Sets cfg's input settings for one --pipeline."""
+    cfg.INPUT.DEVICE_PREPROCESS = pipeline in ("device-prep", "device-aug")
+    cfg.INPUT.DEVICE_COLOR_AUG = pipeline == "device-aug"
+    cfg.TRAIN.DEVICE_RESIDENT_POOL = pipeline == "pool"
+    cfg.TRAIN.POOL_REFRESH = pipeline == "pool"
+
+
 def bench_with_loader(args, device: torch.device) -> list[dict]:
     """Sustained loader -> to_device -> step throughput on a split on disk."""
-    for pipeline in args.pipeline.split(","):
-        if pipeline not in HOST_PIPELINES:
-            raise SystemExit(
-                f"--pipeline {pipeline}: the {', '.join(DEVICE_PIPELINES)} pipelines belong to "
-                "the JAX package's data/device_pipeline.py and device_pool.py, which are "
-                "\"Do not port\" in ROADMAP.md; the port trains from the host loader "
-                "(--pipeline host)")
+    pipelines = args.pipeline.split(",")
+    for pipeline in pipelines:
+        if pipeline not in PIPELINES:
+            raise SystemExit(f"--pipeline {pipeline}: one of {', '.join(PIPELINES)}")
     rows = []
-    for B in [int(x) for x in args.batch_sizes.split(",")]:
-        for workers in [int(x) for x in args.workers.split(",")]:
-            cfg = Config(merge_dict(base_config().to_dict(),
-                                    load_config(args.config_file).to_dict()))
-            if args.opts:
-                apply_opts(cfg, args.opts)
-            cfg.SOLVER.IMS_PER_BATCH = B
-            cfg.DATALOADER.NUM_WORKERS = workers
-            _, records, records2, _, mapper = build_train_objects(cfg, args.data_root, device)
-            if args.max_records and len(records) > args.max_records:
-                records = records[:args.max_records]
-            t_build = time.perf_counter()
-            loader, to_device = build_input_pipeline(cfg, records, records2, mapper, seed=1,
-                                                     device=device)
-            loader_iter = iter(loader)
-            try:
-                batch = to_device(next(loader_iter))
-                build_s = time.perf_counter() - t_build
-                state, step = train_objects(cfg, device)
-                gen = torch.Generator(device=device).manual_seed(1)
-                # warm-up: PyTorch's kernels, and the loader's queue fills
-                _, m = step(state, batch, gen)
-                if not np.isfinite(float(m["total_loss"])):
-                    raise AssertionError("non-finite loss at the warm-up step")
-                batch = to_device(next(loader_iter))
-                data_times = []
-                t0 = time.perf_counter()
-                for _ in range(args.iters):
-                    _, m = step(state, batch, gen)
-                    # the next batch is fetched while the card runs the step,
-                    # as in do_train's loop
-                    td = time.perf_counter()
-                    batch = to_device(next(loader_iter))
-                    data_times.append(time.perf_counter() - td)
-                loss = float(m["total_loss"])  # waits for the last step
-                dt = (time.perf_counter() - t0) / args.iters
-            finally:
-                loader_iter.close()
-            rows.append(emit({
-                "metric": "sustained_train_rois_per_sec", "pipeline": "host", "batch": B,
-                "workers": workers, "value": round(B / dt, 1), "unit": "ROIs/s",
-                "ms_per_step": round(dt * 1e3, 1),
-                "data_ms_per_step": round(1e3 * sum(data_times) / len(data_times), 1),
-                "records": len(records), "build_s": round(build_s, 1),
-                "loss": round(loss, 4)}))
+    for pipeline in pipelines:
+        for B in [int(x) for x in args.batch_sizes.split(",")]:
+            for workers in [int(x) for x in args.workers.split(",")]:
+                rows.append(emit(loader_run(args, device, pipeline, B, workers)))
     return rows
+
+
+def loader_run(args, device: torch.device, pipeline: str, B: int, workers: int) -> dict:
+    cfg = Config(merge_dict(base_config().to_dict(), load_config(args.config_file).to_dict()))
+    if args.opts:
+        apply_opts(cfg, args.opts)
+    cfg.SOLVER.IMS_PER_BATCH = B
+    cfg.DATALOADER.NUM_WORKERS = workers
+    pipeline_config(cfg, pipeline)
+    cfg.TRAIN.POOL_CACHE = False  # every run maps its pool
+    _, records, records2, _, mapper = build_train_objects(cfg, args.data_root, device)
+    if args.max_records and len(records) > args.max_records:
+        records = records[:args.max_records]
+    t_build = time.perf_counter()
+    loader, to_device, refresher = build_input_pipeline(cfg, records, records2, mapper, seed=1,
+                                                        device=device)
+    loader_iter = iter(loader)
+    try:
+        batch = to_device(next(loader_iter), 0)
+        build_s = time.perf_counter() - t_build
+        state, step = train_objects(cfg, device)
+        gen = torch.Generator(device=device).manual_seed(1)
+        # warm-up: PyTorch's kernels, and the loader's queue fills
+        _, m = step(state, batch, gen)
+        if not np.isfinite(float(m["total_loss"])):
+            raise AssertionError("non-finite loss at the warm-up step")
+        batch = to_device(next(loader_iter), 1)
+        data_times = []
+        t0 = time.perf_counter()
+        for i in range(args.iters):
+            _, m = step(state, batch, gen)
+            # the next batch is fetched while the card runs the step, as in
+            # do_train's loop
+            td = time.perf_counter()
+            batch = to_device(next(loader_iter), i + 2)
+            data_times.append(time.perf_counter() - td)
+            if refresher is not None:
+                refresher.drain(max_chunks=1)
+        loss = float(m["total_loss"])  # waits for the last step
+        dt = (time.perf_counter() - t0) / args.iters
+    finally:
+        loader_iter.close()
+        if refresher is not None:
+            refresher.stop()
+    row = {"metric": "sustained_train_rois_per_sec", "pipeline": pipeline, "batch": B,
+           "workers": workers, "value": round(B / dt, 1), "unit": "ROIs/s",
+           "ms_per_step": round(dt * 1e3, 1),
+           "data_ms_per_step": round(1e3 * sum(data_times) / len(data_times), 1),
+           "records": len(records), "build_s": round(build_s, 1), "loss": round(loss, 4)}
+    if pipeline == "pool":
+        st = to_device.pool.stats
+        row.update(pool_rows=st["rows"], pool_mib=round(st["nbytes"] / 2 ** 20, 1),
+                   pool_map_s=round(st["map_s"], 2), pool_upload_s=round(st["upload_s"], 3),
+                   refreshed=refresher.refreshed)
+    return row
 
 
 def _nbytes(tree) -> int:
@@ -326,7 +349,8 @@ def parse_args(argv=None):
     p.add_argument("--with-loader", action="store_true")
     p.add_argument("--config-file", default="configs/gdrn/synth/a6_cPnP_synth.py")
     p.add_argument("--data-root", default="datasets/BOP_DATASETS")
-    p.add_argument("--pipeline", default="host", help="host (the only pipeline of the port)")
+    p.add_argument("--pipeline", default="host",
+                   help="comma list of host, device-prep, device-aug, pool (--with-loader)")
     p.add_argument("--workers", default="4", help="comma list of loader thread counts")
     p.add_argument("--max-records", type=int, default=0,
                    help="truncate the record list (0: all)")

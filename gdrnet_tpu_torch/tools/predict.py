@@ -49,7 +49,7 @@ from gdrnet_tpu_torch.data.mapper import GDRNTestMapper
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.engine.checkpoint import load_weights
 from gdrnet_tpu_torch.engine.pnp_refine import refine_bucket_poses
-from gdrnet_tpu_torch.engine.tester import _to_device, bucket_predictor, check_supported
+from gdrnet_tpu_torch.engine.tester import _to_device, bucket_predictor
 from gdrnet_tpu_torch.eval.bop_writer import save_bop_results
 from gdrnet_tpu_torch.models.gdrn import build_model
 from gdrnet_tpu_torch.tools import entry_device
@@ -91,7 +91,6 @@ def main(argv=None, device="cuda") -> list[dict]:
     cfg = Config(merge_dict(base_config().to_dict(), load_config(args.config_file).to_dict()))
     if args.opts:
         apply_opts(cfg, args.opts)
-    check_supported(cfg)
 
     meta = ref_meta.meta_by_name(args.dataset, args.data_root)
     models = ObjectModels(meta, num_pm_points=cfg.MODEL.CDPN.PNP_NET.NUM_PM_POINTS,

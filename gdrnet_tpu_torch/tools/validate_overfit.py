@@ -14,7 +14,10 @@ train steps on that one batch with the config of overfit_cfg; then do_test
 on the same records with their GT boxes. `--seed` varies the model's init
 and the train step's generator, the data stays fixed. The brick may
 converge to either branch of its declared symmetry: the symmetric PM loss
-permits both and the evaluator resolves them.
+permits both and the evaluator resolves them. `--device-preprocess` maps the
+records with GDRNRawTrainMapper instead and makes the batch on the device
+with data/device_pipeline.device_train_batch (DZI "none"), as the JAX
+tool's flag does.
 
 Prints a line every 200 steps, the train seconds, do_test's summary and one
 line `SWEEP {"seed", "images", "device_preprocess", "ad_10", "mean_re",
@@ -25,7 +28,7 @@ The split and do_test's files go to a temporary directory.
 
 Usage:
   python -m gdrnet_tpu_torch.tools.validate_overfit [--seed N] [--images 6] [--int8]
-      [--save-ckpt DIR] [--device cpu]
+      [--device-preprocess] [--save-ckpt DIR] [--device cpu]
 """
 
 from __future__ import annotations
@@ -44,7 +47,9 @@ import torch
 from gdrnet_tpu_torch.config import base_config
 from gdrnet_tpu_torch.data.bop import load_bop_scene_dicts
 from gdrnet_tpu_torch.data.io import read_png, write_png
-from gdrnet_tpu_torch.data.mapper import GDRNTrainMapper, collate
+from gdrnet_tpu_torch.data.device_augment import TorchKey
+from gdrnet_tpu_torch.data.device_pipeline import device_train_batch
+from gdrnet_tpu_torch.data.mapper import GDRNRawTrainMapper, GDRNTrainMapper, collate
 from gdrnet_tpu_torch.data.model_store import ObjectModels
 from gdrnet_tpu_torch.data.synthetic import synthetic_roi_batch, write_bop_split
 from gdrnet_tpu_torch.engine.checkpoint import CheckpointManager
@@ -140,14 +145,32 @@ def paint_like_fixture(records, height: int, width: int, seed: int = 0) -> None:
         write_png(path, np.ascontiguousarray(bgr[..., ::-1]))
 
 
-def map_split(cfg, meta, device) -> tuple[list, ObjectModels, dict]:
-    """(records, object models, the batch of every record mapped once by
-    GDRNTrainMapper with RandomState(i) for record i, on `device`)."""
+def map_split(cfg, meta, device, device_preprocess: bool = False
+              ) -> tuple[list, ObjectModels, dict]:
+    """(records, object models, the batch of every record mapped once with
+    RandomState(i) for record i, on `device`): by GDRNTrainMapper, or with
+    device_preprocess by GDRNRawTrainMapper and then
+    data/device_pipeline.device_train_batch on the device (DZI "none", the
+    generator seeded 3), as the JAX tool's --device-preprocess."""
     records = load_bop_scene_dicts(meta, "test", img_type="real")
     models = ObjectModels(meta, num_pm_points=256, num_fps=8)
-    mapper = GDRNTrainMapper(cfg, models, device=device)
+    device = torch.device(device)
+    mapper_cls = GDRNRawTrainMapper if device_preprocess else GDRNTrainMapper
+    mapper = mapper_cls(cfg, models, device=device)
     batch = collate([mapper(rec, np.random.RandomState(i)) for i, rec in enumerate(records)])
-    return records, models, {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    if device_preprocess:
+        stacks = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (
+            models.points_stack, models.extents_stack, models.fps_stack,
+            models.sym_rots_stack, models.sym_mask_stack)]
+        batch = device_train_batch(
+            TorchKey(torch.Generator(device=device).manual_seed(3)), batch, *stacks,
+            torch.tensor(cfg.MODEL.PIXEL_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(cfg.MODEL.PIXEL_STD, dtype=torch.float32, device=device),
+            input_res=cfg.MODEL.CDPN.BACKBONE.INPUT_RES,
+            out_res=cfg.MODEL.CDPN.BACKBONE.OUTPUT_RES, dzi_type="none",
+            pad_scale=cfg.INPUT.DZI_PAD_SCALE)
+    return records, models, batch
 
 
 def _sync(device: torch.device) -> None:
@@ -213,7 +236,7 @@ def parse_args(argv=None):
     p.add_argument("--int8", action="store_true", help="also score the int8 serving path")
     p.add_argument("--save-ckpt", default=None, help="write DIR/ckpt and DIR/config.py")
     p.add_argument("--device-preprocess", action="store_true",
-                   help="the JAX tool's device preprocessing pipeline; not ported")
+                   help="map raw frames and make the batch on the device (device_train_batch)")
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
     return p.parse_args(argv)
 
@@ -222,16 +245,13 @@ def main(argv=None, device="cuda") -> dict:
     """Runs the check and returns the SWEEP dict; `device` unless --device
     names one."""
     args = parse_args(argv)
-    if args.device_preprocess:
-        raise SystemExit(
-            "--device-preprocess: the device preprocessing pipeline belongs to the JAX "
-            "package's data/device_pipeline.py, which served the TPU's host link and is "
-            "\"Do not port\" in ROADMAP.md; the port maps on the host (run without it)")
     device = entry_device("validate_overfit", args.device or device)
     cfg = overfit_cfg()
     with tempfile.TemporaryDirectory(prefix="validate_overfit_") as work:
         meta = overfit_split(osp.join(work, "split"), args.images, device=device)
-        split = map_split(cfg, meta, device)
+        split = map_split(cfg, meta, device, args.device_preprocess)
+        if args.device_preprocess:
+            print("training through the device preprocessing pipeline", flush=True)
         run = run_seed(cfg, split, args.seed, osp.join(work, "out"), device,
                        echo=lambda line: print(line, flush=True))
         print(f"train time: {run['train_s']:.0f}s", flush=True)
@@ -241,7 +261,8 @@ def main(argv=None, device="cuda") -> dict:
         print(results["_summary"], flush=True)
         avg = results["Avg"]
         print("ad_10 avg:", avg["ad_10"], " re mean:", avg["mean_re"], flush=True)
-        sweep = {"seed": args.seed, "images": args.images, "device_preprocess": False,
+        sweep = {"seed": args.seed, "images": args.images,
+                 "device_preprocess": args.device_preprocess,
                  "ad_10": float(avg["ad_10"]), "mean_re": float(avg["mean_re"]),
                  "mean_te": float(avg["mean_te"])}
         print("SWEEP " + json.dumps(sweep), flush=True)

@@ -268,12 +268,25 @@ def test_bench_train_with_loader_runs_the_host_pipeline(loader_split):
 
 
 @pytest.mark.parametrize("pipeline", ["device-prep", "device-aug", "pool"])
-def test_bench_train_device_pipelines_exit_with_their_reason(loader_split, pipeline):
-    with pytest.raises(SystemExit) as exc:
-        bench_train.main(["--with-loader", "--config-file", loader_split[0],
-                          "--pipeline", pipeline, "--device", "cpu"])
-    msg = str(exc.value.code)
-    assert pipeline in msg and "Do not port" in msg and "device_pool.py" in msg
+def test_bench_train_device_pipelines_exit_with_their_reason(loader_split, pipeline, capsys):
+    """Each device pipeline runs at the tiny size and prints its JSON line:
+    the host pipeline's keys, and the pool's own for the pool."""
+    cfg_path, n_records = loader_split
+    (row,) = bench_train.main(["--with-loader", "--config-file", cfg_path, "--batch-sizes", "4",
+                               "--workers", "2", "--iters", "2", "--pipeline", pipeline,
+                               "--device", "cpu"])
+    keys = {"metric", "pipeline", "batch", "workers", "value", "unit", "ms_per_step",
+            "data_ms_per_step", "records", "build_s", "loss"}
+    if pipeline == "pool":
+        keys |= {"pool_rows", "pool_mib", "pool_map_s", "pool_upload_s", "refreshed"}
+        assert row["pool_rows"] == n_records and row["pool_mib"] > 0
+    assert set(row) == keys
+    assert row["metric"] == "sustained_train_rois_per_sec" and row["pipeline"] == pipeline
+    assert row["value"] > 0 and np.isfinite(row["loss"]) and row["records"] == n_records
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == row
+    with pytest.raises(SystemExit, match="one of host, device-prep, device-aug, pool"):
+        bench_train.main(["--with-loader", "--config-file", cfg_path, "--pipeline",
+                          "tunnel", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------

@@ -319,7 +319,8 @@ def test_port_imports_no_jax():
         "            'models.pvnet', 'ops.se3', 'ops.view_sampler', 'utils.bbox_utils',\n"
         "            'utils.mask_utils', 'data.dataset_params', 'tools.validate_overfit',\n"
         "            'tools.validate_scale', 'tools.scale_run', 'utils.vis', 'data.visualize',\n"
-        "            'data.font_simplex'):\n"
+        "            'data.font_simplex', 'data.device_augment', 'data.device_pipeline',\n"
+        "            'data.device_pool'):\n"
         "    assert 'gdrnet_tpu_torch.' + mod in names, names\n"
         "from gdrnet_tpu_torch import merged_config\n"
         f"merged_config({FLAGSHIP!r})\n"

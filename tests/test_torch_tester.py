@@ -23,7 +23,6 @@ relative only, and are not compared).
 
 import dataclasses
 import json
-import logging
 import os.path as osp
 import threading
 
@@ -546,15 +545,44 @@ def test_what_waits_raises_before_mapping(fix, weights, runs, setting, value, it
             assert got[name][k] == want[name][k], (name, k)
 
 
-def test_device_preprocess_warns_and_scores(fix, weights, monkeypatch, caplog):
-    cfg = _cfg(fix)
-    cfg.TEST.DEVICE_PREPROCESS = True
-    _patch_predictors(monkeypatch, StubPoses(fix, fix["pmodels"], "est"))
-    with caplog.at_level(logging.WARNING, logger="gdrnet_tpu_torch"):
-        got = do_test(cfg, _port_model(cfg, weights[2]), fix["pmodels"], fix["precs"],
-                      device="cpu")
-    warned = [r.message for r in caplog.records if "DEVICE_PREPROCESS" in r.message]
-    assert len(warned) == 1 and 0.0 < got["Avg"]["re_5"] < 1.0
+def test_device_preprocess_warns_and_scores(fix, weights, monkeypatch):
+    """TEST.DEVICE_PREPROCESS maps every bucket with GDRNDeviceTestMapper
+    (the crops warped on the device) and scores as the host mapper's run:
+    equal recalls under the stub predictor, and crops within JAX's own
+    bound of the host's (tests/test_device_pipeline.py:212-216)."""
+    from gdrnet_tpu_torch.data.mapper import GDRNDeviceTestMapper
+
+    stub = StubPoses(fix, fix["pmodels"], "est")
+    crops = {True: [], False: []}
+    mode = {"device": False}
+
+    def port_make(*args, **kwargs):
+        def predict(batch):
+            crops[mode["device"]].append(batch["roi_img"].numpy().copy())
+            return {k: torch.from_numpy(v) for k, v in zip(("rot", "trans"), stub(batch))}
+        return predict
+
+    monkeypatch.setattr(tester, "make_predict_step", port_make)
+    mapped = []
+    plain = GDRNDeviceTestMapper.map_flat
+    monkeypatch.setattr(GDRNDeviceTestMapper, "map_flat",
+                        lambda self, entries: mapped.append(len(entries)) or plain(self, entries))
+    runs = {}
+    for device_prep in (False, True):
+        cfg = _cfg(fix)
+        cfg.TEST.DEVICE_PREPROCESS = device_prep
+        mode["device"] = device_prep
+        runs[device_prep] = do_test(cfg, _port_model(cfg, weights[2]), fix["pmodels"],
+                                    fix["precs"], device="cpu")
+    assert len(mapped) == len(crops[True]) == len(crops[False]) > 0  # every bucket
+    for name, row in runs[False].items():
+        if not name.startswith("_"):
+            for k in RECALL_KEYS:
+                assert runs[True][name][k] == row[k], (name, k)
+    assert 0.0 < runs[True]["Avg"]["re_5"] < 1.0
+    diff = np.concatenate([np.abs(a[:n] - b[:n])  # the rows that hold a detection
+                           for a, b, n in zip(crops[True], crops[False], mapped)])
+    assert np.quantile(diff, 0.99) < 2e-2 and diff.mean() < 5e-3
 
 
 def test_a_mapper_error_is_raised_and_the_thread_stops(fix, weights, monkeypatch):

@@ -18,6 +18,7 @@ import io
 import json
 import os.path as osp
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,6 +35,16 @@ from gdrnet_tpu_torch.tools import bench, gen_scale_dataset, validate_overfit, v
 from torch_parity import FLAGSHIP
 
 OVERFIT_SWEEP_KEYS = {"seed", "images", "device_preprocess", "ad_10", "mean_re", "mean_te"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests gain nothing from intra-op threads, and under pytest-xdist
+    each worker's threads would compete for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 SCALE_SWEEP_KEYS = {"seed", "train_images", "test_images", "epochs", "train_secs", "ad_10",
                     "mean_re", "mean_te"}
 
@@ -122,9 +133,19 @@ def test_save_ckpt_round_trips_through_bench_auto_detection(overfit_run, monkeyp
         torch.testing.assert_close(v, saved[k], rtol=0, atol=0, msg=k)
 
 
-def test_device_preprocess_exits_naming_it():
-    with pytest.raises(SystemExit, match="device preprocessing pipeline.*Do not port"):
-        validate_overfit.main(["--device-preprocess"], device="cpu")
+def test_device_preprocess_exits_naming_it(tmp_path, monkeypatch):
+    """--device-preprocess: the raw frames mapped by GDRNRawTrainMapper and
+    the batch made by device_train_batch (DZI "none"), one image, 2 steps;
+    the SWEEP line says device_preprocess true."""
+    monkeypatch.setattr(validate_overfit, "TOTAL", 2)
+    monkeypatch.chdir(tmp_path)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        sweep = validate_overfit.main(["--images", "1", "--device-preprocess"], device="cpu")
+    stdout = out.getvalue()
+    assert "training through the device preprocessing pipeline" in stdout
+    assert _sweep(stdout) == sweep and sweep["device_preprocess"] is True
+    assert all(np.isfinite(sweep[k]) for k in ("ad_10", "mean_re", "mean_te"))
 
 
 # ---------------------------------------------------------------------------

@@ -142,6 +142,30 @@ def do_train(cfg: dict, dataset: str, meta, records: list, iters: int) -> dict:
     return {"step": state.step, "preempted": preempted}
 
 
+def pool_block(cfg: dict, meta, records: list, seed: int) -> dict:
+    """data/device_pool.DevicePool on the CPU as this rank builds it: its
+    slot range, its records' frames, its rows' images, the sampler's first
+    global index batch of 4 and the rows of this rank's block of it."""
+    from gdrnet_tpu_torch.config.config import Config
+    from gdrnet_tpu_torch.data import ObjectModels
+    from gdrnet_tpu_torch.data.device_pool import DevicePool, pool_index_sampler
+    from gdrnet_tpu_torch.data.mapper import GDRNTrainMapper
+
+    cfg = Config(cfg)
+    models = ObjectModels(meta, num_pm_points=cfg.MODEL.CDPN.PNP_NET.NUM_PM_POINTS,
+                          num_fps=cfg.MODEL.CDPN.ROT_HEAD.NUM_REGIONS)
+    np.random.seed(2)  # the mapper draws its blur when it is built
+    pool = DevicePool(cfg, [dict(r) for r in records], GDRNTrainMapper(cfg, models, device="cpu"),
+                      models, device="cpu", seed=seed)
+    idx = next(pool_index_sampler(pool, 4, seed))
+    r = mh.data_rank()
+    batch = pool.make_batch(idx[2 * r:2 * r + 2])
+    return {"start": pool.start, "stop": pool.stop,
+            "paths": [pool.records[i]["rgb_path"] for i in range(pool.start, pool.stop)],
+            "img_u8": pool.pool["img_u8"].numpy(), "idx_all": idx.tolist(),
+            "idx_block": idx[2 * r:2 * r + 2].tolist(), "batch_rows": batch["roi_img"].shape[0]}
+
+
 def do_test(cfg: dict, meta, records: list, weights: str, output_dir: str,
             num_pm_points: int, num_fps: int) -> dict:
     """engine/tester.do_test on the CPU, sharded over the ranks."""
