@@ -27,7 +27,10 @@ CPU, the host cost of each, a short do_train with the default type, and
 P3P and se3 on a machine without cv2). Last, the rendering slice: the
 z-buffer kernel with the 12 per-pose attribute channels of the Phong + XYZ pass, the renders on the card against
 the CPU, and the flagship's synth dataset written by the port's generator
-(python -m gdrnet_tpu_torch.tools.gen_scale_dataset) as a user runs it.
+(python -m gdrnet_tpu_torch.tools.gen_scale_dataset) as a user runs it,
+then its region anchors written again by the compute_fps CLI ([fps]: the
+device FPS of ops/fps.py on the card, the C++ twin csrc/fps.cpp on the
+host).
 Then serving from images as a user of a trained model runs it: BN folded
 into the convs (utils/fold_bn.py) and int8 (models/quantize.py: im2col and
 torch._int_mm), the predict CLI over the split's images and detections, the
@@ -110,7 +113,13 @@ shapes beside its bounds), [render_phong_xyz] (render_phong_xyz_roi_many,
 Renderer and SceneRenderer on the card against the CPU), [gen_dataset]
 (the generator's CLI on the card: wall s, images/s, its time by stage, B2's
 launches a chunk; the split resolves, maps from its pickles without a
-render, and agrees with the same scene written on the CPU); serving from
+render, and agrees with the same scene written on the CPU), [fps] (the
+device FPS and the C++ twin index for index equal to numpy's FPS on the
+generator's 10 meshes, a lattice, a cylinder and 100,000 random points, no
+host sync in the device loop, the twin built with -march=native equal
+too; the compute_fps CLI with --device cuda and cpu writing the
+generator's fps_points.pkl bit for bit; the device FPS's ms at 100,000 x
+256 beside the twin's and numpy's host ms, each CLI run's wall s); serving from
 images: [fold_bn] (folded f32 forward against unfolded, bf16 crops/s
 folded beside unfolded), [int8] (calibration, every layer's int32
 accumulators against the plain version, int8 against bf16, crops/s of int8
@@ -160,7 +169,8 @@ model and iteration only, the same poses bit for bit), [pvnet] (card
 against CPU within 1e-3 of the scale, ms at B=64); last, what
 torch.profiler measures (rasterize_xyz's launches per call and its
 kernels' device time, the device time of a BOP scoring call, the train
-step's busy share, top device operations and Ranger's launches), so that no
+step's busy share, top device operations and Ranger's launches, the
+device FPS's launches and busy ms), so that no
 host-bound phase is timed after a profiler session. Any failure raises; the exit code is then non-zero and the result
 line is not printed. The last line is
 {"ok": true, "device": {...}}; the line before it holds the kernels'
@@ -173,6 +183,7 @@ It needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and scipy.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import importlib
 import io
 import json
@@ -217,10 +228,12 @@ from gdrnet_tpu_torch.data.mapper import (
     collate,
 )
 from gdrnet_tpu_torch.data.model_store import ObjectModels
-from gdrnet_tpu_torch.data.ply import save_ply
+from gdrnet_tpu_torch.data.ply import load_ply, save_ply
 from gdrnet_tpu_torch.data.scene_renderer import SceneRenderer
 from gdrnet_tpu_torch.data.synthetic import (
+    cylinder_cloud,
     edge_on_poses,
+    lattice_cloud,
     poses_near,
     sliver_mesh,
     synthetic_decoded_maps,
@@ -246,6 +259,7 @@ from gdrnet_tpu_torch.models.gdrn import build_model, init_weights
 from gdrnet_tpu_torch.models.pvnet import PVNet
 from gdrnet_tpu_torch.solver.optimizers import OPTIMIZER_NAMES
 from gdrnet_tpu_torch.ops import device_pnp, kernels, se3
+from gdrnet_tpu_torch.ops import fps as fps_ops
 from gdrnet_tpu_torch.ops.rasterizer import render_phong_xyz_roi_many, vertex_normals
 from gdrnet_tpu_torch.ops.symmetry import get_closest_rot_batch, identity_padded_sym_arrays
 from gdrnet_tpu_torch.parallel import multihost as mh
@@ -253,6 +267,7 @@ from gdrnet_tpu_torch.tools import bench as bench_tool
 from gdrnet_tpu_torch.tools import bench_pnp
 from gdrnet_tpu_torch.tools import bench_train as bench_train_tool
 from gdrnet_tpu_torch.tools import export_model as export_tool
+from gdrnet_tpu_torch.tools import compute_fps as compute_fps_tool
 from gdrnet_tpu_torch.tools.compute_fps import compute_fps_dict
 from gdrnet_tpu_torch.tools import gen_xyz as gen_xyz_tool
 from gdrnet_tpu_torch.tools import predict as predict_tool
@@ -312,7 +327,7 @@ TRAIN_GRAD_TENSOR_REL, TRAIN_GRAD_ALL_REL = 0.15, 0.08
 # mapped on the card against the CPU
 LOOP_SCENES, LOOP_IMAGES, LOOP_PER_IMAGE = 4, 16, 8
 LOOP_SAVE, LOOP_ITERS, LOOP_WORKERS = 6, 12, 4
-LOOP_LOADER_BATCHES, LOOP_MAPPED = 4, 16
+LOOP_LOADER_BATCHES, LOOP_MAPPED = 2, 16
 # [pool_parity]: POOL_PARITY_ROWS records of the loop split into a pool on the
 # card (seed POOL_SEED) against the mapper, and its decode against the CPU's
 # within POOL_CPU_ATOL; device_train_batch over POOL_RAW_RECORDS raw frames
@@ -347,10 +362,20 @@ SCALE_RUN_STAGES = ["dataset", "insurance", "train", "eval_int8", "eval_dpnp", "
 # train mapper over GEN_MAPPED records, GEN_CPU_IMAGES compared with the CPU
 RENDER_ATTR_CHANNELS = 12
 RENDER_ATTR_TIMED = {"32x128x128x12/tower_448": ((0.5, 0.9), 128, 5),
-                     "32x512x512x12/tower_448": ((0.15, 0.22), 512, 2)}
+                     "32x512x512x12/tower_448": ((0.15, 0.22), 512, 1)}
 RENDER_FLIP_SHARE = 0.01
 GEN_TRAIN, GEN_TEST, GEN_PER_SCENE, GEN_MAPPED, GEN_CPU_IMAGES = 32, 16, 16, 16, 4
 GEN_TIMEOUT_S = 300
+# farthest point sampling ([fps]): the device FPS and the C++ twin against
+# numpy, index for index, on [gen_dataset]'s 10 meshes at every K of
+# FPS_COUNTS up to n, on an FPS_LATTICE^3 lattice and an FPS_CYLINDER
+# cylinder (exact ties) at FPS_TIE_K from each of FPS_STARTS
+# ((init_center, start_idx)), and on FPS_BIG seeded random points at
+# FPS_BIG_K; the device FPS there timed FPS_TIMED times after one warm-up,
+# and profiled over FPS_PROFILED steps in the last phase
+FPS_LATTICE, FPS_CYLINDER, FPS_TIE_K = 17, (96, 40), 256
+FPS_STARTS = ((True, 0), (False, 0), (False, 7))
+FPS_BIG, FPS_BIG_K, FPS_TIMED, FPS_PROFILED = 100_000, 256, 3, 32
 # serving from images: the folded f32 forward against the unfolded one on the
 # card within FOLD_POSE_ATOL (tests/test_fold_bn.py); the int8 forward against
 # bf16 within INT8_VS_BF16_DEG and INT8_VS_BF16_TRANS_REL
@@ -432,7 +457,7 @@ VARIANTS = {
     "BACKBONE.FREEZE": ["MODEL.CDPN.BACKBONE.FREEZE=True"],
 }
 VARIANT_F32_CROPS, VARIANT_BATCH, VARIANT_STEPS, VARIANT_SERVE = 4, 32, 5, (64, 1024)
-VARIANT_TIMED = 3
+VARIANT_TIMED = 2
 # the variants that B=1024 does not fit: PointPnPNet's [B, 64, 4096, 128] region
 # product (68.7 GB in bf16), and ROT_CONCAT's last upsample, [B, 320, 128, 128],
 # over the INT_MAX elements that PyTorch's NHWC bilinear upsample takes
@@ -489,7 +514,7 @@ PNP_TEST_RUNS = ((True, "ransac_pnp"), (False, "net_iter_pnp"))
 # [pvnet] PVNet-34 at PVNET_RES^2 in f32, PVNET_CPU_CROPS crops on the card
 # against the CPU within PVNET_REL of the outputs' scale, then its ms at
 # PVNET_BATCH
-BENCH_ITERS, BT_BATCH, BT_WORKERS, BT_LOADER_ITERS, BT_STEP_ITERS = 10, 128, 4, 3, 6
+BENCH_ITERS, BT_BATCH, BT_WORKERS, BT_LOADER_ITERS, BT_STEP_ITERS = 5, 128, 4, 2, 6
 # the loader leg's pipelines; the pool's fill cut to BT_POOL_RECORDS records
 BT_PIPELINES, BT_POOL_RECORDS = ("host", "pool", "device-prep", "device-aug"), 256
 # [export]: both artifacts (bf16 and int8) bit for bit the eager forward's
@@ -581,9 +606,9 @@ def to_device(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def phase_build(names=("nn_min_dist", "rasterize_xyz", "jpeg_codec")) -> None:
+def phase_build(names=("nn_min_dist", "rasterize_xyz", "jpeg_codec", "fps")) -> None:
     """Build every kernel from the checkout's sources, one nvcc each, and the
-    host JPEG codec with g++, all started together."""
+    host JPEG codec and FPS twin with g++, all started together."""
     def one(name):
         t0 = time.perf_counter()
         path = csrc.build(name)
@@ -978,14 +1003,16 @@ def phase_bop_score(cfg, split, R, t, root: str) -> tuple[int, list]:
     return served_launches, scored
 
 
-def phase_profile(cfg, split, scored: list, timed: list, train: tuple, serving: dict) -> None:
+def phase_profile(cfg, split, scored: list, timed: list, train: tuple, serving: dict,
+                  fps_cloud: torch.Tensor) -> None:
     """The measurements that need torch.profiler, made last, so that no
     host-bound phase is timed after a profiler session (whether a session
     slows later launches is measured by scripts/probe_torch_zbuffer.py):
     rasterize_xyz's launches and its kernels' device ms per call at the
     timed shapes, then the device ms of one warm score_results call of each
     CSV, all of it and each kernel's share, the train step's profile, and
-    each serving variant's (bf16, folded, int8, int8 + folded)."""
+    each serving variant's (bf16, folded, int8, int8 + folded), and the
+    device FPS's launches and busy time."""
     check_raster_launches(timed[0][1], timed[0][2])
     for label, args, hw in timed:
         device = profiled_device_ms(lambda: kernels.rasterize_xyz(*args, hw, hw), 20,
@@ -1006,6 +1033,7 @@ def phase_profile(cfg, split, scored: list, timed: list, train: tuple, serving: 
                 "nn_min_dist_ms": f"{prof['nn_min_dist_kernel']:.3f}"}))
     profile_train(*train)
     profile_serving(serving, cfg)
+    profile_fps(fps_cloud)
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1265,7 +1293,7 @@ def profile_serving(predicts: dict, cfg) -> None:
     the host-clock window and the device's busy ms a call, its device ops a
     call; for int8 also its top device operations, where its time goes."""
     for bs, batch in serve_batches(cfg).items():
-        n = 5 if bs <= 64 else 2
+        n = 5 if bs <= 64 else 1
         for name, predict in predicts.items():
             got = profiled_window(lambda: predict(batch), n)
             if got is None:
@@ -2589,17 +2617,187 @@ def phase_gen_dataset(gsd, root: str, card: str) -> int:
     return launches
 
 
+def fps_native_builds(out_dir: Path) -> dict:
+    """csrc/fps.cpp built with the JAX package's flags for its C++ FPS (g++
+    -O3 -march=native; its -fopenmp is left out, the port's source has no
+    OpenMP) for this host's CPU: "native" as the source stands,
+    "contracted" with its fp-contract pragma taken out, so that g++ may fuse
+    the distance's multiply-adds. {label: library}."""
+    src = (REPO / "gdrnet_tpu_torch/csrc/fps.cpp").read_text()
+    head, rest = src.split("#if defined(__clang__)", 1)
+    sources = {"native": src, "contracted": head + rest.split("#endif", 1)[1]}
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def one(label):
+        cpp, lib = out_dir / f"fps_{label}.cpp", out_dir / f"libfps_{label}.so"
+        cpp.write_text(sources[label])
+        proc = subprocess.run([csrc.find_gxx(), "-O3", "-march=native", "-shared", "-fPIC",
+                               "-o", str(lib), str(cpp)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"fps {label} build: {proc.stderr[-2000:]}")
+        return label, fps_ops.declare(ctypes.CDLL(str(lib)))
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        return dict(pool.map(one, sources))
+
+
+def fps_pkl_differences(got: dict, want: dict) -> list:
+    """The (object, key) pairs where two fps_points.pkl dicts differ in keys,
+    dtype or bits."""
+    if list(got) != list(want):
+        return [("objects", sorted(set(got) ^ set(want)))]
+    bad = []
+    for obj, entry in want.items():
+        if list(got[obj]) != list(entry):
+            bad.append((obj, "keys"))
+            continue
+        bad += [(obj, key) for key, arr in entry.items()
+                if got[obj][key].dtype != arr.dtype or not np.array_equal(got[obj][key], arr)]
+    return bad
+
+
+def phase_fps(root: str, card: str):
+    """Farthest point sampling as a user runs it on [gen_dataset]'s models
+    directory. Gates: the device FPS on the card (ops/fps.
+    farthest_point_sampling_idx) and the C++ twin (csrc/fps.cpp) give
+    farthest_point_sampling_np's indices on every cloud: the 10 meshes at
+    every K of FPS_COUNTS up to n, the lattice and the cylinder (exact ties)
+    from each of FPS_STARTS, FPS_BIG random points; the device FPS makes no
+    host sync (torch.cuda sync debug mode "error"); the twin built for this
+    host with -O3 -march=native equals numpy too (the picks of a
+    build whose distance g++ may contract into FMAs are counted, not gated);
+    the compute_fps CLI's main in this process, --device cuda and then
+    --device cpu, writes fps_points.pkl bit for bit as the generator wrote
+    it. Times: the device FPS at FPS_BIG x FPS_BIG_K (CUDA events and host
+    clock, median of FPS_TIMED after one warm-up), the twin on the host
+    (median of FPS_TIMED), numpy (the gate's one run), each CLI run's wall
+    s. Returns the FPS_BIG cloud on the card, for [fps_device]'s profile in
+    the last phase."""
+    mdir = Path(root) / "gen" / "synth_smoke" / "models"
+    with open(mdir / "models_info.json") as f:
+        ids = sorted(int(k) for k in json.load(f))
+    clouds = {f"obj_{i}": load_ply(str(mdir / f"obj_{i:06d}.ply"), vertex_scale=0.001)["pts"]
+              for i in ids}
+    cases = [(name, pts, k, True, 0) for name, pts in clouds.items()
+             for k in compute_fps_tool.FPS_COUNTS if k <= len(pts)]
+    ties = {"lattice": lattice_cloud(FPS_LATTICE), "cylinder": cylinder_cloud(*FPS_CYLINDER)}
+    cases += [(name, pts, FPS_TIE_K, ic, s) for name, pts in ties.items() for ic, s in FPS_STARTS]
+    big = np.random.RandomState(19).randn(FPS_BIG, 3).astype(np.float32)
+    cases.append(("random", big, FPS_BIG_K, True, 0))
+    native = fps_native_builds(Path(root) / "fps_native")
+    contracted: dict = defaultdict(int)
+    picks = 0
+    for name, pts, k, ic, s in cases:
+        t0 = time.perf_counter()
+        want = fps_ops.farthest_point_sampling_np_idx(pts, k, ic, s)
+        if name == "random":
+            numpy_ms = (time.perf_counter() - t0) * 1e3
+        got = {"card": fps_ops.farthest_point_sampling_idx(
+                   torch.from_numpy(pts).to(DEV), k, ic, s).cpu().numpy(),
+               "cpp": fps_ops.farthest_point_sampling_cpp_idx(pts, k, ic, s),
+               "cpp_march_native": fps_ops.fps_sample(native["native"], pts, k, ic, s)}
+        bad = {label: int((idx != want).sum()) for label, idx in got.items()
+               if not np.array_equal(idx, want)}
+        if bad:
+            raise AssertionError(f"fps {name} k={k} init_center={ic} start_idx={s}: picks "
+                                 f"differing from numpy {bad}")
+        group = name if not name.startswith("obj_") else "meshes"
+        contracted[group] += int((fps_ops.fps_sample(native["contracted"], pts, k, ic, s)
+                                  != want).sum())
+        picks += k
+    sizes = [len(pts) for pts in clouds.values()]
+    log("fps", card=repr(card), meshes=len(clouds), mesh_vertices=f"{min(sizes)}-{max(sizes)}",
+        mesh_cases=sum(1 for c in cases if c[0].startswith("obj_")),
+        tie_clouds=f"lattice {FPS_LATTICE}^3 and cylinder {FPS_CYLINDER[0]}x"
+                   f"{FPS_CYLINDER[1]} at K={FPS_TIE_K} from {len(FPS_STARTS)} starts",
+        big=f"{FPS_BIG}x{FPS_BIG_K}", picks=picks,
+        card_cpp_native_vs_numpy="equal at every pick",
+        contracted_build_picks_differing=json.dumps(dict(contracted)).replace(" ", ""),
+        check="ok")
+
+    on_card = torch.from_numpy(ties["lattice"]).to(DEV)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fps_ops.farthest_point_sampling_idx(on_card, FPS_TIE_K)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    big_card = torch.from_numpy(big).to(DEV)
+
+    def run():
+        return fps_ops.farthest_point_sampling_idx(big_card, FPS_BIG_K)
+
+    device_ms = cuda_times(run, FPS_TIMED, warmup=1)
+    wall_ms = host_times(run, FPS_TIMED, warmup=0)
+    cpp_ms = host_times(lambda: fps_ops.farthest_point_sampling_cpp_idx(big, FPS_BIG_K),
+                        FPS_TIMED, warmup=1)
+    # each step reads the cloud (12 B a point) and reads and writes min_d (8 B)
+    bytes_ms = FPS_BIG_K * FPS_BIG * 20 / HBM_BYTES_PER_S * 1e3
+    log("fps_time", card=repr(card), shape=f"{FPS_BIG}x{FPS_BIG_K}",
+        device_ms_median=f"{np.median(device_ms):.3f}",
+        device_ms=",".join(f"{m:.3f}" for m in device_ms),
+        wall_ms_median=f"{np.median(wall_ms):.3f}", bytes_bound_ms=f"{bytes_ms:.4f}",
+        cpp_host_ms_median=f"{np.median(cpp_ms):.3f}", numpy_host_ms=f"{numpy_ms:.3f}",
+        cpp_vs_numpy=f"{numpy_ms / np.median(cpp_ms):.2f}x")
+
+    want = pickle.loads((mdir / "fps_points.pkl").read_bytes())
+    walls = {}
+    for device in (DEV, "cpu"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            out = compute_fps_tool.main(["--models-dir", str(mdir), "--device", device])
+        walls[device] = time.perf_counter() - t0
+        bad = fps_pkl_differences(pickle.loads(Path(out).read_bytes()), want)
+        lines = printed.getvalue().splitlines()
+        if bad or len(lines) != len(ids) + 1 or lines[-1] != f"saved {out}":
+            raise AssertionError(f"compute_fps --device {device}: differs from the "
+                                 f"generator's file at {bad[:5]}; printed {lines[-2:]}")
+    log("fps_cli", card=repr(card), objects=len(ids),
+        keys=sum(len(e) for e in want.values()),
+        **{f"wall_s_{d}": f"{w:.3f}" for d, w in walls.items()},
+        vs="the generator's fps_points.pkl", rule="bit for bit", check="ok")
+    return big_card
+
+
+def profile_fps(big: torch.Tensor) -> None:
+    """The device FPS's launches and device busy ms a step over FPS_PROFILED
+    steps on the FPS_BIG cloud, beside the call's host-clock ms
+    (torch.profiler; a profile of the timed call's 256 steps took 7-16 s
+    to read back)."""
+    def run():
+        return fps_ops.farthest_point_sampling_idx(big, FPS_PROFILED)
+
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = device_spans(prof)
+    if not spans:
+        log("fps_device", device_ms="not measured")
+        return
+    busy = sum(end - start for _, start, end in spans) / 1e3
+    log("fps_device", shape=f"{len(big)}x{FPS_PROFILED}", launches=len(spans),
+        launches_per_step=f"{len(spans) / FPS_PROFILED:.2f}", busy_ms=f"{busy:.3f}",
+        busy_ms_per_step=f"{busy / FPS_PROFILED:.4f}", wall_ms_profiled=f"{wall:.3f}",
+        busy_share=f"{busy / wall:.3f}")
+
+
 def serve_times(models: dict, batches: dict) -> dict:
     """{(name, batch size): crops/s} of each predict step in `models` over
     `batches`, by CUDA events, in turns (each once forward, then once
     backward, SERVE_ITERS[bs] calls a turn) so that a drift of the card's
-    clock hits them alike; medians over both turns."""
+    clock hits them alike; one warm-up call a turn); medians over both
+    turns."""
     out = {}
     for bs, batch in batches.items():
         ms = defaultdict(list)
         for order in (list(models), list(models)[::-1]):
             for name in order:
-                ms[name].append(cuda_times(lambda: models[name](batch), SERVE_ITERS[bs]))
+                ms[name].append(cuda_times(lambda: models[name](batch), SERVE_ITERS[bs], 1))
         for name in models:
             out[name, bs] = bs / float(np.median(np.concatenate(ms[name]))) * 1e3
     return out
@@ -4616,6 +4814,7 @@ def main() -> int:
         phase_render_attr(gsd)
         phase_render_phong_xyz(gsd)
         gen_launches = phase_gen_dataset(gsd, root, card)
+        fps_cloud = phase_fps(root, card)
         phase_fold_bn(cfg, cfg32, ckpt, requests[0])
         serving = phase_int8(cfg, ckpt, requests[0], overfit)
         predicted = phase_predict(cfg, split, dets, ckpt, root)
@@ -4630,7 +4829,7 @@ def main() -> int:
         phase_export(ckpt, root, card)
         phase_strip_ckpt(ckpt, root, requests[0])
         phase_pvnet(card)
-        phase_profile(cfg, split, scored, raster_timed, train, serving)
+        phase_profile(cfg, split, scored, raster_timed, train, serving, fps_cloud)
     test_launches = tested[2]
 
     print(json.dumps({"kernels": [

@@ -1,5 +1,5 @@
-"""Builds the hand-written CUDA kernels and the host codec, and loads them
-with ctypes.
+"""Builds the hand-written CUDA kernels and the host code (the JPEG codec,
+farthest point sampling), and loads them with ctypes.
 
 Each `<name>.cu` or `<name>.cpp` in this directory has a plain C interface.
 At first use a `.cu` is compiled with nvcc for Hopper (sm_90a), a `.cpp`
@@ -48,7 +48,7 @@ def find_gxx() -> str:
     found = shutil.which(os.environ.get("CXX") or "g++")
     if found:
         return found
-    raise RuntimeError("g++ not found on PATH: the host codec of gdrnet_tpu_torch "
+    raise RuntimeError("g++ not found on PATH: the host code of gdrnet_tpu_torch "
                        "(csrc/*.cpp) needs a C++17 compiler to build")
 
 

@@ -94,7 +94,7 @@ class DatasetMeta:
 
     def fps_points(self) -> dict:
         """fps_points.pkl keyed by str(obj_id) (ref lm_full.py:117);
-        regenerate with tools/compute_fps.py."""
+        regenerate with python -m gdrnet_tpu_torch.tools.compute_fps."""
         with open(osp.join(self.model_dir, "fps_points.pkl"), "rb") as f:
             return pickle.load(f)
 

@@ -290,6 +290,27 @@ def sliver_mesh(K: np.ndarray, n: int = 150, seed: int = 0) -> tuple[np.ndarray,
     return np.concatenate(vs).astype(np.float32), np.array(fs, np.int32)
 
 
+def lattice_cloud(m: int, step: float = 0.01) -> np.ndarray:
+    """An m x m x m grid of float32 points about the origin, [m**3, 3]: the
+    farthest point sampler's distances tie exactly, point after point."""
+    g = (np.arange(m) - (m - 1) / 2) * step
+    return np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3).astype(np.float32)
+
+
+def cylinder_cloud(n_around: int = 96, n_high: int = 40, radius: float = 0.05,
+                   step: float = 0.01) -> np.ndarray:
+    """n_high rings of n_around float32 points, [n_around * n_high, 3]; each
+    ring is one quadrant turned by 90 degrees three times (exact in floats),
+    the rings symmetric about z = 0, so the sampler's distances tie exactly.
+    n_around is a multiple of 4."""
+    a = np.arange(n_around // 4) * (2 * np.pi / n_around)
+    c, s = (radius * np.cos(a)).astype(np.float32), (radius * np.sin(a)).astype(np.float32)
+    ring = np.concatenate([np.stack(q, -1) for q in ((c, s), (-s, c), (-c, -s), (s, -c))])
+    z = ((np.arange(n_high) - (n_high - 1) / 2) * step).astype(np.float32)
+    return np.concatenate([np.concatenate([ring, np.full((len(ring), 1), h, np.float32)], 1)
+                           for h in z])
+
+
 # ---------------------------------------------------------------------------
 # BOP-layout split (port only): the scoring and training fixture of chip_smoke.py
 # ---------------------------------------------------------------------------

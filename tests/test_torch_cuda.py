@@ -7,7 +7,8 @@ program (ops/device_pnp.py, batched torch, no kernel of its own) on the
 card against the CPU; and parallel/sync_bn.SyncBatchNorm2d in two gloo
 ranks on the one card against nn.BatchNorm2d in one process (plain
 PyTorch, no kernel of its own), and the multichip dry run's ranks on the
-card.
+card; and the device FPS (ops/fps.py, plain PyTorch) on the card against
+numpy's FPS on clouds with exact ties.
 
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
 without one. This file imports no JAX, so it also runs where JAX is not
@@ -28,8 +29,14 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from gdrnet_tpu_torch.data.synthetic import edge_on_poses, sliver_mesh, synthetic_decoded_maps
-from gdrnet_tpu_torch.ops import device_pnp, kernels
+from gdrnet_tpu_torch.data.synthetic import (
+    cylinder_cloud,
+    edge_on_poses,
+    lattice_cloud,
+    sliver_mesh,
+    synthetic_decoded_maps,
+)
+from gdrnet_tpu_torch.ops import device_pnp, fps, kernels
 from gdrnet_tpu_torch.ops.kernels import (
     nn_min_dist,
     nn_min_dist_ref,
@@ -877,3 +884,22 @@ def test_pvnet_on_the_card_equals_the_cpu(cuda_device):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cloud", ["lattice_17", "cylinder_96x40"])
+def test_device_fps_on_the_card_equals_numpy(cuda_device, cloud):
+    """Index for index at K=256 from each start, with no host sync in the
+    loop (sync debug mode "error" raises on one)."""
+    pts = lattice_cloud(17) if cloud == "lattice_17" else cylinder_cloud(96, 40)
+    on_card = torch.from_numpy(pts).to(cuda_device)
+    for init_center, start_idx in ((True, 0), (False, 0), (False, 7)):
+        want = fps.farthest_point_sampling_np_idx(pts, 256, init_center, start_idx)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fps.farthest_point_sampling_idx(on_card, 256, init_center, start_idx)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert got.device.type == "cuda" and got.dtype == torch.int64
+        np.testing.assert_array_equal(got.cpu().numpy(), want)

@@ -253,6 +253,14 @@ def _entry_point_call(entry: str, split: dict, tmp_path):
         return main(["tinysplit_vis", "--mapped", "--save-dir", str(tmp_path)])
     if entry in ("cus", "cou_bb_proj"):
         return getattr(vsd, entry)(R, t, R, t, K, v, f, 120, 160)
+    if entry == "compute_fps.main":
+        from gdrnet_tpu_torch.tools import compute_fps
+
+        return compute_fps.main(["--models-dir", split["models"].meta.model_dir])
+    if entry == "farthest_point_sampling_idx":
+        from gdrnet_tpu_torch.ops.fps import farthest_point_sampling_idx
+
+        return farthest_point_sampling_idx(v, 8)
     data = ["--dataset", split["models"].meta.name,
             "--data-root", str(Path(split["root"]).parent)]
     if entry == "predict.main":
@@ -280,7 +288,7 @@ ENTRY_POINTS = ["build_model", "CustomEvaluator", "_vsd_errors_by_obj", "score_r
                 "render_depth", "render_xyz_roi", "render_xyz_roi_many", "write_bop_split",
                 "GDRNTrainMapper", "do_train", "do_test", "train.main", "cus", "cou_bb_proj",
                 "predict.main", "eval_csv.main", "gen_xyz.main", "vis_records",
-                "visualize.main"]
+                "visualize.main", "compute_fps.main", "farthest_point_sampling_idx"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -320,7 +328,7 @@ def test_port_imports_no_jax():
         "            'utils.mask_utils', 'data.dataset_params', 'tools.validate_overfit',\n"
         "            'tools.validate_scale', 'tools.scale_run', 'utils.vis', 'data.visualize',\n"
         "            'data.font_simplex', 'data.device_augment', 'data.device_pipeline',\n"
-        "            'data.device_pool'):\n"
+        "            'data.device_pool', 'ops.fps', 'tools.compute_fps'):\n"
         "    assert 'gdrnet_tpu_torch.' + mod in names, names\n"
         "from gdrnet_tpu_torch import merged_config\n"
         f"merged_config({FLAGSHIP!r})\n"
